@@ -1,5 +1,6 @@
 """Wav I/O on the stdlib `wave` module (follows deepxi_tpu/data/wavio.py,
-without its native decoder)."""
+without its native decoder and its resampling): `read_wav`, `save_wav`,
+`wav_length`."""
 
 from __future__ import annotations
 
@@ -34,3 +35,13 @@ def save_wav(path: str, wav: np.ndarray, f_s: int) -> None:
         w.setsampwidth(2)
         w.setframerate(f_s)
         w.writeframes(wav.astype("<i2").tobytes())
+
+
+def wav_length(path: str, f_s: int = 16000) -> int:
+    """Sample count of a wav file without reading its samples. Rates other
+    than ``f_s`` raise, as in `read_wav`."""
+    with wave.open(path, "rb") as w:
+        n, rate = w.getnframes(), w.getframerate()
+    if rate != f_s:
+        raise ValueError(f"{path}: {rate} Hz; wav_length takes {f_s} Hz")
+    return n

@@ -1,5 +1,6 @@
 """Residual temporal convolutional networks (follows deepxi_tpu/models/tcn.py;
-so far `ResNetV2`, the resnet-1.1c/1.1n network).
+so far `ResNetV2`, the resnet-1.1c/1.1n network, and `init_flax_like`, a
+seeded initialisation that follows flax's).
 
 Activations are [B, T, C] and conv kernels [k, C_in, C_out], the JAX
 package's layouts, so parameters pass between the two packages unchanged.
@@ -55,7 +56,7 @@ def conv1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 class Conv1d(nn.Module):
     """Parameters of one causal conv: `kernel` [k, C_in, C_out] and `bias`
-    [C_out], zero until weights are loaded."""
+    [C_out], zero until weights are loaded or `init_flax_like` runs."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, d: int = 1):
         super().__init__()
@@ -83,7 +84,7 @@ class ResNetV2(nn.Module):
     scale-only LN -> ReLU, then n_blocks bottleneck blocks of three biased
     units with stat-only LN, then the output conv and activation. resnet-1.1c
     (40 blocks, d_model 256, d_f 64, k 3, max_d_rate 16) has 1,949,953
-    parameters. Weights come from `compat.artifact`."""
+    parameters. Weights come from `compat.artifact` or `init_flax_like`."""
 
     def __init__(self, n_feat: int, n_outp: int, n_blocks: int = 40,
                  d_model: int = 256, d_f: int = 64, k: int = 3,
@@ -110,3 +111,28 @@ class ResNetV2(nn.Module):
             h = self._unit(h, getattr(self, f"block{i}_u2_conv"))
             x = x + self._unit(h, getattr(self, f"block{i}_u3_conv"))
         return output_activation(self.out_conv(x), self.outp_act)
+
+
+# Standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance_scaling divides by it so the truncated draw keeps the variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_flax_like(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise in place as flax does, from `generator` (a CPU generator;
+    initialise on the CPU, then move): conv kernels lecun_normal, a normal
+    truncated to 2 standard deviations with variance 1 / fan_in and
+    fan_in = k * C_in; zero biases; `ff_ln.scale` ones. Modules are visited
+    in registration order. The numbers differ from flax's (another
+    generator); the distribution is the same."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Conv1d):
+                k, c_in, _ = m.kernel.shape
+                std = (k * c_in) ** -0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.kernel, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, ScaleNorm):
+                m.scale.fill_(1.0)
+    return net

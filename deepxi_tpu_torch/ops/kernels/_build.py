@@ -3,9 +3,9 @@ with ctypes (a plain C interface: no PyTorch headers, so a build takes
 seconds, not minutes).
 
 Each source `csrc/<name>.cu` becomes `build/lib<name>-<digest>.so`, where the
-digest covers the source and the flags, so an edited source never loads a
-stale library. `build/` is listed in `.gitignore`. Only sources in the
-repository are built.
+digest covers the source, the shared headers `csrc/*.cuh` and the flags, so an
+edited source never loads a stale library. `build/` is listed in
+`.gitignore`. Only sources in the repository are built.
 """
 
 from __future__ import annotations
@@ -41,8 +41,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its digest covers the source, every shared header
+    in `csrc/` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

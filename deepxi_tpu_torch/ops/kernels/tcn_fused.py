@@ -12,6 +12,10 @@ Each wrapper launches its kernel for a CUDA tensor and takes its plain
 version (`*_ref`, the same arithmetic in PyTorch) for a CPU tensor. Each has
 a plain-integer `launches` counter that counts kernel launches.
 
+These are inference routes: like `pallas_call`, they have no backward, and
+with autograd on they raise when an input or weight requires grad, on both
+devices. Training takes `tcn_fused_train.resnetv2_apply_fused_train`.
+
 The TPU layout knobs of the JAX module (`pack2`, `batch_group`) are left
 out: they reshape work for the TPU's matrix unit and do not change the
 function.
@@ -178,6 +182,15 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
                            f"({lib.tcn_error_string(rc).decode()})")
 
 
+def _refuse_autograd(tensors, what: str) -> None:
+    """Raise when autograd would record through an inference route."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward (as the Pallas kernel it replaces); run it "
+            "under torch.no_grad(), or train through "
+            "tcn_fused_train.resnetv2_apply_fused_train")
+
+
 def _whole_tile(x: torch.Tensor) -> int:
     """Time tile of the per-block kernel: the largest of 64/32/16 rows that
     still gives every SM a CTA, so short batches spread over the card."""
@@ -194,6 +207,8 @@ def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
                             k: int = 3) -> torch.Tensor:
     """Apply a group of causal ReLU->LN->W+b bottleneck blocks, one kernel
     launch per block ([B, T, d_model] -> same)."""
+    _refuse_autograd([x, *(w for bw in weights for w in bw)],
+                     "fused_block_group_whole")
     if x.device.type == "cpu":
         return fused_block_group_whole_ref(x, weights, dilations, k)
     packed = _check(x, weights, dilations, k)
@@ -224,6 +239,7 @@ def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
     time with a causal halo of sum (k-1)d rounded up to 8, one kernel launch
     per group. Raises ValueError when the halo exceeds the tile (as the JAX
     kernel does) or, on the card, when the window does not fit a CTA."""
+    _refuse_autograd([x, *(w for bw in weights for w in bw)], "fused_block_group")
     halo = _halo(dilations, k)
     if halo > tile_t:
         raise ValueError(f"group dilation reach {halo} exceeds tile_t "
@@ -268,7 +284,10 @@ def resnetv2_apply_fused(params: Dict[str, torch.Tensor], x: torch.Tensor,
     the fused group kernels; `params` is the flat dict of
     `models.tcn.ResNetV2.state_dict()`. Sequences of at most `whole_max_t`
     frames take the per-block kernel, longer ones the halo-tiled kernel with
-    `group` blocks per launch. `ff_conv` and `out_conv` stay matmuls."""
+    `group` blocks per launch. `ff_conv` and `out_conv` stay matmuls.
+    Forward only: raises under autograd when `x` or a parameter requires
+    grad."""
+    _refuse_autograd([x, *params.values()], "resnetv2_apply_fused")
     whole = x.shape[1] <= whole_max_t
     h = x @ params["ff_conv.kernel"][0] + params["ff_conv.bias"]
     h = torch.relu(layer_norm(h) * params["ff_ln.scale"])

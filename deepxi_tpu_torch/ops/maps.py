@@ -1,11 +1,11 @@
 """Invertible target maps (follows deepxi_tpu/ops/maps.py; so far the
 decibel helpers and `NormalCDF`, which with ``use_db`` is the published
-`DBNormalCDF` xi map)."""
+`DBNormalCDF` xi map, with its statistics fit `with_stats`)."""
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -30,9 +30,18 @@ class NormalCDF:
     mu: Optional[torch.Tensor] = None
     sigma: Optional[torch.Tensor] = None
 
+    def _pre(self, x: torch.Tensor) -> torch.Tensor:
+        return db(x) if self.use_db else x
+
+    def with_stats(self, sample: torch.Tensor) -> "NormalCDF":
+        """Per-bin mean and population std (ddof 0, as ``jnp.std``) of the
+        pre-transformed sample [N, bins]."""
+        t = self._pre(sample)
+        return replace(self, mu=t.mean(dim=0),
+                       sigma=t.std(dim=0, unbiased=False))
+
     def map(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_db:
-            x = db(x)
+        x = self._pre(x)
         return 0.5 * (1.0 + torch.special.erf(
             (x - self.mu) / (self.sigma * math.sqrt(2.0))))
 

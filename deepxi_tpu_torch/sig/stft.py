@@ -7,6 +7,8 @@
     frame is full.
   * The COLA-normalised synthesis window of
     ``tf.signal.inverse_stft_window_fn`` and shift-and-add overlap-add.
+  * `stft` / `polar_analysis` on the exact FFT (``torch.fft.rfft``), the
+    spectra of the training examples and the map statistics.
 
 Framing and overlap-add take Deep Xi's 50% overlap (N_d = 2 N_s) only.
 """
@@ -14,6 +16,7 @@ Framing and overlap-add take Deep Xi's 50% overlap (N_d = 2 N_s) only.
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -70,3 +73,19 @@ def overlap_and_add(frames: torch.Tensor, N_s: int) -> torch.Tensor:
     h1 = F.pad(frames[..., :N_s], (0, 0, 0, 1))
     h2 = F.pad(frames[..., N_s:], (0, 0, 1, 0))
     return (h1 + h2).reshape(frames.shape[:-2] + ((T - 1) * N_s + N_d,))
+
+
+def stft(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:
+    """Complex STFT [..., T, K//2+1]: frame (pad_end) -> symmetric Hamming
+    window -> rFFT of length K, as ``tf.signal.stft``. Training takes this
+    exact FFT, not the matmul DFT of `ops/kernels/spectral.py`."""
+    w = torch.as_tensor(_hamming_np(N_d), device=x.device)
+    frames = frame(x, N_d, N_s) * w
+    return torch.fft.rfft(frames, n=K, dim=-1)
+
+
+def polar_analysis(x: torch.Tensor, N_d: int, N_s: int,
+                   K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Short-time magnitude and phase spectra."""
+    X = stft(x, N_d, N_s, K)
+    return torch.abs(X), torch.angle(X)

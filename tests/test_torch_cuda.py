@@ -8,8 +8,9 @@ also runs where JAX is absent:
 import pytest
 import torch
 
-from deepxi_tpu_torch.models.tcn import cyclic_dilation
-from deepxi_tpu_torch.ops.kernels import tcn_fused
+from deepxi_tpu_torch.models.tcn import (ResNetV2, cyclic_dilation,
+                                         init_flax_like)
+from deepxi_tpu_torch.ops.kernels import tcn_fused, tcn_fused_train
 
 
 @pytest.fixture
@@ -55,3 +56,99 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
         tcn_fused.fused_block_group_whole(x.double(), w, dil)
     with pytest.raises(ValueError):
         tcn_fused.fused_block_group_whole(x[:, :, :128].contiguous(), w, dil)
+
+
+def _rel_err(a, ref):
+    """max |a - ref| over ref's max abs."""
+    return (a - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def _close(a, ref, rel):
+    """max |a - ref| within rel of ref's max abs (chip_smoke.py's limits)."""
+    return _rel_err(a, ref) <= rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 37), (2, 128), (4, 256)])
+def test_train_kernels_match_plain(cuda, B, T):
+    """The saving forward (out and every block input, 1e-4 of scale) and the
+    backward in saved and replay mode (dh and every weight gradient, 2e-4 of
+    each leaf's scale) at full width, G 10, dilations 1..16."""
+    gen = torch.Generator().manual_seed(T)
+    G = 10
+    w = tcn_fused.random_block_weights(G, gen, cuda)
+    dil = [cyclic_dilation(i, 16) for i in range(G)]
+    x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(cuda)
+    dout = (torch.randn(B, T, 256, generator=gen) * 1e-3).to(cuda)
+    out, hs = tcn_fused_train.fused_block_group_whole_saved(x, w, dil)
+    out_r, hs_r = tcn_fused_train.fused_block_group_whole_saved_ref(x, w, dil)
+    torch.cuda.synchronize()
+    assert hs.shape == (B, G, T, 256)
+    assert _close(out, out_r, 1e-4), _rel_err(out, out_r)
+    assert _close(hs, hs_r, 1e-4), _rel_err(hs, hs_r)
+    # the plain backward takes the kernel's block inputs (see chip_smoke.py:
+    # the plain forward's differ by rounding, which can flip a ReLU at 0)
+    dh_r, dw_r = tcn_fused_train.fused_block_group_bwd_ref(x, dout, w, dil,
+                                                          saved_h=hs)
+    for saved in (hs, None):
+        dh, dw = tcn_fused_train.fused_block_group_bwd(x, dout, w, dil,
+                                                       saved_h=saved)
+        torch.cuda.synchronize()
+        assert _close(dh, dh_r, 2e-4), _rel_err(dh, dh_r)
+        for g in range(G):
+            for leaf, ref in zip(dw[g], dw_r[g]):
+                assert leaf.shape == ref.shape
+                assert _close(leaf, ref, 2e-4), (g, _rel_err(leaf, ref))
+
+
+@pytest.mark.cuda
+def test_weight_gradients_are_deterministic(cuda):
+    """Two calls give bitwise equal gradients: the splits of the batch rows
+    are summed in a fixed order, with no atomics."""
+    gen = torch.Generator().manual_seed(1)
+    w = tcn_fused.random_block_weights(10, gen, cuda)
+    dil = [cyclic_dilation(i, 16) for i in range(10)]
+    x = torch.relu(torch.randn(8, 256, 256, generator=gen)).to(cuda)
+    dout = torch.randn(8, 256, 256, generator=gen).to(cuda)
+    _, hs = tcn_fused_train.fused_block_group_whole_saved(x, w, dil)
+    runs = [tcn_fused_train.fused_block_group_bwd(x, dout, w, dil, saved_h=hs)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for g in range(10):
+        for a, b in zip(runs[0][1][g], runs[1][1][g]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_acts", [True, False])
+def test_apply_fused_train_matches_plain_autograd(cuda, save_acts):
+    """Gradients of the fused stack against autograd of the plain ResNetV2,
+    10 blocks at full width, groups of 4 (a ragged last group); the seeded
+    flax-style initialisation with biases shifted off zero. Few frames: the
+    more pre-activations, the likelier one lies within f32 rounding of 0,
+    where the two forwards can take opposite sides of a ReLU (at B=2, T=200
+    both f32 versions then differ from float64 by 4e-2)."""
+    gen = torch.Generator().manual_seed(2)
+    net = init_flax_like(ResNetV2(257, 257, n_blocks=10), gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.05)
+    net.to(cuda)
+    x = torch.rand(2, 64, 257, generator=gen).to(cuda)
+    tgt = torch.rand(2, 64, 257, generator=gen).to(cuda)
+    params = dict(net.named_parameters())
+    n = [tcn_fused_train.fused_block_group_whole_saved.launches,
+         tcn_fused_train.fused_block_group_bwd.launches]
+    pred = tcn_fused_train.resnetv2_apply_fused_train(
+        params, x, n_blocks=10, group=4, save_acts=save_acts)
+    g_fused = torch.autograd.grad(torch.square(pred - tgt).mean(), list(params.values()))
+    g_plain = torch.autograd.grad(torch.square(net(x) - tgt).mean(),
+                                  list(params.values()))
+    torch.cuda.synchronize()
+    assert n[0] + (10 if save_acts else 0) == \
+        tcn_fused_train.fused_block_group_whole_saved.launches
+    assert tcn_fused_train.fused_block_group_bwd.launches > n[1]
+    for name, a, b in zip(params, g_fused, g_plain):
+        assert _close(a, b, 2e-4), (name, _rel_err(a, b))
