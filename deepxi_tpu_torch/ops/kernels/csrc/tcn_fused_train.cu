@@ -35,10 +35,10 @@
 // (w1t [64, 256], w2t[j] = W2[j]^T, w3t [256, 64]).
 //
 // What bounds it on this card: per row and block the backward computes the
-// products three times over (recompute, input gradients, weight gradients:
-// 270,336 FLOP) against ~4 KB of activations and gradients moved, so it is
-// bound by operations: 22.1 GFLOP for 40 blocks at B 8, T 256, 0.33 ms at the
-// 67 TFLOP/s f32 CUDA-core peak.
+// recompute's two products (57,344 FLOP), the input gradients (90,112) and
+// the weight gradients (90,112), 237,568 FLOP against ~4 KB of activations
+// and gradients moved, so it is bound by operations: 19.5 GFLOP for 40
+// blocks at B 8, T 256, 0.29 ms at the 67 TFLOP/s f32 CUDA-core peak.
 
 #include "tcn_common.cuh"
 

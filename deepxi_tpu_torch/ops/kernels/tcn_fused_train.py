@@ -38,6 +38,11 @@ from deepxi_tpu_torch.ops.kernels.tcn_fused import (KERNEL_D_F, KERNEL_D_MODEL,
                                                     block_weights)
 
 _EPS = 1e-6
+# ReLU inputs within this of 0 are ties: two f32 evaluations of one
+# pre-activation (192- or 256-term products summed in other orders, ~1e-6
+# apart at the blocks' O(1) scale) can fall on opposite sides of 0, and so
+# can the backward's mask.
+TIE_TOL = 1e-5
 # Splits of the B*T rows in the weight-gradient kernel: 11 output tiles times
 # up to 12 splits fill the 132 SMs; at least 128 rows a split.
 _MAX_SPLITS, _ROWS_PER_SPLIT = 12, 128
@@ -65,30 +70,42 @@ def fused_block_group_whole_saved_ref(x: torch.Tensor,
     return h, torch.stack(hs, dim=1)
 
 
+def _block_preacts(h: torch.Tensor, bw: BlockWeights, dil: int, k: int):
+    """A block's forward up to its ReLU inputs: (a, u1, a2p, y), a2p with
+    the conv's (k-1)*dil zero rows before t = 0."""
+    T = h.shape[1]
+    a = layer_norm(torch.relu(h))
+    u1 = a @ bw.w1[0] + bw.b1
+    a2p = F.pad(layer_norm(torch.relu(u1)), (0, 0, (k - 1) * dil, 0))
+    y = bw.b2 + sum(a2p[:, j * dil: j * dil + T] @ bw.w2[j] for j in range(k))
+    return a, u1, a2p, y
+
+
 def _block_bwd_ref(h: torch.Tensor, d: torch.Tensor, bw: BlockWeights,
-                   dil: int, k: int) -> Tuple[torch.Tensor, BlockWeights]:
+                   dil: int, k: int, flips: Sequence[Tuple[str, tuple]] = ()
+                   ) -> Tuple[torch.Tensor, BlockWeights]:
     """One block's backward at block input h and output gradient d, the
-    arithmetic of the Pallas body (tcn_fused_train.py:207-246)."""
+    arithmetic of the Pallas body (tcn_fused_train.py:207-246). `flips`
+    lists ("u1" or "y", (b, t, f)) ReLU inputs whose mask is inverted."""
     T = h.shape[1]
     r = (k - 1) * dil
     z0 = torch.relu(h)
-    a = layer_norm(z0)
-    u1 = a @ bw.w1[0] + bw.b1
-    z1 = torch.relu(u1)
-    a2p = F.pad(layer_norm(z1), (0, 0, r, 0))
-    y = bw.b2 + sum(a2p[:, j * dil: j * dil + T] @ bw.w2[j] for j in range(k))
-    z2 = torch.relu(y)
+    a, u1, a2p, y = _block_preacts(h, bw, dil, k)
+    z1, z2 = torch.relu(u1), torch.relu(y)
     a3 = layer_norm(z2)
+    masks = {"u1": u1 > 0, "y": y > 0}
+    for name, idx in flips:
+        masks[name][idx] = ~masks[name][idx]
 
     da3 = d @ bw.w3[0].T
     dw3 = torch.einsum("btf,btc->fc", a3, d)[None]
-    dy = _ln_bwd(da3, z2) * (y > 0)
+    dy = _ln_bwd(da3, z2) * masks["y"]
     dw2 = torch.stack([torch.einsum("btf,btg->fg", a2p[:, j * dil: j * dil + T], dy)
                        for j in range(k)])
     dyp = F.pad(dy, (0, 0, 0, r))
     da2 = sum(dyp[:, (k - 1 - j) * dil: (k - 1 - j) * dil + T] @ bw.w2[j].T
               for j in range(k))
-    du1 = _ln_bwd(da2, z1) * (u1 > 0)
+    du1 = _ln_bwd(da2, z1) * masks["u1"]
     dw1 = torch.einsum("btc,btf->cf", a, du1)[None]
     dh = d + _ln_bwd(du1 @ bw.w1[0].T, z0) * (h > 0)
     return dh, BlockWeights(dw1, du1.sum((0, 1)), dw2, dy.sum((0, 1)), dw3,
@@ -98,16 +115,67 @@ def _block_bwd_ref(h: torch.Tensor, d: torch.Tensor, bw: BlockWeights,
 def fused_block_group_bwd_ref(h0: torch.Tensor, dout: torch.Tensor,
                               weights: Sequence[BlockWeights],
                               dilations: Sequence[int], k: int = 3,
-                              saved_h: Optional[torch.Tensor] = None
+                              saved_h: Optional[torch.Tensor] = None,
+                              flips: Sequence[Tuple[int, str, tuple]] = ()
                               ) -> Tuple[torch.Tensor, List[BlockWeights]]:
     """Plain version of the group backward: replays the forward when
-    `saved_h` is None, then walks the blocks in reverse."""
+    `saved_h` is None, then walks the blocks in reverse. `flips` lists
+    (block, "u1" or "y", (b, t, f)) ReLU masks to invert (see `relu_ties`)."""
     if saved_h is None:
         _, saved_h = fused_block_group_whole_saved_ref(h0, weights, dilations, k)
     d, dws = dout, [None] * len(weights)
     for g in range(len(weights) - 1, -1, -1):
-        d, dws[g] = _block_bwd_ref(saved_h[:, g], d, weights[g], dilations[g], k)
+        d, dws[g] = _block_bwd_ref(saved_h[:, g], d, weights[g], dilations[g], k,
+                                   [f[1:] for f in flips if f[0] == g])
     return d, dws
+
+
+def relu_ties(saved_h: torch.Tensor, weights: Sequence[BlockWeights],
+              dilations: Sequence[int], k: int = 3, tol: float = TIE_TOL
+              ) -> List[Tuple[int, str, tuple]]:
+    """The group's ReLU inputs u1 and y within `tol` of 0, as
+    (block, "u1" or "y", (b, t, f)), from the block inputs `saved_h`."""
+    ties = []
+    for g, (bw, dil) in enumerate(zip(weights, dilations)):
+        _, u1, _, y = _block_preacts(saved_h[:, g], bw, dil, k)
+        for name, v in (("u1", u1), ("y", y)):
+            ties += [(g, name, tuple(i)) for i in
+                     torch.nonzero(v.abs() <= tol).tolist()]
+    return ties
+
+
+def _worst_rel(got, ref) -> float:
+    """Worst over dh and every weight-gradient leaf of max |got - ref| over
+    the leaf's max abs, for (dh, [BlockWeights]) pairs."""
+    pairs = [(got[0], ref[0])] + [(a, r) for gw, rw in zip(got[1], ref[1])
+                                  for a, r in zip(gw, rw)]
+    return max((a - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+               for a, r in pairs)
+
+
+def bwd_ref_up_to_ties(got, h0: torch.Tensor, dout: torch.Tensor,
+                       weights: Sequence[BlockWeights],
+                       dilations: Sequence[int], saved_h: torch.Tensor,
+                       rel: float, k: int = 3):
+    """Hold a backward `got` = (dh, [BlockWeights]) against the plain
+    version at the block inputs `saved_h`, letting each ReLU tie take the
+    side `got` took: while the worst leaf error exceeds `rel`, a tie's mask
+    is inverted in the plain version where that lowers the error. Returns
+    (the plain (dh, [BlockWeights]), its worst leaf error, the flips kept).
+    A wrong gradient is not explained by ties, which change only the rows
+    and leaves a near-zero ReLU input reaches."""
+    ref = fused_block_group_bwd_ref(h0, dout, weights, dilations, k, saved_h)
+    err, kept = _worst_rel(got, ref), []
+    if err > rel:
+        for tie in relu_ties(saved_h, weights, dilations, k):
+            trial = fused_block_group_bwd_ref(h0, dout, weights, dilations, k,
+                                              saved_h, kept + [tie])
+            e = _worst_rel(got, trial)
+            if e < err:
+                ref, err, kept = trial, e, kept + [tie]
+            if err <= rel:
+                break
+    return ref, err, kept
 
 
 @functools.lru_cache(maxsize=None)

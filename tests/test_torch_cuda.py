@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-These tests skip themselves without a card. This file imports no JAX, so it
-also runs where JAX is absent:
+The card tests skip themselves without a card; the test of the tie-aware
+comparison they use runs on the CPU. This file imports no JAX, so it also
+runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
@@ -69,11 +70,13 @@ def _close(a, ref, rel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(1, 37), (2, 128), (4, 256)])
+@pytest.mark.parametrize("B,T", [(1, 37), (2, 128), (4, 256), (8, 256)])
 def test_train_kernels_match_plain(cuda, B, T):
     """The saving forward (out and every block input, 1e-4 of scale) and the
     backward in saved and replay mode (dh and every weight gradient, 2e-4 of
-    each leaf's scale) at full width, G 10, dilations 1..16."""
+    each leaf's scale) at full width, G 10, dilations 1..16. (8, 256) is the
+    train step's shape: 12 weight-gradient row splits of 170 or 171 rows,
+    whose edges fall inside utterances and 32-row chunks."""
     gen = torch.Generator().manual_seed(T)
     G = 10
     w = tcn_fused.random_block_weights(G, gen, cuda)
@@ -87,18 +90,47 @@ def test_train_kernels_match_plain(cuda, B, T):
     assert _close(out, out_r, 1e-4), _rel_err(out, out_r)
     assert _close(hs, hs_r, 1e-4), _rel_err(hs, hs_r)
     # the plain backward takes the kernel's block inputs (see chip_smoke.py:
-    # the plain forward's differ by rounding, which can flip a ReLU at 0)
-    dh_r, dw_r = tcn_fused_train.fused_block_group_bwd_ref(x, dout, w, dil,
-                                                          saved_h=hs)
+    # the plain forward's differ by rounding, which can flip a ReLU at 0),
+    # and a ReLU input within 1e-5 of 0 inside a block takes the kernel's
+    # side (at (8, 256) one u1 lies 1.3e-7 from 0)
     for saved in (hs, None):
         dh, dw = tcn_fused_train.fused_block_group_bwd(x, dout, w, dil,
                                                        saved_h=saved)
         torch.cuda.synchronize()
-        assert _close(dh, dh_r, 2e-4), _rel_err(dh, dh_r)
+        (dh_r, dw_r), _, flips = tcn_fused_train.bwd_ref_up_to_ties(
+            (dh, dw), x, dout, w, dil, hs, 2e-4)
+        assert len(flips) <= 2, flips
+        assert _close(dh, dh_r, 2e-4), (_rel_err(dh, dh_r), flips)
         for g in range(G):
             for leaf, ref in zip(dw[g], dw_r[g]):
                 assert leaf.shape == ref.shape
-                assert _close(leaf, ref, 2e-4), (g, _rel_err(leaf, ref))
+                assert _close(leaf, ref, 2e-4), (g, _rel_err(leaf, ref), flips)
+
+
+def test_tie_check_takes_the_kernels_side_and_no_more():
+    """`bwd_ref_up_to_ties` explains a backward that took the other side of
+    a ReLU input within 1e-5 of 0, and does not explain a wrong gradient."""
+    gen = torch.Generator().manual_seed(3)
+    dil = [1, 2]
+    w = tcn_fused.random_block_weights(2, gen, "cpu", d_model=32, d_f=16)
+    x = torch.relu(torch.randn(2, 16, 32, generator=gen))
+    dout = torch.randn(2, 16, 32, generator=gen)
+    _, hs = tcn_fused_train.fused_block_group_whole_saved_ref(x, w, dil)
+    # put block 1's u1 at (1, 9, 3) 1e-7 from 0 through its bias
+    _, u1, _, _ = tcn_fused_train._block_preacts(hs[:, 1], w[1], dil[1], 3)
+    w[1].b1[3] -= u1[1, 9, 3] - 1e-7
+    tie = (1, "u1", (1, 9, 3))
+    assert tie in tcn_fused_train.relu_ties(hs, w, dil)
+    plain = tcn_fused_train.fused_block_group_bwd_ref(x, dout, w, dil, saved_h=hs)
+    got = tcn_fused_train.fused_block_group_bwd_ref(x, dout, w, dil, saved_h=hs,
+                                                    flips=[tie])
+    assert tcn_fused_train._worst_rel(got, plain) > 1e-3
+    _, err, flips = tcn_fused_train.bwd_ref_up_to_ties(got, x, dout, w, dil, hs, 2e-4)
+    assert flips == [tie] and err == 0.0
+    wrong = (got[0], [type(bw)(*(t.clone() for t in bw)) for bw in got[1]])
+    wrong[1][0].w2[1, 2, 3] += 1e-2 * wrong[1][0].w2.abs().max()
+    _, err, _ = tcn_fused_train.bwd_ref_up_to_ties(wrong, x, dout, w, dil, hs, 2e-4)
+    assert err > 2e-4
 
 
 @pytest.mark.cuda
