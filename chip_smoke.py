@@ -10,12 +10,24 @@ Phases (any failure exits non-zero before the result line):
   2. each kernel against its plain PyTorch version on the card at full width
      (d_model 256, d_f 64, k 3, seeded weights with nonzero biases): the two
      inference kernels, the training stack's saving forward, and its
-     backward with saved block inputs and with a replayed forward;
+     backward with saved block inputs and with a replayed forward; then the
+     MHANet kernels (d_model 256, 8 heads of 32, d_ff 1024, LN scales != 1,
+     padded tails of zero frames): the fused transformer block at T=250 and
+     T=2048, flash_attention at T=250 and T=700, the streaming attention at
+     T=2250, causal and not;
   3. the enhancement path: the checked-in trained resnet-1.1c artifact
      enhances its 4 s noisy utterance (T=250, per-block kernel) and the same
      utterance tiled five times (T=1250, halo-tiled kernel); both kernels
      must launch, the outputs must agree with the port's plain path on the
      same card, and the enhanced SNR must beat the noisy SNR;
+  3c. the MHANet path: `DeepXiTorch(preset("mhanet-1.1c")).infer()` enhances
+     a test directory with the checked-in trained mhanet-1.1c artifact's 4 s
+     utterance (T=256 after bucketing: fused transformer blocks) and the same
+     utterance tiled 9 times (36 s, T=2272 > 2048: streaming attention), then
+     the 4 s utterance with attention_impl "fused" (flash_attention); each
+     kernel must launch, network outputs on valid frames and the written
+     waveforms must agree with the plain MHANetV3 on the same card, and the
+     enhanced SNR must beat the noisy SNR;
   3b. the training path: `DeepXiTorch.train()` at full width (resnet-1.1c,
      B=8, 2 epochs of 2 steps) on a synthetic corpus written to a temporary
      directory; both training kernels must launch, the losses must be
@@ -27,7 +39,10 @@ Phases (any failure exits non-zero before the result line):
   4. times from CUDA events after warm-up: each kernel and its plain version
      at the main-path shapes (and the inference kernels at B=96, T=625), the
      end-to-end enhance, and one train step, fused against plain (median,
-     min and max over 30 and 10 steps).
+     min and max over 30 and 10 steps); the MHANet kernels with their plain
+     versions and a library yardstick (nn.TransformerEncoderLayer, or
+     scaled_dot_product_attention with the same float mask; checked first
+     on valid rows) and mhanet-1.1c enhancement, fused against plain.
 The last three lines are the card line, the kernels JSON and the result JSON.
 """
 
@@ -62,6 +77,9 @@ CKPT_TOL = 1e-6
 NET_ATOL = 1e-3
 WAVE_ATOL = 1e-3
 WAVE_REL_RMS = 1e-3
+# A library yardstick against the kernel on valid rows before it is timed:
+# cuBLAS/SDPA f32 sums in other orders, through two LayerNorms.
+LIB_TOL_REL = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -77,6 +95,11 @@ BWD_FLOPS_PER_ROW = RECOMPUTE_FLOPS_PER_ROW + 2 * BLOCK_FLOPS_PER_ROW
 BLOCK_FLOATS = 256 * 64 + 64 + 3 * 64 * 64 + 64 + 64 * 256 + 256
 # The training shapes: the preset's mini-batch of 4.096 s buckets, G = 10.
 TRAIN_B, TRAIN_T, TRAIN_G = 8, 256, 10
+# Product FLOPs of one MHANet transformer block per row: q, k, v and output
+# projections 256x256 each, FFN 256->1024->256; attention adds 4 * 256 per
+# (row, key). Floats of one block's weights.
+MHA_BLOCK_FLOPS_PER_ROW = 2 * (3 * 256 * 256 + 256 * 256 + 2 * 256 * 1024)
+MHA_BLOCK_FLOATS = 4 * 8 * 256 * 32 + 4 * 256 + 256 * 1024 + 1024 + 1024 * 256 + 256
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -147,6 +170,30 @@ def train_bound_ms(B, T, G, flops_per_row, act_rows, grads):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def keys_needed(T, causal):
+    """Mean keys a valid query row needs: all T, or (T + 1) / 2 when causal
+    (row t needs keys 0..t)."""
+    return (T + 1) / 2 if causal else T
+
+
+def roofline_ms(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mha_block_bound_ms(B, T, causal):
+    """Least time of one transformer block on B x T valid rows: x read and
+    the output written once, the weights read once."""
+    flops = B * T * (MHA_BLOCK_FLOPS_PER_ROW + 4 * 256 * keys_needed(T, causal))
+    return roofline_ms(flops, 4 * (2 * B * T * 256 + MHA_BLOCK_FLOATS))
+
+
+def attention_bound_ms(B, T, causal):
+    """Least time of the masked attention on B x T valid rows: q, k, v read
+    and the output written once."""
+    return roofline_ms(B * T * 4 * 256 * keys_needed(T, causal), 4 * 4 * B * T * 256)
+
+
 def errs(pairs):
     """(max abs error, max error over each reference's max abs) of
     (value, reference) pairs."""
@@ -154,6 +201,26 @@ def errs(pairs):
     rel = max((a - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
               for a, r in pairs)
     return ab, rel
+
+
+def encoder_layer(w, dev):
+    """nn.TransformerEncoderLayer holding one MHANet block's weights (zero
+    in/out projection biases): the library yardstick of the fused block."""
+    layer = torch.nn.TransformerEncoderLayer(
+        256, 8, 1024, dropout=0.0, activation="relu", layer_norm_eps=1e-6,
+        batch_first=True, norm_first=False).to(dev).eval()
+    flat = [t.permute(1, 0, 2).reshape(256, 256) for t in (w.qk, w.kk, w.vk)]
+    layer.self_attn.in_proj_weight.copy_(torch.cat([f.T for f in flat], 0))
+    layer.self_attn.in_proj_bias.zero_()
+    layer.self_attn.out_proj.weight.copy_(w.ok.reshape(256, 256).T)
+    layer.self_attn.out_proj.bias.zero_()
+    for lin, wt, b in ((layer.linear1, w.ff1_w, w.ff1_b), (layer.linear2, w.ff2_w, w.ff2_b)):
+        lin.weight.copy_(wt.T)
+        lin.bias.copy_(b)
+    for ln, sc, b in ((layer.norm1, w.ln1_s, w.ln1_b), (layer.norm2, w.ln2_s, w.ln2_b)):
+        ln.weight.copy_(sc)
+        ln.bias.copy_(b)
+    return layer
 
 
 def write_corpus(root, seed=0):
@@ -200,15 +267,21 @@ def main():
     from torch.func import functional_call
     from deepxi_tpu_torch.ops.kernels.spectral import stft_mag
     from deepxi_tpu_torch.sig.mix import normalise
+    from deepxi_tpu_torch.compat.artifact import MHANET_ROOT, load_artifact
+    from deepxi_tpu_torch.data.loader import bucket_length
+    from deepxi_tpu_torch.data.wavio import read_wav, save_wav
+    from deepxi_tpu_torch.models.attention import sequence_valid_mask
+    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_flash_stream,
+                                              mha_fused)
 
     dev = torch.device("cuda")
     card = card_line()
-    name = torch.cuda.get_device_name(0)
 
     # 1. device and build -------------------------------------------------
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build_s = _build.build(["tcn_fused", "tcn_fused_train"])
+    build_s = _build.build(["tcn_fused", "tcn_fused_train", "mha_attention",
+                            "mha_block_fused"])
     print(f"[1] build: {time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
     for lib in build_s:
@@ -285,6 +358,51 @@ def main():
     same = all(torch.equal(a, b) for a, b in zip(modes["saved"], modes["replay"]))
     print(f"[2] fused_block_group_bwd: replay and saved modes bitwise equal: {same}")
 
+    # the MHANet kernels at full width, inputs with padded tails of zero
+    # frames (invalid), every row compared
+    def padded(B, T, lengths):
+        return torch.arange(T)[None, :] < torch.as_tensor(lengths)[:, None]
+
+    def heads(B, T, lengths):
+        """q (scaled), k, v [B, T, 8, 32], zero past each length, and valid."""
+        valid = padded(B, T, lengths)
+        q, k, v = (torch.randn(B, T, 8, 32, generator=gen) * valid[:, :, None, None]
+                   for _ in range(3))
+        return [t.to(dev) for t in (q * 32 ** -0.5, k, v, valid)]
+
+    def check(kname, label, y, y_ref):
+        torch.cuda.synchronize()
+        err, scale = (y - y_ref).abs().max().item(), y_ref.abs().max().item()
+        print(f"[2] {kname}: {label}: max abs err {err:.3e}, max rel err "
+              f"{err / scale:.3e} (tol {KERNEL_TOL_REL:.0e} rel), finite "
+              f"{bool(torch.isfinite(y).all())}")
+        if not (err <= KERNEL_TOL_REL * scale and torch.isfinite(y).all()):
+            fail(f"{kname} disagrees with its plain version")
+        checks[kname] = max(checks.get(kname, 0.0), err)
+
+    w_mha = mha_block_fused.random_block_weights(gen, dev)
+    for T, lengths in ((250, [250, 250, 201, 128]), (2048, [2048, 1990, 1500, 700])):
+        Tp = -(-T // 128) * 128
+        valid = padded(4, Tp, lengths)
+        x = (torch.randn(4, Tp, 256, generator=gen) * valid[:, :, None]).to(dev)
+        vf = valid[:, None, :].float().to(dev)
+        check("fused_transformer_block", f"B=4 T={T} (Tp {Tp}, lengths {lengths}), causal",
+              mha_block_fused.fused_transformer_block(x, vf, w_mha, True),
+              mha_block_fused.fused_transformer_block_ref(x, vf, w_mha, True))
+    attention_cases = (
+        ("flash_attention", mha_fused.flash_attention, mha_fused.flash_attention_ref,
+         {}, 4, ((250, [250, 230, 128, 61]), (700, [700, 650, 333, 64]))),
+        ("flash_attention_streaming", mha_flash_stream.flash_attention_streaming,
+         mha_flash_stream.flash_attention_streaming_ref,
+         {"block_q": 256, "block_k": 512}, 2, ((2250, [2250, 1700]),)))
+    for kname, kernel, ref, kw, B, shapes_ in attention_cases:
+        for T, lengths in shapes_:
+            q, k, v, valid = heads(B, T, lengths)
+            for causal in (True, False):
+                check(kname, f"B={B} T={T} (lengths {lengths}) {kw or ''}, "
+                      f"causal {causal}", kernel(q, k, v, valid, causal, **kw),
+                      ref(q, k, v, valid, causal, **kw))
+
     # 3. the enhancement path -----------------------------------------------
     art = load_flagship_artifact(device=dev)
     fused = lambda p, m: tcn_fused.resnetv2_apply_fused(p, m)  # noqa: E731
@@ -329,6 +447,82 @@ def main():
             fail(f"{k}: fused path disagrees with the plain path")
         if snr_enh <= snr_noisy:
             fail(f"{k}: enhanced SNR does not beat noisy SNR")
+
+    # 3c. the MHANet path ---------------------------------------------------
+    art_m = load_artifact(device=dev)
+    mha_counted = {"fused_transformer_block": mha_block_fused.fused_transformer_block,
+                   "flash_attention": mha_fused.flash_attention,
+                   "flash_attention_streaming": mha_flash_stream.flash_attention_streaming}
+    counted.update(mha_counted)
+    utts_m = {"c012_white_5dB": (art_m.noisy, art_m.clean),
+              "c012_white_5dB_x9": (np.tile(art_m.noisy, 9), np.tile(art_m.clean, 9))}
+    tmp = tempfile.mkdtemp(prefix="deepxi_chip_smoke_mha_")
+    try:
+        dirs = {k: os.path.join(tmp, k) for k in ("test", "test_4s", "data")}
+        for utt, (x, _) in utts_m.items():
+            save_wav(os.path.join(dirs["test"], utt + ".wav"), x, 16000)
+        save_wav(os.path.join(dirs["test_4s"], "c012_white_5dB.wav"), art_m.noisy, 16000)
+        os.makedirs(dirs["data"])
+        shutil.copy(os.path.join(MHANET_ROOT, "stats.npz"),
+                    os.path.join(dirs["data"], "mhanet-1.1c_stats.npz"))
+        cfg_m = preset("mhanet-1.1c", data_path=dirs["data"],
+                       out_path=os.path.join(tmp, "out"))
+        runs = {}
+        for impl, test_dir in (("full", dirs["test"]), ("fused", dirs["test_4s"])):
+            dx_m = DeepXiTorch(cfg_m.replace(attention_impl=impl,
+                                             out_path=os.path.join(tmp, "out", impl)),
+                               device=dev)
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            written = dx_m.infer(params=art_m.params, test_x_path=test_dir)
+            torch.cuda.synchronize()
+            n = {k: fn.launches for k, fn in mha_counted.items()}
+            print(f"[3c] DeepXiTorch(preset('mhanet-1.1c', attention_impl={impl!r}))"
+                  f".infer(): {len(written)} wavs in {(time.perf_counter() - t0) * 1e3:.1f} "
+                  f"ms; launches {n}")
+            runs[impl] = (dx_m, {os.path.basename(p)[:-4]: p for p in written}, n)
+        launches.update({k: runs["full"][2][k] for k in
+                         ("fused_transformer_block", "flash_attention_streaming")})
+        launches["flash_attention"] = runs["fused"][2]["flash_attention"]
+        for kname in mha_counted:
+            if launches[kname] < 1:
+                fail(f"{kname} was not launched on its route through DeepXiTorch.infer")
+
+        enhance_plain_m = make_enhancer(art_m.inp_tgt, art_m.net, "mmse-lsa", device=dev)
+        for label, impl, utt in (("4 s, fused transformer blocks", "full", "c012_white_5dB"),
+                                 ("36 s, streaming attention", "full", "c012_white_5dB_x9"),
+                                 ("4 s, flash_attention", "fused", "c012_white_5dB")):
+            dx_m, written, _ = runs[impl]
+            x, clean = utts_m[utt]
+            xp = np.zeros((1, bucket_length(len(x), 256)), np.int16)
+            xp[0, :len(x)] = x
+            mag = stft_mag(normalise(torch.as_tensor(xp, device=dev)), 512, 256, 512)
+            apply = dx_m.fast_apply() or (
+                lambda p, m: functional_call(dx_m.network, p, (m,)))  # noqa: B023
+            with torch.no_grad():
+                valid = sequence_valid_mask(mag)[0]
+                net_err = (apply(art_m.params, mag) - art_m.net(mag))[0][valid].abs().max().item()
+            n_out = (-(-len(x) // 256) + 1) * 256
+            y_plain = enhance_plain_m(art_m.params, xp)[0, :n_out].cpu().numpy()
+            y_plain = np.asarray(y_plain * 32768.0, np.int16) / 32768.0  # as save_wav
+            y = read_wav(written[utt])[0] / 32768.0
+            w_err = np.abs(y - y_plain).max()
+            w_rel = np.sqrt(np.mean((y - y_plain) ** 2) / np.mean(y_plain ** 2))
+            snr_noisy, snr_enh = snr_db(clean, x / 32768.0), snr_db(clean, y)
+            print(f"[3c] {label}: T={mag.shape[1]} ({int(valid.sum())} valid frames), "
+                  f"wav {y.shape[0]} samples; net max abs err on valid frames "
+                  f"{net_err:.3e} (tol {NET_ATOL:.0e}), wave max abs err {w_err:.3e} (tol "
+                  f"{WAVE_ATOL:.0e}), rel RMS {w_rel:.3e} (tol {WAVE_REL_RMS:.0e}); "
+                  f"SNR noisy {snr_noisy:.3f} dB -> enhanced {snr_enh:.3f} dB")
+            if not np.isfinite(y).all() or y.shape[0] != n_out:
+                fail(f"{label}: output not finite or of the wrong length")
+            if net_err > NET_ATOL or w_err > WAVE_ATOL or w_rel > WAVE_REL_RMS:
+                fail(f"{label}: the kernel route disagrees with the plain MHANetV3")
+            if snr_enh <= snr_noisy:
+                fail(f"{label}: enhanced SNR does not beat noisy SNR")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # 3b. the training path -------------------------------------------------
     tmp = tempfile.mkdtemp(prefix="deepxi_chip_smoke_")
@@ -542,9 +736,90 @@ def main():
                       f"{audio_s / step_ms[arm] * 1e3:.1f} audio-s/s, peak "
                       f"{peak_mb[arm]:.0f} MiB)" for arm in step_ms))
 
+    # the MHANet kernels (causal, all rows valid) and mhanet-1.1c enhancement
+    neg = mha_fused.NEG_INF_V2
+    with torch.no_grad():
+        layer = encoder_layer(w_mha, dev)
+        row = {"name": "fused_transformer_block", "route": "cuda",
+               "source": "deepxi_tpu_torch/ops/kernels/csrc/mha_block_fused.cu",
+               "replaces": "deepxi_tpu/ops/kernels/mha_block_fused.py:72",
+               "launches": launches["fused_transformer_block"],
+               "max_abs_err": checks["fused_transformer_block"]}
+        for i, (B, T) in enumerate(((1, 250), (64, 625))):
+            Tp = -(-T // 128) * 128
+            valid = padded(B, Tp, [T] * B).to(dev)
+            x = (torch.randn(B, Tp, 256, generator=gen).to(dev) * valid[:, :, None])
+            vf = valid[:, None, :].float()
+            allowed = (valid[:, :, None] & valid[:, None, :]
+                       & torch.ones(Tp, Tp, dtype=torch.bool, device=dev).tril())
+            mask = (neg * (1.0 - allowed.float())).repeat_interleave(8, 0)
+            y = mha_block_fused.fused_transformer_block(x, vf, w_mha, True)
+            lib_rel = ((layer(x, src_mask=mask) - y)[valid].abs().max()
+                       / y[valid].abs().max()).item()
+            if lib_rel > LIB_TOL_REL:
+                fail(f"nn.TransformerEncoderLayer is not the block's function ({lib_rel:.3e})")
+            ms = cuda_ms(lambda: mha_block_fused.fused_transformer_block(x, vf, w_mha, True))
+            plain = cuda_ms(lambda: mha_block_fused.fused_transformer_block_ref(
+                x, vf, w_mha, True))
+            lib = cuda_ms(lambda: layer(x, src_mask=mask))
+            bound, by = mha_block_bound_ms(B, T, True)
+            print(f"[4] fused_transformer_block: one block at B={B} T={T} (Tp {Tp}): "
+                  f"{ms:.4f} ms; plain {plain:.4f} ms; nn.TransformerEncoderLayer "
+                  f"{lib:.4f} ms (valid rows within {lib_rel:.1e} rel); bound {bound:.4f} "
+                  f"ms ({by}); {bound / ms:.1%} of the bound")
+            times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         library_ms=lib, shape={"B": B, "T": T, "causal": True})
+            row.update(times if i == 0 else {"at_b64_t625": times})
+        kernels.append(row)
+        del layer, mask
+
+        for kname, kernel, ref, kw, _, _ in attention_cases:
+            row = {"name": kname, "route": "cuda",
+                   "source": "deepxi_tpu_torch/ops/kernels/csrc/mha_attention.cu",
+                   "replaces": ("deepxi_tpu/ops/kernels/mha_fused.py:49"
+                                if kname == "flash_attention" else
+                                "deepxi_tpu/ops/kernels/mha_flash_stream.py:53"),
+                   "launches": launches[kname], "max_abs_err": checks[kname]}
+            for i, T in enumerate((250, 2250)):
+                q, k, v, valid = heads(1, T, [T])
+                allowed = (valid[:, :, None] & valid[:, None, :]
+                           & torch.ones(T, T, dtype=torch.bool, device=dev).tril())
+                mask = (neg * (1.0 - allowed.float()))[:, None]
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, scale=1.0)  # noqa: B023
+                y = kernel(q, k, v, valid, True, **kw)
+                lib_rel = ((sdpa().transpose(1, 2) - y).abs().max() / y.abs().max()).item()
+                if lib_rel > LIB_TOL_REL:
+                    fail(f"scaled_dot_product_attention is not {kname}'s function")
+                ms = cuda_ms(lambda: kernel(q, k, v, valid, True, **kw))  # noqa: B023
+                plain = cuda_ms(lambda: ref(q, k, v, valid, True, **kw))  # noqa: B023
+                lib = cuda_ms(sdpa)
+                bound, by = attention_bound_ms(1, T, True)
+                print(f"[4] {kname}: B=1 T={T} causal: {ms:.4f} ms; plain {plain:.4f} ms; "
+                      f"scaled_dot_product_attention {lib:.4f} ms (within {lib_rel:.1e} "
+                      f"rel); bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound")
+                times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                             library_ms=lib, shape={"B": 1, "T": T, "causal": True})
+                row.update(times if i == 0 else {"at_b1_t2250": times})
+            kernels.append(row)
+
+    enhance_fused_m = runs["full"][0].fast_enhancer("mmse-lsa")
+    for B, n in ((1, art_m.noisy.shape[0]), (64, 160000)):
+        x = np.tile(art_m.noisy, -(-n // art_m.noisy.shape[0]))[:n][None].repeat(B, 0)
+        t_fused = host_ms(lambda: enhance_fused_m(art_m.params, x))
+        t_plain = host_ms(lambda: enhance_plain_m(art_m.params, x))
+        audio_s = B * n / 16000.0
+        print(f"[4] mhanet-1.1c enhance B={B} x {n / 16000:.1f} s: fused {t_fused:.3f} ms "
+              f"({audio_s / t_fused * 1e3:.1f} audio-s/s), plain {t_plain:.3f} ms "
+              f"({audio_s / t_plain * 1e3:.1f} audio-s/s)")
+
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 

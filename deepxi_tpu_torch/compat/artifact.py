@@ -1,13 +1,17 @@
-"""The weight bridge and the checked-in trained flagship (follows
+"""The weight bridge and the checked-in trained artifacts (follows
 deepxi_tpu/compat/artifact.py).
 
 `artifacts/resnet-1.1c-synth300/` holds the resnet-1.1c checkpoint as
 `params.npz` (leaves `p0..p244` in Flax tree-flatten order), the DBNormalCDF
 map statistics as `stats.npz`, and a 5 dB white-noise test pair.
+`artifacts/mhanet-1.1c-big2400-e400/` is laid out the same way, with a
+`meta.json` that names its preset, leaf count and test pair
+(`load_artifact`).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, Mapping, NamedTuple
 
@@ -20,15 +24,19 @@ from deepxi_tpu_torch.inp_tgt import MagXi
 from deepxi_tpu_torch.models.tcn import ResNetV2
 from deepxi_tpu_torch.ops.maps import NormalCDF
 
-FLAGSHIP_ROOT = os.path.join(
+ARTIFACTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "artifacts", "resnet-1.1c-synth300")
+    "artifacts")
+FLAGSHIP_ROOT = os.path.join(ARTIFACTS, "resnet-1.1c-synth300")
 FLAGSHIP_PARAMS = 1_949_953
+MHANET_ROOT = os.path.join(ARTIFACTS, "mhanet-1.1c-big2400-e400")
+# parameter count of each network `load_artifact` builds, by preset
+PRESET_PARAMS = {"mhanet-1.1c": 4_600_321, "resnet-1.1c": FLAGSHIP_PARAMS}
 
 
 class Artifact(NamedTuple):
     inp_tgt: MagXi
-    net: ResNetV2            # weights loaded, on the device
+    net: torch.nn.Module     # weights loaded, on the device
     params: Dict[str, torch.Tensor]  # net's state dict
     noisy: np.ndarray        # int16, 16 kHz
     clean: np.ndarray
@@ -50,13 +58,11 @@ def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
             for mod, leaves in p.items() for leaf, arr in leaves.items()}
 
 
-def load_flagship_artifact(root: str = None, device=None) -> Artifact:
-    """The checked-in trained resnet-1.1c with its map statistics and test
-    pair, on `device` (the card unless ``device="cpu"``)."""
-    dev = resolve_device(device)
-    root = root or FLAGSHIP_ROOT
-    net = ResNetV2(257, 257, n_blocks=40, d_model=256, d_f=64, k=3,
-                   max_d_rate=16, outp_act="Sigmoid")
+def _load(root: str, net: torch.nn.Module, n_params: int, dev: torch.device,
+          noisy: str, clean: str) -> Artifact:
+    """`net` with the weights of `root/params.npz` (leaf i = the i-th key in
+    Flax order, each shape asserted), the map statistics and the test pair,
+    on `dev`."""
     shapes = {k: v.shape for k, v in net.state_dict().items()}
     z = np.load(os.path.join(root, "params.npz"))
     keys = flax_order(shapes)
@@ -70,8 +76,8 @@ def load_flagship_artifact(root: str = None, device=None) -> Artifact:
                              f"expected {tuple(shapes[key])}")
         state[key] = torch.as_tensor(arr)
     n = sum(v.numel() for v in state.values())
-    if n != FLAGSHIP_PARAMS:
-        raise ValueError(f"{n} parameters, expected {FLAGSHIP_PARAMS}")
+    if n != n_params:
+        raise ValueError(f"{n} parameters, expected {n_params}")
     net.load_state_dict(state)
     net.to(dev).eval()
 
@@ -80,6 +86,35 @@ def load_flagship_artifact(root: str = None, device=None) -> Artifact:
                        mu=torch.as_tensor(stats["xi_map.mu"], device=dev),
                        sigma=torch.as_tensor(stats["xi_map.sigma"], device=dev))
     it = MagXi(N_d=512, N_s=256, K=512, xi_map=xi_map)
-    noisy, _ = read_wav(os.path.join(root, "c012_white_5dB.wav"))
-    clean, _ = read_wav(os.path.join(root, "c012.wav"))
-    return Artifact(it, net, dict(net.state_dict()), noisy, clean)
+    noisy_wav, _ = read_wav(os.path.join(root, noisy))
+    clean_wav, _ = read_wav(os.path.join(root, clean))
+    return Artifact(it, net, dict(net.state_dict()), noisy_wav, clean_wav)
+
+
+def load_flagship_artifact(root: str = None, device=None) -> Artifact:
+    """The checked-in trained resnet-1.1c with its map statistics and test
+    pair, on `device` (the card unless ``device="cpu"``)."""
+    net = ResNetV2(257, 257, n_blocks=40, d_model=256, d_f=64, k=3,
+                   max_d_rate=16, outp_act="Sigmoid")
+    return _load(root or FLAGSHIP_ROOT, net, FLAGSHIP_PARAMS,
+                 resolve_device(device), "c012_white_5dB.wav", "c012.wav")
+
+
+def load_artifact(root: str = None, device=None) -> Artifact:
+    """A `meta.json` artifact (by default the checked-in trained
+    mhanet-1.1c): the preset named in `meta["ver"]` builds the network
+    (MagXi with the DBNormalCDF map), whose Flax-ordered leaves must number
+    `meta["n_leaves"]`; the test pair is the one meta names."""
+    from deepxi_tpu_torch.config import preset
+    from deepxi_tpu_torch.framework import build_network
+
+    root = root or MHANET_ROOT
+    with open(os.path.join(root, "meta.json")) as f:
+        meta = json.load(f)
+    cfg = preset(meta["ver"])
+    net = build_network(cfg, 257, 257)
+    if len(net.state_dict()) != meta["n_leaves"]:
+        raise ValueError(f"{root}: meta.json has {meta['n_leaves']} leaves, "
+                         f"{cfg.ver} has {len(net.state_dict())}")
+    return _load(root, net, PRESET_PARAMS[cfg.ver], resolve_device(device),
+                 meta["noisy"], meta["clean"])

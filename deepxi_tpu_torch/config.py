@@ -1,12 +1,13 @@
-"""Typed configuration and the resnet-1.1c preset (follows
-deepxi_tpu/config.py; only the fields that training and the statistics
-sample read, and only the ResNetV2 presets the port runs so far)."""
+"""Typed configuration and the presets the port runs (follows
+deepxi_tpu/config.py; only the fields that training, the statistics sample
+and offline inference read: resnet-1.1c, and mhanet-1.1c/1.0c for
+inference)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 
 @dataclasses.dataclass
@@ -29,6 +30,7 @@ class Config:
     sample_size: int = 1000
     max_epochs: int = 200
     resume_epoch: int = 0
+    test_epoch: Union[int, List[int]] = 200
     save_model: bool = True
     save_every: int = 1   # checkpoint every N epochs (always at the last)
     val_every: int = 1    # evaluate the validation set every N epochs
@@ -43,6 +45,7 @@ class Config:
     # network hyper-parameters
     d_model: Optional[int] = None
     n_blocks: Optional[int] = None
+    n_heads: Optional[int] = None
     d_f: Optional[int] = None
     k: Optional[int] = None
     max_d_rate: Optional[int] = None
@@ -50,18 +53,34 @@ class Config:
     warmup_steps: int = 40000
     unit_type: Optional[str] = None
     outp_act: str = "Sigmoid"
+    max_len: Optional[int] = None
+    # MHANet attention: "full" (the plain [B, H, T, T] reference), "fused"
+    # (ops/kernels/mha_fused.py) or "stream" (ops/kernels/mha_flash_stream.py)
+    attention_impl: str = "full"
+    block_q: int = 256
+    # the fused TCN group kernels of ops/kernels/tcn_fused.py in inference
+    tcn_fused: bool = False
     # the fused forward/backward pair of ops/kernels/tcn_fused_train.py in
     # the train step
     tcn_fused_train: bool = False
+    # the fused transformer block of ops/kernels/mha_block_fused.py in
+    # MHANetV2/V3 inference when attention_impl is "full"
+    mha_fused: bool = True
 
     # map
     map_type: Any = "DBNormalCDF"
+
+    # inference
+    out_type: str = "y"
+    gain: Union[str, List[str]] = "mmse-lsa"
 
     # paths
     model_path: str = "model"
     set_path: str = "set"
     log_path: str = "log"
     data_path: str = "data"
+    test_x_path: str = "set/test_noisy_speech"
+    out_path: str = "out"
 
     @property
     def N_d(self) -> int:
@@ -87,11 +106,19 @@ _COMMON = dict(inp_tgt_type="MagXi", map_type="DBNormalCDF", sample_size=1000,
                f_s=16000, T_d=32, T_s=16, loss_fnc="BinaryCrossentropy",
                outp_act="Sigmoid", max_epochs=200, mbatch_size=8)
 
+# The JAX presets' dft_precision="default" is a TPU bf16 knob; the port's
+# DFT is float32 throughout.
 VERSION_PRESETS: Dict[str, Dict[str, Any]] = {
+    "mhanet-1.1c": dict(network_type="MHANetV3", d_model=256, n_blocks=5,
+                        n_heads=8, warmup_steps=40000, causal=True,
+                        max_len=2048, test_epoch=200, **_COMMON),
+    "mhanet-1.0c": dict(network_type="MHANetV2", d_model=256, n_blocks=5,
+                        n_heads=8, warmup_steps=40000, causal=True,
+                        test_epoch=200, **_COMMON),
     "resnet-1.1c": dict(network_type="ResNetV2", d_model=256, n_blocks=40,
                         d_f=64, k=3, max_d_rate=16, causal=True,
-                        unit_type="ReLU->LN->W+b", tcn_fused_train=True,
-                        **_COMMON),
+                        unit_type="ReLU->LN->W+b", test_epoch=200,
+                        tcn_fused=True, tcn_fused_train=True, **_COMMON),
 }
 
 

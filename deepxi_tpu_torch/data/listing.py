@@ -4,7 +4,8 @@ deepxi_tpu/data/listing.py; wav files only).
   * training lists are ``{file_path, wav_len}`` dicts gathered by glob over
     ``*.wav``, pickle-cached per hostname under ``data_path``;
   * validation pairs are identically named clean/noise files whose basename
-    ends in ``_<snr>dB``, mixed at the filename SNR.
+    ends in ``_<snr>dB``, mixed at the filename SNR;
+  * the test set is every ``*.wav`` of a directory, padded to the longest.
 """
 
 from __future__ import annotations
@@ -67,3 +68,27 @@ def val_wav_batch(val_s_dir: str, val_d_dir: str
         val_s[i, :len(s)] = s
         val_d[i, :len(d)] = d
     return val_s, val_d, lens, lens.copy(), np.asarray(snrs, np.int32)
+
+
+def test_batch(test_dir: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List[str]]:
+    """Test set: every wav of `test_dir`, sorted, padded to the longest, as
+    (batch int16 [N, L], lengths, SNRs parsed from `_<snr>dB` basenames
+    (0 where there is none), basenames)."""
+    paths = sorted(glob.glob(os.path.join(test_dir, "*.wav")))
+    if not paths:
+        raise ValueError(f"no test files in {test_dir}")
+    wavs, snrs, names = [], [], []
+    for p in paths:
+        w, _ = read_wav(p)
+        wavs.append(w)
+        base = os.path.basename(os.path.splitext(p)[0])
+        names.append(base)
+        try:
+            snrs.append(int(base.split("_")[-1][:-2]))
+        except (ValueError, IndexError):
+            snrs.append(0)
+    lens = np.asarray([len(w) for w in wavs], np.int32)
+    batch = np.zeros([len(wavs), lens.max()], np.int16)
+    for i, w in enumerate(wavs):
+        batch[i, :len(w)] = w
+    return batch, lens, np.asarray(snrs, np.int32), names

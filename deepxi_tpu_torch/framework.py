@@ -1,6 +1,7 @@
-"""Framework facade: map statistics and the training loop (follows
-deepxi_tpu/framework.py; `infer`, `test` and `spectral_distortion` are still
-to port, and there is no device mesh and no phoneme mode).
+"""Framework facade: map statistics, the training loop and offline
+inference (follows deepxi_tpu/framework.py; `infer` has the fast path of
+out_type `y` only, `test` and `spectral_distortion` are still to port, and
+there is no device mesh and no phoneme mode).
 
 Artifact layout as in the JAX package:
 
@@ -8,43 +9,63 @@ Artifact layout as in the JAX package:
   data/<ver>_stats.npz             map statistics
   data/sample.npz                  cached training sample
   log/loss/<ver>.csv               epoch,loss[,val_loss]
+  out/<ver>/e<epoch>/y/<gain>/     enhanced wavs
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from deepxi_tpu_torch import resolve_device
 from deepxi_tpu_torch.config import Config
-from deepxi_tpu_torch.data.listing import val_wav_batch
+from deepxi_tpu_torch.data.listing import test_batch, val_wav_batch
 from deepxi_tpu_torch.data.loader import MiniBatchLoader, bucket_length
+from deepxi_tpu_torch.data.wavio import save_wav
 from deepxi_tpu_torch.inp_tgt import MagXi
+from deepxi_tpu_torch.models.attention import MHANetV2, MHANetV3
 from deepxi_tpu_torch.models.tcn import ResNetV2, init_flax_like
 from deepxi_tpu_torch.ops.maps import NormalCDF
 from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
-                                       frame_mask, make_eval_step,
-                                       make_optimizer, make_train_step,
-                                       restore_checkpoint, save_checkpoint)
+                                       checkpoint_params, frame_mask,
+                                       make_eval_step, make_optimizer,
+                                       make_train_step, restore_checkpoint,
+                                       save_checkpoint)
+
+
+def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
+    """The configured network: the causal ReLU->LN->W+b ResNetV2, MHANetV2
+    or MHANetV3."""
+    if cfg.network_type == "ResNetV2":
+        if not cfg.causal or cfg.unit_type != "ReLU->LN->W+b":
+            raise ValueError("the port's ResNetV2 is causal with ReLU->LN->W+b units")
+        return ResNetV2(n_feat, n_outp, n_blocks=cfg.n_blocks, d_model=cfg.d_model,
+                        d_f=cfg.d_f, k=cfg.k, max_d_rate=cfg.max_d_rate,
+                        outp_act=cfg.outp_act)
+    kw = dict(d_model=cfg.d_model, n_blocks=cfg.n_blocks, n_heads=cfg.n_heads,
+              causal=cfg.causal, outp_act=cfg.outp_act,
+              attention_impl=cfg.attention_impl, block_q=cfg.block_q)
+    if cfg.network_type == "MHANetV3":
+        return MHANetV3(n_feat, n_outp, max_len=cfg.max_len or 2048, **kw)
+    if cfg.network_type == "MHANetV2":
+        return MHANetV2(n_feat, n_outp, **kw)
+    raise ValueError(f"the port has no {cfg.network_type} yet")
 
 
 class DeepXiTorch:
     """Deep Xi on one device (the card unless ``device="cpu"``): the MagXi
-    target with the DBNormalCDF map and the causal ReLU->LN->W+b ResNetV2."""
+    target with the DBNormalCDF map, and the causal ReLU->LN->W+b ResNetV2
+    (training and inference) or MHANetV2/V3 (inference)."""
 
     def __init__(self, cfg: Config, train_s_list: Optional[List[Dict]] = None,
                  train_d_list: Optional[List[Dict]] = None, device=None):
-        if (cfg.inp_tgt_type, cfg.map_type, cfg.network_type) != (
-                "MagXi", "DBNormalCDF", "ResNetV2"):
-            raise ValueError("the port trains MagXi / DBNormalCDF / ResNetV2 so "
-                             f"far, not {cfg.inp_tgt_type} / {cfg.map_type} / "
-                             f"{cfg.network_type}")
-        if not cfg.causal or cfg.unit_type != "ReLU->LN->W+b":
-            raise ValueError("the port's ResNetV2 is causal with ReLU->LN->W+b units")
+        if (cfg.inp_tgt_type, cfg.map_type) != ("MagXi", "DBNormalCDF"):
+            raise ValueError("the port runs MagXi / DBNormalCDF so far, not "
+                             f"{cfg.inp_tgt_type} / {cfg.map_type}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_s_list = train_s_list
@@ -59,10 +80,8 @@ class DeepXiTorch:
             self.inp_tgt = self.inp_tgt.with_stats(s, d, x, wl, device=self.device)
             self._save_stats(stats_path)
 
-        self.network = ResNetV2(self.inp_tgt.n_feat, self.inp_tgt.n_outp,
-                                n_blocks=cfg.n_blocks, d_model=cfg.d_model,
-                                d_f=cfg.d_f, k=cfg.k, max_d_rate=cfg.max_d_rate,
-                                outp_act=cfg.outp_act)
+        self.network = build_network(cfg, self.inp_tgt.n_feat, self.inp_tgt.n_outp)
+        self._enhancers: Dict[str, Callable] = {}
 
     # -- statistics ---------------------------------------------------------
 
@@ -146,6 +165,8 @@ class DeepXiTorch:
         """The training loop; returns the per-epoch mean losses. The final
         state is kept as `self._state`."""
         cfg = self.cfg
+        if cfg.network_type != "ResNetV2":
+            raise ValueError(f"the port trains ResNetV2 so far, not {cfg.network_type}")
         model_dir = os.path.join(cfg.model_path, cfg.ver)
         os.makedirs(model_dir, exist_ok=True)
         tx = make_optimizer(cfg.network_type, cfg.d_model or 256, cfg.warmup_steps)
@@ -215,3 +236,101 @@ class DeepXiTorch:
                     offsets=torch.zeros(s.shape[0], dtype=torch.int64))
             out.append((inp, tgt, frame_mask(inp.shape[1], nf, self.device)))
         return out
+
+    # -- inference ----------------------------------------------------------
+
+    def load_epoch(self, epoch: int) -> Dict[str, torch.Tensor]:
+        """Parameters of a saved epoch, 1-indexed as the reference's
+        test_epoch (`model/<ver>/epoch-<epoch - 1>`), on the device."""
+        return checkpoint_params(os.path.join(self.cfg.model_path, self.cfg.ver),
+                                 epoch - 1, self.device)
+
+    def fast_apply(self) -> Optional[Callable]:
+        """The network forward of the inference fast path: the fused TCN
+        groups (`cfg.tcn_fused`), or for MHANetV2/V3 with `cfg.mha_fused`
+        and "full" attention the fused transformer blocks; None for the
+        network's own forward (whose attention follows
+        `cfg.attention_impl`)."""
+        cfg = self.cfg
+        if cfg.network_type == "ResNetV2" and cfg.tcn_fused:
+            from deepxi_tpu_torch.ops.kernels.tcn_fused import \
+                resnetv2_apply_fused
+            return (lambda p, m: resnetv2_apply_fused(
+                p, m, n_blocks=cfg.n_blocks, max_d_rate=cfg.max_d_rate, k=cfg.k,
+                outp_act=cfg.outp_act))
+        if (cfg.network_type in ("MHANetV2", "MHANetV3") and cfg.mha_fused
+                and cfg.attention_impl == "full"):
+            from deepxi_tpu_torch.ops.kernels.mha_block_fused import \
+                mhanetv3_apply_fused
+            return (lambda p, m: mhanetv3_apply_fused(
+                p, m, n_blocks=cfg.n_blocks, n_heads=cfg.n_heads,
+                d_model=cfg.d_model, max_len=cfg.max_len or 2048,
+                causal=cfg.causal, outp_act=cfg.outp_act,
+                positional=cfg.network_type == "MHANetV3"))
+        return None
+
+    def fast_enhancer(self, gain: str) -> Callable:
+        """The cached batched enhancer `enhance(params, x_int16[B, L])` for
+        one gain function, through `fast_apply`."""
+        if gain not in self._enhancers:
+            from deepxi_tpu_torch.enhance import make_enhancer
+            self._enhancers[gain] = make_enhancer(
+                self.inp_tgt, self.network, gain, apply_fn=self.fast_apply(),
+                device=self.device)
+        return self._enhancers[gain]
+
+    def enhance_all(self, params: Dict[str, torch.Tensor], x_batch: np.ndarray,
+                    x_lens: np.ndarray, gain: str,
+                    max_batch: int = 32) -> List[np.ndarray]:
+        """Enhanced waveform of each utterance, trimmed to its own
+        (n_frames + 1) * N_s samples: utterances are grouped by padded
+        length (`bucket_length`) and enhanced at most `max_batch` at a
+        time."""
+        N_s = self.cfg.N_s
+        enhance = self.fast_enhancer(gain)
+        ys: List[Optional[np.ndarray]] = [None] * len(x_lens)
+        buckets: Dict[int, List[int]] = {}
+        for i, n in enumerate(x_lens):
+            buckets.setdefault(bucket_length(int(n), N_s), []).append(i)
+        for L, idxs in sorted(buckets.items()):
+            for j0 in range(0, len(idxs), max_batch):
+                chunk = idxs[j0:j0 + max_batch]
+                w = np.zeros((len(chunk), L), np.int16)
+                for r, i in enumerate(chunk):
+                    n = min(int(x_lens[i]), L)
+                    w[r, :n] = x_batch[i, :n]
+                y = enhance(params, w).cpu().numpy()
+                for r, i in enumerate(chunk):
+                    ys[i] = y[r, :(-(-int(x_lens[i]) // N_s) + 1) * N_s]
+        return ys
+
+    def infer(self, params: Optional[Dict[str, torch.Tensor]] = None,
+              test_x_path: Optional[str] = None, out_type: Optional[str] = None,
+              gains: Optional[Sequence[str]] = None,
+              epochs: Optional[Sequence[int]] = None) -> List[str]:
+        """Enhance every wav of the test directory for each epoch and gain
+        into `out/<ver>/e<epoch>/y/<gain>/<name>.wav` (16-bit); `params`
+        replaces the saved epochs' weights. Returns the written paths. Only
+        out_type `y` on the batched fast path is ported."""
+        cfg = self.cfg
+        out_type = out_type or cfg.out_type
+        if out_type != "y":
+            raise ValueError(f"the port infers out_type 'y' only, not {out_type!r}")
+        gains = list(gains) if gains else (
+            cfg.gain if isinstance(cfg.gain, list) else [cfg.gain])
+        epochs = list(epochs) if epochs else (
+            cfg.test_epoch if isinstance(cfg.test_epoch, list) else [cfg.test_epoch])
+        x_batch, x_lens, _, names = test_batch(test_x_path or cfg.test_x_path)
+        written: List[str] = []
+        for e in epochs:
+            if e < 1:
+                raise ValueError("test_epoch must be greater than 0")
+            p = params if params is not None else self.load_epoch(e)
+            for g in gains:
+                out_dir = os.path.join(cfg.out_path, cfg.ver, f"e{e}", "y", g)
+                ys = self.enhance_all(p, x_batch, x_lens, g)
+                for name, y in zip(names, ys):
+                    path = os.path.join(out_dir, name + ".wav")
+                    save_wav(path, y, cfg.f_s)
+                    written.append(path)
+        return written

@@ -11,6 +11,7 @@ reference that the fused kernels in `ops/kernels/tcn_fused.py` are held to.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,27 +43,32 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + eps)
 
 
-def conv1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+def conv1d(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
            d: int = 1) -> torch.Tensor:
     """[B, T, C_in] -> [B, T, C_out] causal dilated conv with kernel
-    [k, C_in, C_out]: the input is zero-padded (k-1)d on the left."""
+    [k, C_in, C_out] (and no bias when `bias` is None): the input is
+    zero-padded (k-1)d on the left."""
     k, T = kernel.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, (k - 1) * d, 0))
-    y = bias + torch.matmul(xp[:, :T], kernel[0])
+    y = torch.matmul(xp[:, :T], kernel[0])
+    if bias is not None:
+        y = bias + y
     for j in range(1, k):
         y = y + torch.matmul(xp[:, j * d: j * d + T], kernel[j])
     return y
 
 
 class Conv1d(nn.Module):
-    """Parameters of one causal conv: `kernel` [k, C_in, C_out] and `bias`
-    [C_out], zero until weights are loaded or `init_flax_like` runs."""
+    """Parameters of one causal conv: `kernel` [k, C_in, C_out] and, unless
+    `use_bias` is False, `bias` [C_out]; zero until weights are loaded or
+    `init_flax_like` runs."""
 
-    def __init__(self, c_in: int, c_out: int, k: int = 1, d: int = 1):
+    def __init__(self, c_in: int, c_out: int, k: int = 1, d: int = 1,
+                 use_bias: bool = True):
         super().__init__()
         self.d = d
         self.kernel = nn.Parameter(torch.zeros(k, c_in, c_out))
-        self.bias = nn.Parameter(torch.zeros(c_out))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv1d(x, self.kernel, self.bias, self.d)
@@ -132,7 +138,8 @@ def init_flax_like(net: nn.Module, generator: torch.Generator) -> nn.Module:
                 std = (k * c_in) ** -0.5 / _TRUNC_STD
                 nn.init.trunc_normal_(m.kernel, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, ScaleNorm):
                 m.scale.fill_(1.0)
     return net

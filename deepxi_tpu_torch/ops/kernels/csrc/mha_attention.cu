@@ -1,0 +1,43 @@
+// Masked multi-head attention for Hopper (sm_90a), float32 throughout.
+//
+// Replaces two Pallas kernels with one CUDA kernel (mha_common.cuh):
+//   * deepxi_tpu/ops/kernels/mha_fused.py::flash_attention (whole K/V panels
+//     in VMEM, a full-row softmax over T rounded up to 128 keys);
+//   * deepxi_tpu/ops/kernels/mha_flash_stream.py::flash_attention_streaming
+//     (online softmax over key tiles; causal runs skip the tiles above each
+//     query tile's diagonal).
+// The two differ only in the keys a fully masked (padded) query row visits,
+// which the launch states as n_keys and the skip tile sizes.
+//
+// What bounds it on this card: 4 * 32 FLOP per (query row, head, key), with
+// q, k, v read and the output written once, so operations at any length past
+// a few hundred frames: B=1, T=2250 causal is 2.6 GFLOP, 39 us at the 67
+// TFLOP/s f32 CUDA-core peak, against 2.8 us of HBM traffic. The TPU keeps a
+// whole K/V panel (or a [block_q, block_k] score tile) in VMEM; here each
+// CTA walks 64-key tiles through 16 KB of shared memory with the running
+// max, denominator and a 32-wide accumulator in registers, one query row
+// per thread, so no [T, T] score ever exists and the length is unbounded.
+
+#include "mha_common.cuh"
+
+extern "C" {
+
+const char* mha_attention_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// out[b, t, h, :] = softmax-weighted values for q, k, v [B, T, 8, 32] and
+// valid [B, T]. skip_bq = 0: every invalid row visits n_keys keys
+// (flash_attention); skip_bq > 0: causal key-tile skipping with tiles of
+// skip_bq queries and skip_bk keys (flash_attention_streaming).
+int mha_attention_forward(const void* q, const void* k, const void* v,
+                          const void* valid, void* out, int B, int T,
+                          int n_keys, int causal, int skip_bq, int skip_bk,
+                          void* stream) {
+  AttnArgs a{(const float*)q, (const float*)k, (const float*)v,
+             (const float*)valid, (float*)out, T, n_keys, causal,
+             skip_bq, skip_bk};
+  return launch_attention(a, B, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -184,6 +184,12 @@ def restore_checkpoint(model_dir: str, epoch: int,
                        "nu": to(opt["nu"])})
 
 
+def checkpoint_params(model_dir: str, epoch: int, device) -> Dict[str, torch.Tensor]:
+    """The parameters of a checkpoint, on `device`."""
+    z = torch.load(_ckpt_path(model_dir, epoch), weights_only=True)
+    return {k: v.to(device) for k, v in z["params"].items()}
+
+
 def append_loss_csv(log_path: str, ver: str, epoch: int, loss: float,
                     val_loss: Optional[float] = None) -> None:
     """`log/loss/<ver>.csv` rows `epoch,loss[,val_loss]`."""

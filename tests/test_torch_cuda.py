@@ -184,3 +184,86 @@ def test_apply_fused_train_matches_plain_autograd(cuda, save_acts):
     assert tcn_fused_train.fused_block_group_bwd.launches > n[1]
     for name, a, b in zip(params, g_fused, g_plain):
         assert _close(a, b, 2e-4), (name, _rel_err(a, b))
+
+
+# -- the MHANet kernels ---------------------------------------------------------
+
+def _heads(B, T, lengths, gen, device):
+    """q (scaled), k, v [B, T, 8, 32] and valid [B, T] with padded tails of
+    zero frames (rows at or past each length invalid and zero)."""
+    valid = torch.arange(T)[None, :] < torch.as_tensor(lengths)[:, None]
+    q, k, v = (torch.randn(B, T, 8, 32, generator=gen) * valid[:, :, None, None]
+               for _ in range(3))
+    return [t.to(device) for t in (q * 32 ** -0.5, k, v, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,lengths", [(2, 37, [37, 20]), (3, 250, [250, 190, 64]),
+                                         (1, 700, [650])])
+def test_attention_kernels_match_plain(cuda, B, T, lengths):
+    """flash_attention and flash_attention_streaming (JAX tiles 256/512 and
+    small 32/16 tiles, causal and not) against their plain versions on
+    every row, padded rows included: 1e-4 of the output's scale."""
+    from deepxi_tpu_torch.ops.kernels import mha_flash_stream, mha_fused
+    q, k, v, valid = _heads(B, T, lengths, torch.Generator().manual_seed(T), cuda)
+    for causal in (True, False):
+        cases = [(mha_fused.flash_attention, mha_fused.flash_attention_ref, {})]
+        for bq, bk in ((256, 512), (32, 16)):
+            cases.append((mha_flash_stream.flash_attention_streaming,
+                          mha_flash_stream.flash_attention_streaming_ref,
+                          {"block_q": bq, "block_k": bk}))
+        for kernel, ref, kw in cases:
+            y, y_ref = kernel(q, k, v, valid, causal, **kw), ref(q, k, v, valid, causal, **kw)
+            torch.cuda.synchronize()
+            assert _close(y, y_ref, 1e-4), (kernel.__name__, causal, kw, _rel_err(y, y_ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,lengths", [(2, 100, [100, 61]), (3, 256, [250, 256, 130])])
+def test_transformer_block_kernel_matches_plain(cuda, B, T, lengths):
+    """fused_transformer_block at full width (d_model 256, 8 heads, d_ff
+    1024) on a hidden state whose padded rows are invalid, causal and not;
+    T = 100 leaves a ragged 32-row tile. 1e-4 of the output's scale."""
+    from deepxi_tpu_torch.ops.kernels import mha_block_fused as mb
+    gen = torch.Generator().manual_seed(T)
+    w = mb.random_block_weights(gen, cuda)
+    x = torch.randn(B, T, 256, generator=gen).to(cuda)
+    vf = (torch.arange(T)[None, :] < torch.as_tensor(lengths)[:, None]).float()
+    vf = vf[:, None, :].to(cuda)
+    for causal in (True, False):
+        y, y_ref = (mb.fused_transformer_block(x, vf, w, causal),
+                    mb.fused_transformer_block_ref(x, vf, w, causal))
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all()
+        assert _close(y, y_ref, 1e-4), (causal, _rel_err(y, y_ref))
+
+
+@pytest.mark.cuda
+def test_mha_wrappers_count_launches_and_refuse_autograd(cuda):
+    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_flash_stream,
+                                              mha_fused)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, valid = _heads(1, 64, [50], gen, cuda)
+    w = mha_block_fused.random_block_weights(gen, cuda)
+    x = torch.randn(1, 64, 256, generator=gen).to(cuda)
+    vf = valid[:, None, :].float()
+    fns = (mha_fused.flash_attention, mha_flash_stream.flash_attention_streaming,
+           mha_block_fused.fused_transformer_block)
+    n = [f.launches for f in fns]
+    fns[0](q, k, v, valid, True)
+    fns[1](q, k, v, valid, True)
+    fns[2](x, vf, w, True)
+    assert [f.launches for f in fns] == [c + 1 for c in n]
+    q.requires_grad_(True)
+    x.requires_grad_(True)
+    for call in (lambda: fns[0](q, k, v, valid, True),
+                 lambda: fns[1](q, k, v, valid, True),
+                 lambda: fns[2](x, vf, w, True)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    with pytest.raises(ValueError):
+        fns[0](q.detach()[..., :16].contiguous(), k[..., :16].contiguous(),
+               v[..., :16].contiguous(), valid, True)
+    with pytest.raises(ValueError):
+        fns[2](x.detach()[:, :, :128].contiguous(), vf, w, True)
+    assert [f.launches for f in fns] == [c + 1 for c in n]

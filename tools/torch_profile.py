@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main paths goes on the card.
 
-    python3 tools/torch_profile.py enhance [--batch 96] [--seconds 10] [--iters 5] [--timed 30]
+    python3 tools/torch_profile.py enhance [--ver resnet-1.1c|mhanet-1.1c] [--batch 96|64] [--seconds 10] [--iters 5] [--timed 30] [--plain]
     python3 tools/torch_profile.py train [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
 
 `enhance` runs offline enhancement of `--batch` copies of the checked-in
-resnet-1.1c artifact's noisy utterance, tiled or cut to `--seconds`, through
-the fused main path. `train` runs train steps (example synthesis, forward,
+trained artifact's noisy utterance (resnet-1.1c, or mhanet-1.1c), tiled or
+cut to `--seconds`, through the fused main path (or, with `--plain`, the
+plain network). `train` runs train steps (example synthesis, forward,
 backward, update) at full width on `--batch` synthetic utterances of
 `--seconds`, with seeded initial weights and map statistics fitted on the
 batch, through the fused training stack (or, with `--plain`, autograd of the
@@ -38,8 +39,16 @@ MATMUL = ("gemm", "gemv", "xmma", "cutlass", "sm90")
 def layer_enhance(n: str) -> str:
     if "tcn_window_kernel" in n:
         return "tcn kernels"
+    if "mha_qkv_kernel" in n:
+        return "transformer block: q/k/v projections"
+    if "mha_attention_kernel" in n:
+        return "attention kernel"
+    if "mha_post_kernel" in n:
+        return "transformer block: output projection, LN, FFN"
+    if "softmax" in n:
+        return "softmax (plain attention)"
     if any(s in n for s in MATMUL):
-        return "matmul (DFT, ff_conv, out_conv)"
+        return "matmul (DFT, in/out convs; plain: projections, FFN, logits)"
     return "elementwise/reduction/copy"
 
 
@@ -57,16 +66,22 @@ def layer_train(n: str) -> str:
 
 def enhance_call(args):
     """The enhance workload: (one call, its description)."""
-    from deepxi_tpu_torch.compat.artifact import load_flagship_artifact
+    from deepxi_tpu_torch.compat.artifact import (load_artifact,
+                                                  load_flagship_artifact)
     from deepxi_tpu_torch.enhance import make_enhancer
+    from deepxi_tpu_torch.ops.kernels.mha_block_fused import mhanetv3_apply_fused
     from deepxi_tpu_torch.ops.kernels.tcn_fused import resnetv2_apply_fused
 
-    art = load_flagship_artifact(device="cuda")
+    if args.ver == "mhanet-1.1c":
+        art, fused = load_artifact(device="cuda"), mhanetv3_apply_fused
+    else:
+        art, fused = load_flagship_artifact(device="cuda"), resnetv2_apply_fused
     enhance = make_enhancer(art.inp_tgt, art.net, "mmse-lsa",
-                            apply_fn=lambda p, m: resnetv2_apply_fused(p, m))
+                            apply_fn=None if args.plain else fused)
     n = int(args.seconds * 16000)
     x = np.tile(art.noisy, -(-n // len(art.noisy)))[:n][None].repeat(args.batch, 0)
-    return (lambda: enhance(art.params, x)), "enhance call"
+    return (lambda: enhance(art.params, x)), (
+        f"{args.ver} {'plain' if args.plain else 'fused'} enhance call")
 
 
 def train_call(args):
@@ -112,10 +127,12 @@ def main():
     ap.add_argument("--seconds", type=float)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--timed", type=int, default=30)
-    ap.add_argument("--plain", action="store_true", help="train: the plain ResNetV2")
+    ap.add_argument("--ver", choices=("resnet-1.1c", "mhanet-1.1c"), default="resnet-1.1c",
+                    help="enhance: the checked-in artifact to run")
+    ap.add_argument("--plain", action="store_true", help="the plain network")
     args = ap.parse_args()
     train = args.path == "train"
-    args.batch = args.batch or (8 if train else 96)
+    args.batch = args.batch or (8 if train else 64 if args.ver == "mhanet-1.1c" else 96)
     args.seconds = args.seconds or (4.096 if train else 10.0)
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
