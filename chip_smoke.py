@@ -149,36 +149,33 @@ def host_ms(fn, iters=10, warmup=2):
     return float(np.median(host_times(fn, iters, warmup)))
 
 
-def bound_ms(B, T, G):
-    """Least time for one group call: its product FLOPs at the f32 peak or
-    its bytes (x read once, y written once, weights read once) at the HBM
+def roofline_ms(flops, nbytes):
+    """(ms, bound_by): product FLOPs at the f32 peak or bytes at the HBM
     rate, whichever is larger."""
-    flops = BLOCK_FLOPS_PER_ROW * B * T * G
-    nbytes = 4 * (2 * B * T * 256 + G * BLOCK_FLOATS)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_ms(B, T, G):
+    """Least time for one group call: x read once, y written once, weights
+    read once."""
+    return roofline_ms(BLOCK_FLOPS_PER_ROW * B * T * G,
+                       4 * (2 * B * T * 256 + G * BLOCK_FLOATS))
 
 
 def train_bound_ms(B, T, G, flops_per_row, act_rows, grads):
     """Least time of a training kernel call: `flops_per_row` product FLOPs
-    per row and block at the f32 peak, or its bytes (`act_rows` [B, T, 256]
-    activation tensors read or written once, weights in and, with `grads`,
-    their gradients out) at the HBM rate, whichever is larger."""
-    flops = flops_per_row * B * T * G
-    nbytes = 4 * (act_rows * B * T * 256 + (2 if grads else 1) * G * BLOCK_FLOATS)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    per row and block; `act_rows` [B, T, 256] activation tensors read or
+    written once, weights in and, with `grads`, their gradients out."""
+    return roofline_ms(flops_per_row * B * T * G,
+                       4 * (act_rows * B * T * 256
+                            + (2 if grads else 1) * G * BLOCK_FLOATS))
 
 
 def keys_needed(T, causal):
     """Mean keys a valid query row needs: all T, or (T + 1) / 2 when causal
     (row t needs keys 0..t)."""
     return (T + 1) / 2 if causal else T
-
-
-def roofline_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def mha_block_bound_ms(B, T, causal):

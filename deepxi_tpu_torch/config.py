@@ -58,8 +58,6 @@ class Config:
     # (ops/kernels/mha_fused.py) or "stream" (ops/kernels/mha_flash_stream.py)
     attention_impl: str = "full"
     block_q: int = 256
-    # the fused TCN group kernels of ops/kernels/tcn_fused.py in inference
-    tcn_fused: bool = False
     # the fused forward/backward pair of ops/kernels/tcn_fused_train.py in
     # the train step
     tcn_fused_train: bool = False
@@ -118,7 +116,7 @@ VERSION_PRESETS: Dict[str, Dict[str, Any]] = {
     "resnet-1.1c": dict(network_type="ResNetV2", d_model=256, n_blocks=40,
                         d_f=64, k=3, max_d_rate=16, causal=True,
                         unit_type="ReLU->LN->W+b", test_epoch=200,
-                        tcn_fused=True, tcn_fused_train=True, **_COMMON),
+                        tcn_fused_train=True, **_COMMON),
 }
 
 

@@ -247,12 +247,12 @@ class DeepXiTorch:
 
     def fast_apply(self) -> Optional[Callable]:
         """The network forward of the inference fast path: the fused TCN
-        groups (`cfg.tcn_fused`), or for MHANetV2/V3 with `cfg.mha_fused`
-        and "full" attention the fused transformer blocks; None for the
+        groups for ResNetV2, or for MHANetV2/V3 with `cfg.mha_fused` and
+        "full" attention the fused transformer blocks; None for the
         network's own forward (whose attention follows
         `cfg.attention_impl`)."""
         cfg = self.cfg
-        if cfg.network_type == "ResNetV2" and cfg.tcn_fused:
+        if cfg.network_type == "ResNetV2":
             from deepxi_tpu_torch.ops.kernels.tcn_fused import \
                 resnetv2_apply_fused
             return (lambda p, m: resnetv2_apply_fused(

@@ -131,7 +131,7 @@ class TFAMultiHeadAttention(nn.Module):
                 out = flash_attention_streaming(*heads, valid, causal, self.block_q)
             else:
                 from deepxi_tpu_torch.ops.kernels.mha_fused import flash_attention
-                out = flash_attention(*heads, valid, causal, self.block_q)
+                out = flash_attention(*heads, valid, causal)
         return torch.einsum("btHd,Hdo->bto", out, self.projection_kernel)
 
 

@@ -11,9 +11,8 @@ calls, one per block.
 Semantics as the JAX kernel: q scaled by d_k^-1/2, logits
 ``q.k + (-1e10)(1 - valid_q valid_k [causal])`` over all Tp keys and a
 full-row softmax on every row (padded rows included), LayerNorms with a
-two-pass variance, eps 1e-6, scale and bias. `tile_q` tiles the plain
-version's query rows as the JAX kernel does; it does not change the function
-and the card's kernel ignores it.
+two-pass variance, eps 1e-6, scale and bias. The JAX kernel's query-row
+tiling (`tile_q`) does not change the function and is left out.
 
 `mhanetv3_apply_fused` is the MHANetV3 (or, with ``positional=False``,
 MHANetV2) forward through these blocks for sequences of at most
@@ -35,10 +34,10 @@ from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
                                                layer_norm_two_pass,
                                                sequence_valid_mask)
 from deepxi_tpu_torch.models.tcn import output_activation
+from deepxi_tpu_torch.ops.kernels import refuse_autograd
 from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEAD_DIM,
                                                     KERNEL_HEADS,
-                                                    masked_softmax_attention,
-                                                    refuse_autograd)
+                                                    masked_softmax_attention)
 
 KERNEL_D_MODEL, KERNEL_D_FF = 256, 1024
 
@@ -78,26 +77,15 @@ def random_block_weights(generator: torch.Generator, device,
         rnd(d_model, std=0.1, mean=1.0), rnd(d_model, std=0.1))
 
 
-def query_tile(Tp: int, tile_q: int = 1024) -> int:
-    """The JAX kernel's query-row tile: live logits capped at ~4 MB."""
-    return min(tile_q, Tp, max(128, ((1 << 20) // Tp) // 128 * 128))
-
-
 def fused_transformer_block_ref(x: torch.Tensor, validf: torch.Tensor,
-                                weights: BlockWeights, causal: bool,
-                                tile_q: int = 1024) -> torch.Tensor:
+                                weights: BlockWeights, causal: bool) -> torch.Tensor:
     """Plain version on x [B, Tp, C] with validf [B, 1, Tp] float 1/0."""
     w = weights
-    Tp = x.shape[1]
     valid = validf[:, 0] != 0
     q = torch.einsum("btc,Hcd->btHd", x, w.qk) * (float(w.qk.shape[2]) ** -0.5)
     k = torch.einsum("btc,Hcd->btHd", x, w.kk)
     v = torch.einsum("btc,Hcd->btHd", x, w.vk)
-    bq = query_tile(Tp, tile_q)
-    o = torch.cat([masked_softmax_attention(q[:, r0:r0 + bq], k, v,
-                                            valid[:, r0:r0 + bq], valid, causal,
-                                            first_row=r0)
-                   for r0 in range(0, Tp, bq)], 1)
+    o = masked_softmax_attention(q, k, v, valid, valid, causal)
     att = torch.einsum("btHd,Hdc->btc", o, w.ok)
     x1 = layer_norm_two_pass(x + att, w.ln1_s, w.ln1_b)
     f2 = torch.relu(x1 @ w.ff1_w + w.ff1_b) @ w.ff2_w
@@ -138,13 +126,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_transformer_block(x: torch.Tensor, validf: torch.Tensor,
-                            weights: BlockWeights, causal: bool,
-                            tile_q: int = 1024) -> torch.Tensor:
+                            weights: BlockWeights, causal: bool) -> torch.Tensor:
     """One whole transformer block: x [B, Tp, C] -> [B, Tp, C], validf
     [B, 1, Tp] float 1/0 frame validity from the network input."""
     refuse_autograd([x, *weights], "fused_transformer_block")
     if x.device.type == "cpu":
-        return fused_transformer_block_ref(x, validf, weights, causal, tile_q)
+        return fused_transformer_block_ref(x, validf, weights, causal)
     _check(x, validf, weights)
     B, T, _ = x.shape
     vf = validf.to(torch.float32).contiguous()

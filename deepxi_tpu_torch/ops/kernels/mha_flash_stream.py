@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import torch
 
+from deepxi_tpu_torch.ops.kernels import refuse_autograd
 from deepxi_tpu_torch.ops.kernels.mha_fused import (launch_attention,
                                                     masked_softmax_attention,
-                                                    pad_keys, refuse_autograd)
+                                                    pad_keys)
 
 
 def keys_visited(T: int, causal: bool, block_q: int, block_k: int,

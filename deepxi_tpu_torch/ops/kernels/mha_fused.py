@@ -12,9 +12,9 @@ Semantics (the tfa convention of the reference): logits
 the weighted values. The JAX kernel pads the keys to T rounded up to 128
 (zero k and v, invalid), so a fully masked query row (an invalid frame)
 averages the values of all those keys; both versions here reproduce that on
-every row. Query tiling (`block_q`) does not change the function. On the card
-each CTA takes 64 query rows of one head and walks 64-key tiles with an
-online softmax.
+every row. The JAX kernel's query tiling (`block_q`) does not change the
+function and is left out. On the card each CTA takes 64 query rows of one
+head and walks 64-key tiles with an online softmax.
 
 Inference only, as `pallas_call`: the wrappers raise under autograd when an
 input requires grad.
@@ -27,33 +27,24 @@ import functools
 
 import torch
 
-NEG_INF_V2 = -1.0e10  # tfa's masking constant
+from deepxi_tpu_torch.models.attention import NEG_INF_V2
+from deepxi_tpu_torch.ops.kernels import refuse_autograd
 
 # The kernel's widths (mhanet-1.1c): 8 heads of 32.
 KERNEL_HEADS, KERNEL_HEAD_DIM = 8, 32
 
 
-def refuse_autograd(tensors, what: str) -> None:
-    """Raise when autograd would record through an inference kernel."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what} has no backward (as the Pallas kernel it replaces); run "
-            "it under torch.no_grad()")
-
-
 def masked_softmax_attention(qp, kp, vp, valid_q, valid_k, causal: bool,
-                             n_visit=None, first_row: int = 0) -> torch.Tensor:
-    """softmax(q.k + (-1e10)(1 - mask)) v for query rows [B, T, H, d] (rows
-    first_row .. first_row + T - 1 of the sequence) against keys
-    [B, S, H, d]; valid_q [B, T], valid_k [B, S] bool; when causal, row t
-    sees keys s <= t. `n_visit` ([T] ints) leaves keys at or past it out of
-    row t's softmax altogether."""
+                             n_visit=None) -> torch.Tensor:
+    """softmax(q.k + (-1e10)(1 - mask)) v for queries [B, T, H, d] against
+    keys [B, S, H, d]; valid_q [B, T], valid_k [B, S] bool; when causal, row
+    t sees keys s <= t. `n_visit` ([T] ints) leaves keys at or past it out
+    of row t's softmax altogether."""
     T, S = qp.shape[1], kp.shape[1]
     logits = torch.einsum("btHd,bsHd->bHts", qp, kp)
     m = valid_q[:, :, None] & valid_k[:, None, :]
     if causal:
-        m = m & torch.ones(T, S, dtype=torch.bool,
-                           device=qp.device).tril(diagonal=first_row)
+        m = m & torch.ones(T, S, dtype=torch.bool, device=qp.device).tril()
     logits = logits + NEG_INF_V2 * (1.0 - m[:, None].to(logits.dtype))
     if n_visit is not None:
         keys = torch.arange(S, device=qp.device)
@@ -70,8 +61,7 @@ def pad_keys(kp, vp, valid, n_keys: int):
 
 
 def flash_attention_ref(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
-                        valid: torch.Tensor, causal: bool,
-                        block_q: int = 256) -> torch.Tensor:
+                        valid: torch.Tensor, causal: bool) -> torch.Tensor:
     """Plain version: the full-row softmax over T rounded up to 128 keys."""
     T = qp.shape[1]
     kp2, vp2, vk = pad_keys(kp, vp, valid, -(-T // 128) * 128)
@@ -127,13 +117,12 @@ def launch_attention(qp, kp, vp, valid, causal: bool, n_keys: int,
 
 
 def flash_attention(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
-                    valid: torch.Tensor, causal: bool,
-                    block_q: int = 256) -> torch.Tensor:
+                    valid: torch.Tensor, causal: bool) -> torch.Tensor:
     """Masked multi-head attention on [B, T, H, d] projected heads (q
     pre-scaled) with valid [B, T] bool; returns [B, T, H, d]."""
     refuse_autograd([qp, kp, vp], "flash_attention")
     if qp.device.type == "cpu":
-        return flash_attention_ref(qp, kp, vp, valid, causal, block_q)
+        return flash_attention_ref(qp, kp, vp, valid, causal)
     T = qp.shape[1]
     out = launch_attention(qp, kp, vp, valid, causal, -(-T // 128) * 128)
     flash_attention.launches += 1

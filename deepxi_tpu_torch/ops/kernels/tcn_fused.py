@@ -31,6 +31,7 @@ import torch
 
 from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
+from deepxi_tpu_torch.ops.kernels import refuse_autograd
 
 # The kernels are built for resnet-1.1c's widths.
 KERNEL_D_MODEL, KERNEL_D_F, KERNEL_K = 256, 64, 3
@@ -183,12 +184,7 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def _refuse_autograd(tensors, what: str) -> None:
-    """Raise when autograd would record through an inference route."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what} has no backward (as the Pallas kernel it replaces); run it "
-            "under torch.no_grad(), or train through "
-            "tcn_fused_train.resnetv2_apply_fused_train")
+    refuse_autograd(tensors, what, "tcn_fused_train.resnetv2_apply_fused_train")
 
 
 def _whole_tile(x: torch.Tensor) -> int:

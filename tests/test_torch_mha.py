@@ -99,8 +99,8 @@ def small_v3():
 @pytest.mark.parametrize("tile_q", [1024, 64])
 def test_fused_transformer_block_ref_matches_jax_kernel(small_v3, causal, tile_q):
     """Both blocks of the small net on the padded hidden state (Tp = 128,
-    rows past each tail invalid), every row; tile_q 64 splits the queries
-    in two."""
+    rows past each tail invalid), every row; tile_q 64 splits the JAX
+    kernel's queries in two, which the port's untiled block must match."""
     params, x, _ = small_v3
     p = params["params"]
     rs = np.random.RandomState(2)
@@ -120,8 +120,7 @@ def test_fused_transformer_block_ref_matches_jax_kernel(small_v3, causal, tile_q
         h_j = block_j.fused_transformer_block(h_j, jnp.asarray(vf), bw, causal,
                                               tile_q=tile_q, interpret=True)
         h_t = mha_block_fused.fused_transformer_block(
-            h_t, torch.as_tensor(vf), mha_block_fused.BlockWeights(*_t(*bw)), causal,
-            tile_q=tile_q)
+            h_t, torch.as_tensor(vf), mha_block_fused.BlockWeights(*_t(*bw)), causal)
         np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=0, atol=1e-5)
 
 
