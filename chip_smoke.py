@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result line):
      MHANet kernels (d_model 256, 8 heads of 32, d_ff 1024, LN scales != 1,
      padded tails of zero frames): the fused transformer block at T=250 and
      T=2048, flash_attention at T=250 and T=700, the streaming attention at
-     T=2250, causal and not;
+     T=2250, causal and not; the KV-cache attention step of streaming
+     MHANet at B=3, L=2048 with f32 and bf16 caches, the clock at 0, 700,
+     2047 and 2500 (past the cap), every cache row nonzero;
   3. the enhancement path: the checked-in trained resnet-1.1c artifact
      enhances its 4 s noisy utterance (T=250, per-block kernel) and the same
      utterance tiled five times (T=1250, halo-tiled kernel); both kernels
@@ -36,13 +38,27 @@ Phases (any failure exits non-zero before the result line):
      float64 as closely as the plain path does), 30 steps on one batch must
      lower its loss, and a restored checkpoint must give the same next-step
      loss;
+  3d. the streaming path: the trained mhanet-1.1c artifact's 4 s utterance
+     hop by hop (prime, 249 steps, one zero chunk) through
+     `StreamingMHANet(fused=True)`, which must launch the KV-cache kernel
+     once a block and hop and give the port's offline enhancer's waveform
+     (plain MHANetV3) and an SNR above the noisy one; then with bf16 caches
+     (against the f32 stream, the JAX test's limits), through `step_block`
+     of 8 hops and with fused=False (against the steps); the trained
+     resnet-1.1c through `StreamingEnhancer.step`, against the offline
+     enhancer and the noisy SNR;
   4. times from CUDA events after warm-up: each kernel and its plain version
      at the main-path shapes (and the inference kernels at B=96, T=625), the
      end-to-end enhance, and one train step, fused against plain (median,
      min and max over 30 and 10 steps); the MHANet kernels with their plain
      versions and a library yardstick (nn.TransformerEncoderLayer, or
      scaled_dot_product_attention with the same float mask; checked first
-     on valid rows) and mhanet-1.1c enhancement, fused against plain.
+     on valid rows) and mhanet-1.1c enhancement, fused against plain; the
+     KV-cache kernel at B=1 and B=256, t=1023, f32 and bf16 caches, against
+     its plain version and scaled_dot_product_attention; streaming hops on
+     the host clock against the 16 ms hop: MHANet `step` at B=1 (f32) and
+     B=256 (bf16 caches, t=1023), `step_block` of 8 hops at B=256 against
+     its 128 ms, and the ResNet `step` at B=1 and B=4096.
 The last three lines are the card line, the kernels JSON and the result JSON.
 """
 
@@ -95,6 +111,10 @@ BWD_FLOPS_PER_ROW = RECOMPUTE_FLOPS_PER_ROW + 2 * BLOCK_FLOPS_PER_ROW
 BLOCK_FLOATS = 256 * 64 + 64 + 3 * 64 * 64 + 64 + 64 * 256 + 256
 # The training shapes: the preset's mini-batch of 4.096 s buckets, G = 10.
 TRAIN_B, TRAIN_T, TRAIN_G = 8, 256, 10
+# Streaming: one hop is 16 ms of audio; a block of 8 hops 128 ms.
+HOP_BUDGET_MS = 16.0
+# bf16 caches against the f32 stream (tests/test_streaming_mha.py's limits).
+BF16_ATOL, BF16_REL_RMS = 2e-2, 0.05
 # Product FLOPs of one MHANet transformer block per row: q, k, v and output
 # projections 256x256 each, FFN 256->1024->256; attention adds 4 * 256 per
 # (row, key). Floats of one block's weights.
@@ -191,6 +211,14 @@ def attention_bound_ms(B, T, causal):
     return roofline_ms(B * T * 4 * 256 * keys_needed(T, causal), 4 * 4 * B * T * 256)
 
 
+def cache_bound_ms(B, n_valid, itemsize):
+    """Least time of one KV-cache step: K and V of the n_valid written rows
+    (8 heads of 32 values each) read once, q read and the output written
+    once; 4 * 256 FLOP a written row."""
+    return roofline_ms(4 * 256 * n_valid * B,
+                       B * n_valid * 256 * 2 * itemsize + 2 * 4 * B * 256)
+
+
 def errs(pairs):
     """(max abs error, max error over each reference's max abs) of
     (value, reference) pairs."""
@@ -244,6 +272,7 @@ def snr_db(clean, y):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     if not os.path.isdir(os.path.join(ROOT, "deepxi_tpu_torch")):
@@ -268,8 +297,9 @@ def main():
     from deepxi_tpu_torch.data.loader import bucket_length
     from deepxi_tpu_torch.data.wavio import read_wav, save_wav
     from deepxi_tpu_torch.models.attention import sequence_valid_mask
-    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_flash_stream,
-                                              mha_fused)
+    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_cache,
+                                              mha_flash_stream, mha_fused)
+    from deepxi_tpu_torch.streaming import StreamingEnhancer, StreamingMHANet
 
     dev = torch.device("cuda")
     card = card_line()
@@ -278,7 +308,7 @@ def main():
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     build_s = _build.build(["tcn_fused", "tcn_fused_train", "mha_attention",
-                            "mha_block_fused"])
+                            "mha_block_fused", "mha_cache"])
     print(f"[1] build: {time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
     for lib in build_s:
@@ -399,6 +429,18 @@ def main():
                 check(kname, f"B={B} T={T} (lengths {lengths}) {kw or ''}, "
                       f"causal {causal}", kernel(q, k, v, valid, causal, **kw),
                       ref(q, k, v, valid, causal, **kw))
+
+    # the KV-cache step: rows past the clock hold values, so only the mask
+    # (or, in the kernel, the n_valid limit) leaves them out
+    q = (torch.randn(3, 8, 32, generator=gen) * 32 ** -0.5).to(dev)
+    kv = [torch.randn(3, 2048, 8, 32, generator=gen).to(dev) for _ in range(2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        kc, vc = (c.to(dtype) for c in kv)
+        for t in (0, 700, 2047, 2500):
+            check("mha_cache_step", f"B=3 L=2048 {dtype} caches, t={t}",
+                  mha_cache.mha_cache_step(q, kc, vc, t),
+                  mha_cache.mha_cache_step_ref(q, kc, vc, t))
+    del kv, kc, vc
 
     # 3. the enhancement path -----------------------------------------------
     art = load_flagship_artifact(device=dev)
@@ -634,6 +676,95 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # 3d. the streaming path --------------------------------------------------
+    def stream_steps(s, wav, launches_per_step=None):
+        """prime, a step per hop after the first and one on a zero chunk;
+        with `launches_per_step`, every step must add that many launches of
+        the KV-cache kernel."""
+        xd = torch.as_tensor(wav, device=dev)[None]
+        state = s.prime(s.init_state(1), xd[:, :256])
+        outs = []
+        for i in range(1, xd.shape[1] // 256 + 1):
+            n0 = mha_cache.mha_cache_step.launches
+            chunk = xd[:, i * 256:(i + 1) * 256] if i < xd.shape[1] // 256 else \
+                torch.zeros(1, 256, dtype=xd.dtype, device=dev)
+            state, y = s.step(state, chunk)
+            outs.append(y)
+            if (launches_per_step is not None
+                    and mha_cache.mha_cache_step.launches - n0 != launches_per_step):
+                fail(f"hop {i}: the KV-cache kernel launched "
+                     f"{mha_cache.mha_cache_step.launches - n0} times, not {launches_per_step}")
+        torch.cuda.synchronize()
+        return torch.cat(outs, dim=1)[0]
+
+    def stream_blocks(s, wav, H):
+        """prime, then `step_block` over the hops after the first and one
+        zero chunk, H hops a call (a shorter last block)."""
+        xd = torch.as_tensor(wav, device=dev)[None]
+        rest = torch.cat([xd[:, 256:], torch.zeros(1, 256, dtype=xd.dtype, device=dev)], 1)
+        state = s.prime(s.init_state(1), xd[:, :256])
+        outs = []
+        for i in range(0, rest.shape[1], 256 * H):
+            state, y = s.step_block(state, rest[:, i:i + 256 * H])
+            outs.append(y)
+        torch.cuda.synchronize()
+        return torch.cat(outs, dim=1)[0]
+
+    def wave_errs(y, ref):
+        return ((y - ref).abs().max().item(),
+                ((y - ref).square().mean() / ref.square().mean()).sqrt().item())
+
+    counted["mha_cache_step"] = mha_cache.mha_cache_step
+    for label, art_s, offline, ctor in (
+            ("mhanet-1.1c, StreamingMHANet(fused=True)", art_m, enhance_plain_m,
+             lambda a, **kw: StreamingMHANet(a.inp_tgt, a.net, a.params, fused=True,
+                                             device=dev, **kw)),
+            ("resnet-1.1c, StreamingEnhancer", art, enhance_plain,
+             lambda a, **kw: StreamingEnhancer(a.inp_tgt, a.net, a.params, device=dev))):
+        s = ctor(art_s)
+        n_hops = art_s.noisy.shape[0] // 256
+        is_mha = isinstance(s, StreamingMHANet)
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        y = stream_steps(s, art_s.noisy, len(s.blocks) if is_mha else None)
+        wall = time.perf_counter() - t0
+        n = {k: fn.launches for k, fn in counted.items() if fn.launches}
+        if is_mha:
+            launches["mha_cache_step"] = n.get("mha_cache_step", 0)
+            if launches["mha_cache_step"] != len(s.blocks) * n_hops:
+                fail("the KV-cache kernel did not launch once a block and hop")
+        y_off = offline(art_s.params, art_s.noisy[None])[0, :y.shape[0]]
+        w_err, w_rel = wave_errs(y, y_off)
+        y_np = y.cpu().numpy()
+        snr_noisy, snr_enh = snr_db(art_s.clean, art_s.noisy / 32768.0), snr_db(art_s.clean, y_np)
+        print(f"[3d] {label}: {n_hops} hops in {wall:.2f} s ({wall / n_hops * 1e3:.2f} ms a "
+              f"hop), launches {n}; wave against the offline enhancer: max abs err "
+              f"{w_err:.3e} (tol {WAVE_ATOL:.0e}), rel RMS {w_rel:.3e} (tol "
+              f"{WAVE_REL_RMS:.0e}); SNR noisy {snr_noisy:.3f} dB -> enhanced {snr_enh:.3f} dB")
+        if not np.isfinite(y_np).all() or y.shape[0] != n_hops * 256:
+            fail(f"{label}: output not finite or of the wrong length")
+        if w_err > WAVE_ATOL or w_rel > WAVE_REL_RMS:
+            fail(f"{label}: the stream disagrees with the offline enhancer")
+        if snr_enh <= snr_noisy:
+            fail(f"{label}: enhanced SNR does not beat noisy SNR")
+        if not is_mha:
+            continue
+        variants = (
+            ("bf16 caches against the f32 stream", BF16_ATOL, BF16_REL_RMS,
+             stream_steps(ctor(art_s, cache_dtype=torch.bfloat16), art_s.noisy)),
+            ("step_block of 8 hops against the steps", WAVE_ATOL, WAVE_REL_RMS,
+             stream_blocks(s, art_s.noisy, 8)),
+            ("fused=False against fused=True", WAVE_ATOL, WAVE_REL_RMS,
+             stream_steps(StreamingMHANet(art_s.inp_tgt, art_s.net, art_s.params,
+                                          device=dev), art_s.noisy)))
+        for what, atol, rel_tol, y_v in variants:
+            err, rel = wave_errs(y_v, y)
+            print(f"[3d] {label}, {what}: max abs err {err:.3e} (tol {atol:.0e}), "
+                  f"rel RMS {rel:.3e} (tol {rel_tol:.0e})")
+            if not (torch.isfinite(y_v).all() and err <= atol and rel <= rel_tol):
+                fail(f"{label}: {what} disagrees")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -813,6 +944,92 @@ def main():
               f"({audio_s / t_fused * 1e3:.1f} audio-s/s), plain {t_plain:.3f} ms "
               f"({audio_s / t_plain * 1e3:.1f} audio-s/s)")
 
+    # the KV-cache kernel at the clock 1023 (1,024 written rows of 2,048);
+    # the yardstick is scaled_dot_product_attention over the same numbers as
+    # f32 with the same float mask (scale 1: q is pre-scaled)
+    gcu = torch.Generator(device=dev).manual_seed(0)
+    t_clock = 1023
+    neg_mask = (mha_fused.NEG_INF_V2
+                * (torch.arange(2048, device=dev) > t_clock).float()).view(1, 1, 1, -1)
+    row = {"name": "mha_cache_step", "route": "cuda",
+           "source": "deepxi_tpu_torch/ops/kernels/csrc/mha_cache.cu",
+           "replaces": "deepxi_tpu/ops/kernels/mha_cache.py:29",
+           "launches": launches["mha_cache_step"], "max_abs_err": checks["mha_cache_step"]}
+    with torch.no_grad():
+        for B in (1, 256):
+            q = (torch.randn(B, 8, 32, generator=gen) * 32 ** -0.5).to(dev)
+            kv = [torch.randn(B, 2048, 8, 32, device=dev, generator=gcu) for _ in range(2)]
+            for dtype in (torch.float32, torch.bfloat16):
+                kc, vc = (c.to(dtype) for c in kv)
+                kh, vh = (c.to(torch.float32).transpose(1, 2) for c in (kc, vc))
+
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q[:, :, None], kh, vh, attn_mask=neg_mask, scale=1.0)[:, :, 0]  # noqa: B023
+                y = mha_cache.mha_cache_step(q, kc, vc, t_clock)
+                lib_rel = ((sdpa() - y).abs().max() / y.abs().max()).item()
+                if lib_rel > LIB_TOL_REL:
+                    fail(f"scaled_dot_product_attention is not mha_cache_step's function "
+                         f"({lib_rel:.3e})")
+                ms = cuda_ms(lambda: mha_cache.mha_cache_step(q, kc, vc, t_clock))  # noqa: B023
+                plain = cuda_ms(lambda: mha_cache.mha_cache_step_ref(q, kc, vc, t_clock))  # noqa: B023
+                lib = cuda_ms(sdpa)
+                bound, by = cache_bound_ms(B, t_clock + 1, kc.element_size())
+                cache = "f32" if dtype == torch.float32 else "bf16"
+                print(f"[4] mha_cache_step: B={B} L=2048 t={t_clock} {cache} caches: {ms:.4f} ms; "
+                      f"plain {plain:.4f} ms; scaled_dot_product_attention {lib:.4f} ms "
+                      f"(within {lib_rel:.1e} rel); bound {bound:.4f} ms ({by}); "
+                      f"{bound / ms:.1%} of the bound")
+                times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                             library_ms=lib, shape={"B": B, "L": 2048, "t": t_clock,
+                                                    "cache": cache})
+                row.update(times if (B, cache) == (1, "f32") else {f"at_b{B}_{cache}": times})
+            del kv, kc, vc, kh, vh
+    kernels.append(row)
+
+    # streaming hops on the host clock, each synchronised, from states whose
+    # clock and caches were set directly
+    def hop_times(label, fn, budget_ms):
+        n0 = mha_cache.mha_cache_step.launches
+        fn()
+        per_hop = mha_cache.mha_cache_step.launches - n0
+        ts = host_times(fn, iters=20)
+        med = float(np.median(ts))
+        print(f"[4] {label}: median {med:.3f} ms (20 calls, min {ts.min():.3f}, max "
+              f"{ts.max():.3f}) against {budget_ms:g} ms of audio ({med / budget_ms:.1%} of "
+              f"it); KV-cache kernel launches a call: {per_hop}")
+
+    def ready(s, B):
+        st = s.init_state(B)
+        for c in st.k_caches + st.v_caches:
+            c.copy_(torch.randn(c.shape, device=dev, generator=gcu))
+        return st._replace(t=t_clock)
+
+    chunks = {(B, n): torch.randint(-3000, 3000, (B, n), dtype=torch.int16, device=dev,
+                               generator=gcu)
+              for B, n in ((1, 256), (256, 256), (256, 8 * 256), (4096, 256))}
+    for B, cache_dtype in ((1, torch.float32), (256, torch.bfloat16)):
+        routes = {route: StreamingMHANet(art_m.inp_tgt, art_m.net, art_m.params,
+                                         fused=route == "fused", cache_dtype=cache_dtype,
+                                         device=dev)
+                  for route in ("fused", "plain einsum route")}
+        st = ready(routes["fused"], B)
+        cache = "f32" if cache_dtype == torch.float32 else "bf16"
+        for route, s in routes.items():
+            hop_times(f"mhanet-1.1c step ({route}, {cache} caches) B={B} t={t_clock}",
+                      lambda: s.step(st, chunks[B, 256]), HOP_BUDGET_MS)  # noqa: B023
+        if B == 256:
+            hop_times(f"mhanet-1.1c step_block of 8 hops ({cache} caches) B={B} t={t_clock}",
+                      lambda: routes["fused"].step_block(st, chunks[B, 8 * 256]),  # noqa: B023
+                      8 * HOP_BUDGET_MS)
+        del st, routes
+    s_r = StreamingEnhancer(art.inp_tgt, art.net, art.params, device=dev)
+    for B in (1, 4096):
+        st = s_r.init_state(B)
+        hop_times(f"resnet-1.1c step B={B}",
+                  lambda: s_r.step(st, chunks[B, 256]), HOP_BUDGET_MS)  # noqa: B023
+
+    print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -267,3 +267,68 @@ def test_mha_wrappers_count_launches_and_refuse_autograd(cuda):
     with pytest.raises(ValueError):
         fns[2](x.detach()[:, :, :128].contiguous(), vf, w, True)
     assert [f.launches for f in fns] == [c + 1 for c in n]
+
+
+# -- the KV-cache attention step of streaming MHANet ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cache_step_kernel_matches_plain(cuda, B, dtype):
+    """mha_cache_step at full width (8 heads of 32, L = 2048) against its
+    plain version, every cache row nonzero so only the mask removes the
+    unwritten ones; t at 0, in the middle, L - 1 and past the cap; 1e-4 of
+    the output's scale."""
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    gen = torch.Generator().manual_seed(B)
+    q = (torch.randn(B, 8, 32, generator=gen) * 32 ** -0.5).to(cuda)
+    kc, vc = (torch.randn(B, 2048, 8, 32, generator=gen).to(cuda, dtype) for _ in range(2))
+    for t in (0, 700, 2047, 2500):
+        y, y_ref = (mha_cache.mha_cache_step(q, kc, vc, t),
+                    mha_cache.mha_cache_step_ref(q, kc, vc, t))
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all()
+        assert _close(y, y_ref, 1e-4), (t, _rel_err(y, y_ref))
+
+
+@pytest.mark.cuda
+def test_cache_step_counts_launches_and_refuses_autograd(cuda):
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    fn = mha_cache.mha_cache_step
+    q = torch.randn(2, 8, 32, device=cuda)
+    kc, vc = torch.randn(2, 64, 8, 32, device=cuda), torch.randn(2, 64, 8, 32, device=cuda)
+    n = fn.launches
+    fn(q, kc, vc, 5)
+    assert fn.launches == n + 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(q.clone().requires_grad_(True), kc, vc, 5)
+    for bad in ((q[:, :4].contiguous(), kc[:, :, :4].contiguous(), vc[:, :, :4].contiguous(), 5),
+                (q, kc, vc.to(torch.bfloat16), 5), (q, kc.half(), vc.half(), 5),
+                (q, kc, vc, -1)):
+        with pytest.raises(ValueError):
+            fn(*bad)
+    assert fn.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_streaming_mhanet_fused_launches_the_kernel(cuda):
+    """fused=True runs each block's cache attention through the kernel (one
+    launch a block and hop) and gives the einsum route's waveform."""
+    from deepxi_tpu_torch.inp_tgt import MagXi
+    from deepxi_tpu_torch.models.attention import MHANetV3
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    from deepxi_tpu_torch.ops.maps import NormalCDF
+    from deepxi_tpu_torch.streaming import StreamingMHANet
+    gen = torch.Generator().manual_seed(4)
+    net = MHANetV3(257, 257, n_blocks=2)
+    params = {k: torch.randn(v.shape, generator=gen) * 0.05 + (k.endswith(".scale"))
+              for k, v in net.state_dict().items()}
+    it = MagXi(xi_map=NormalCDF(use_db=True, mu=torch.zeros(257), sigma=torch.full((257,), 10.0)))
+    x = (torch.randn(2, 256 * 6, generator=gen) * 3000).to(torch.int16)
+    n = mha_cache.mha_cache_step.launches
+    y = StreamingMHANet(it, net, params, fused=True, device=cuda).stream(x)
+    assert mha_cache.mha_cache_step.launches == n + 2 * 6
+    y_ref = StreamingMHANet(it, net, params, device=cuda).stream(x)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 256 * 6) and torch.isfinite(y).all()
+    assert (y - y_ref).abs().max().item() <= 1e-4

@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile.py enhance [--ver resnet-1.1c|mhanet-1.1c] [--batch 96|64] [--seconds 10] [--iters 5] [--timed 30] [--plain]
     python3 tools/torch_profile.py train [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
+    python3 tools/torch_profile.py stream [--ver mhanet-1.1c|resnet-1.1c] [--batch 1] [--cache f32|bf16] [--iters 5] [--timed 30] [--plain]
 
 `enhance` runs offline enhancement of `--batch` copies of the checked-in
 trained artifact's noisy utterance (resnet-1.1c, or mhanet-1.1c), tiled or
@@ -11,7 +12,10 @@ plain network). `train` runs train steps (example synthesis, forward,
 backward, update) at full width on `--batch` synthetic utterances of
 `--seconds`, with seeded initial weights and map statistics fitted on the
 batch, through the fused training stack (or, with `--plain`, autograd of the
-plain ResNetV2).
+plain ResNetV2). `stream` runs one streaming hop (`step`) of `--batch`
+channels of the checked-in artifact: for mhanet-1.1c at the clock 1023 with
+random K/V caches (`--cache` f32 or bf16) through the KV-cache kernel (or,
+with `--plain`, the einsum route); for resnet-1.1c from zero delay lines.
 
 After warm-up it times `--timed` calls without the profiler (host clock,
 each call synchronised: min, median, max), then runs `--iters` calls under
@@ -62,6 +66,46 @@ def layer_train(n: str) -> str:
     if "fft" in n:
         return "FFT (example spectra)"
     return "elementwise/reduction/copy (mixing, maps, LN, loss, Adam)"
+
+
+def layer_stream(n: str) -> str:
+    if "mha_cache" in n:
+        return "KV-cache attention kernel"
+    if "softmax" in n:
+        return "softmax (plain cache attention)"
+    if any(s in n for s in MATMUL):
+        return "matmul (DFT, projections, FFN, convs; plain: cache attention)"
+    return "elementwise/reduction/copy (LN, gain, cache writes, delay lines)"
+
+
+def stream_call(args):
+    """The stream workload: (one hop, its description)."""
+    from deepxi_tpu_torch.compat.artifact import (load_artifact,
+                                                  load_flagship_artifact)
+    from deepxi_tpu_torch.streaming import StreamingEnhancer, StreamingMHANet
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    chunk = torch.randint(-3000, 3000, (args.batch, 256), dtype=torch.int16, device=dev,
+                          generator=gen)
+    if args.ver == "resnet-1.1c":
+        if args.plain or args.cache != "f32":
+            sys.exit("--plain and --cache apply to mhanet-1.1c")
+        art = load_flagship_artifact(device=dev)
+        s = StreamingEnhancer(art.inp_tgt, art.net, art.params, device=dev)
+        st = s.init_state(args.batch)
+        return (lambda: s.step(st, chunk)), "resnet-1.1c streaming hop"
+    art = load_artifact(device=dev)
+    s = StreamingMHANet(art.inp_tgt, art.net, art.params, fused=not args.plain,
+                        cache_dtype={"f32": torch.float32, "bf16": torch.bfloat16}[args.cache],
+                        device=dev)
+    st = s.init_state(args.batch)
+    for c in st.k_caches + st.v_caches:
+        c.copy_(torch.randn(c.shape, device=dev, generator=gen))
+    st = st._replace(t=1023)
+    return (lambda: s.step(st, chunk)), (
+        f"mhanet-1.1c streaming hop ({'plain' if args.plain else 'fused'}, {args.cache} "
+        f"caches, t=1023)")
 
 
 def enhance_call(args):
@@ -122,23 +166,28 @@ def train_call(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("path", choices=("enhance", "train"))
+    ap.add_argument("path", choices=("enhance", "train", "stream"))
     ap.add_argument("--batch", type=int)
     ap.add_argument("--seconds", type=float)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--timed", type=int, default=30)
     ap.add_argument("--ver", choices=("resnet-1.1c", "mhanet-1.1c"), default="resnet-1.1c",
-                    help="enhance: the checked-in artifact to run")
+                    help="enhance, stream: the checked-in artifact to run")
+    ap.add_argument("--cache", choices=("f32", "bf16"), default="f32",
+                    help="stream: the MHANet K/V cache type")
     ap.add_argument("--plain", action="store_true", help="the plain network")
     args = ap.parse_args()
     train = args.path == "train"
-    args.batch = args.batch or (8 if train else 64 if args.ver == "mhanet-1.1c" else 96)
+    args.batch = args.batch or (8 if train else 1 if args.path == "stream"
+                                else 64 if args.ver == "mhanet-1.1c" else 96)
     args.seconds = args.seconds or (4.096 if train else 10.0)
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
 
-    call, what = (train_call if train else enhance_call)(args)
-    layer_of = layer_train if train else layer_enhance
+    call, what = {"enhance": enhance_call, "train": train_call,
+                  "stream": stream_call}[args.path](args)
+    layer_of = {"enhance": layer_enhance, "train": layer_train,
+                "stream": layer_stream}[args.path]
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -164,8 +213,8 @@ def main():
             kernels.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(sum(v) for v in kernels.values())
     per = args.iters
-    print(f"card: {torch.cuda.get_device_name(0)}; {what}, batch {args.batch} x "
-          f"{args.seconds} s")
+    print(f"card: {torch.cuda.get_device_name(0)}; {what}, batch {args.batch}"
+          + ("" if args.path == "stream" else f" x {args.seconds} s"))
     print(f"unprofiled: {args.timed} calls, ms per call min {ts.min():.3f} median "
           f"{np.median(ts):.3f} max {ts.max():.3f}")
     if busy_ms == 0:
