@@ -16,7 +16,10 @@ Phases (any failure exits non-zero before the result line):
      T=2048, flash_attention at T=250 and T=700, the streaming attention at
      T=2250, causal and not; the KV-cache attention step of streaming
      MHANet at B=3, L=2048 with f32 and bf16 caches, the clock at 0, 700,
-     2047 and 2500 (past the cap), every cache row nonzero;
+     2047 and 2500 (past the cap), every cache row nonzero; the pack2 TCN
+     kernel (two batch rows a CTA) at B=3 (odd) and 4, T=250 and 1024, and
+     at B=96 T=625 (its 32-row tiles), G=20, both LayerNorm modes; the spectral kernels (|X| of hop rows, and
+     gain times spectrum through the inverse DFT) at B=4, T=1, 250 and 625;
   3. the enhancement path: the checked-in trained resnet-1.1c artifact
      enhances its 4 s noisy utterance (T=250, per-block kernel) and the same
      utterance tiled five times (T=1250, halo-tiled kernel); both kernels
@@ -47,6 +50,17 @@ Phases (any failure exits non-zero before the result line):
      of 8 hops and with fused=False (against the steps); the trained
      resnet-1.1c through `StreamingEnhancer.step`, against the offline
      enhancer and the noisy SNR;
+  3e. the last three kernels' paths: resnet-1.1c enhancement of the 4 s
+     utterance and of B=96 distinct 10 s rows (T=625) through
+     `resnetv2_apply_fused(pack2=True)`, once per LayerNorm mode (the pack2
+     kernel must launch and the unpacked one must not; waveforms against
+     the unpacked route and the plain path; SNR); `make_xi_estimator` with
+     `fast_apply()` on both artifacts' 4 s utterances (|X| from one
+     stft_mag_fused launch a call; network output against the plain route on
+     the card, the largest ξ̂ difference in dB printed); and the
+     spectral-kernel route of resnet-1.1c enhancement (stft_mag_fused, the
+     fused TCN, the gain, enhance_frames_fused, overlap-add) against
+     `make_enhancer`'s waveform;
   4. times from CUDA events after warm-up: each kernel and its plain version
      at the main-path shapes (and the inference kernels at B=96, T=625), the
      end-to-end enhance, and one train step, fused against plain (median,
@@ -58,7 +72,13 @@ Phases (any failure exits non-zero before the result line):
      its plain version and scaled_dot_product_attention; streaming hops on
      the host clock against the 16 ms hop: MHANet `step` at B=1 (f32) and
      B=256 (bf16 caches, t=1023), `step_block` of 8 hops at B=256 against
-     its 128 ms, and the ResNet `step` at B=1 and B=4096.
+     its 128 ms, and the ResNet `step` at B=1 and B=4096; the pack2 kernel
+     (both modes) beside the unpacked kernel and its plain version, and the
+     spectral kernels beside their plain versions and two yardsticks, cuFFT
+     (torch.stft and abs; torch.fft.irfft of the gained spectrum times the
+     synthesis window) and the port's matmul formulation (`stft_mag`;
+     `apply_gain_reim` and torch.matmul), at B=1 T=250 and B=96 T=625;
+     resnet-1.1c enhancement at B=96 x 10 s, pack2 against unpacked.
 The last three lines are the card line, the kernels JSON and the result JSON.
 """
 
@@ -278,8 +298,8 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "deepxi_tpu_torch")):
         fail("deepxi_tpu_torch/ is not beside this script: run it from the repository")
 
-    from deepxi_tpu_torch.compat.artifact import load_flagship_artifact
-    from deepxi_tpu_torch.enhance import make_enhancer
+    from deepxi_tpu_torch.compat.artifact import FLAGSHIP_ROOT, load_flagship_artifact
+    from deepxi_tpu_torch.enhance import make_enhancer, make_xi_estimator
     from deepxi_tpu_torch.models.tcn import cyclic_dilation
     from deepxi_tpu_torch.config import preset
     from deepxi_tpu_torch.data.listing import batch_list
@@ -291,7 +311,11 @@ def main():
                                            make_optimizer, make_train_step,
                                            masked_loss, restore_checkpoint)
     from torch.func import functional_call
-    from deepxi_tpu_torch.ops.kernels.spectral import stft_mag
+    from deepxi_tpu_torch.ops.gains import gfunc
+    from deepxi_tpu_torch.ops.kernels import spectral
+    from deepxi_tpu_torch.ops.kernels.spectral import apply_gain_reim, stft_mag, stft_reim
+    from deepxi_tpu_torch.sig.stft import (_hamming_np, _synthesis_window_np,
+                                           hop_rows, overlap_and_add)
     from deepxi_tpu_torch.sig.mix import normalise
     from deepxi_tpu_torch.compat.artifact import MHANET_ROOT, load_artifact
     from deepxi_tpu_torch.data.loader import bucket_length
@@ -307,7 +331,7 @@ def main():
     # 1. device and build -------------------------------------------------
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build_s = _build.build(["tcn_fused", "tcn_fused_train", "mha_attention",
+    build_s = _build.build(["tcn_fused", "tcn_fused_train", "spectral", "mha_attention",
                             "mha_block_fused", "mha_cache"])
     print(f"[1] build: {time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
@@ -441,6 +465,30 @@ def main():
                   mha_cache.mha_cache_step(q, kc, vc, t),
                   mha_cache.mha_cache_step_ref(q, kc, vc, t))
     del kv, kc, vc
+
+    # the pack2 kernel: an odd B gives the last CTA a zero second row; the
+    # rows differ, so a pair's rows swapped would show. B=96 T=625 (the main
+    # path's batch) gives 960 row-pair CTAs and so the 32-row tile, the
+    # smaller shapes the 16-row one.
+    w = tcn_fused.random_block_weights(20, gen, dev)
+    for B, T in ((3, 250), (3, 1024), (4, 250), (4, 1024), (96, 625)):
+        x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
+        for ln in tcn_fused.PACK2_LN_MODES:
+            check("fused_block_group_whole_pack2",
+                  f"B={B} T={T} G=20 ({tcn_fused._pack2_tile(x)}-row tiles), ln_mode {ln}",
+                  tcn_fused.fused_block_group_whole_pack2(x, w, dil[:20], ln_mode=ln),
+                  tcn_fused.fused_block_group_whole_pack2_ref(x, w, dil[:20], ln_mode=ln))
+    # the spectral kernels on a random waveform's hop rows and spectrum
+    # (257 bins and 514 spectrum columns are no multiple of a tile)
+    for T in (1, 250, 625):
+        wave = (torch.randn(4, T * 256, generator=gen) * 0.1).to(dev)
+        x2d, Y = hop_rows(wave, 256), stft_reim(wave, 512, 256, 512)
+        gain = torch.rand(4, T, 257, generator=gen).to(dev)
+        check("stft_mag_fused", f"B=4 T={T}", spectral.stft_mag_fused(x2d, 512, 512),
+              spectral.stft_mag_fused_ref(x2d, 512, 512))
+        check("enhance_frames_fused", f"B=4 T={T}, gain in [0, 1]",
+              spectral.enhance_frames_fused(Y, gain, 512, 256, 512),
+              spectral.enhance_frames_fused_ref(Y, gain, 512, 256, 512))
 
     # 3. the enhancement path -----------------------------------------------
     art = load_flagship_artifact(device=dev)
@@ -765,6 +813,127 @@ def main():
             if not (torch.isfinite(y_v).all() and err <= atol and rel <= rel_tol):
                 fail(f"{label}: {what} disagrees")
 
+    # 3e. the last three kernels' paths ---------------------------------------
+    counted.update({"fused_block_group_whole_pack2": tcn_fused.fused_block_group_whole_pack2,
+                    "stft_mag_fused": spectral.stft_mag_fused,
+                    "enhance_frames_fused": spectral.enhance_frames_fused})
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items() if fn.launches}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    # B=96 distinct 10 s rows (each the utterance tiled and rotated), T=625
+    long = np.tile(art.noisy, -(-160000 // art.noisy.shape[0]))[:160000]
+    batches = {"4 s, B=1 T=250": art.noisy[None],
+               "B=96 x 10 s, T=625": np.stack([np.roll(long, 997 * i) for i in range(96)])}
+    y_fused = {k: enhance(art.params, x) for k, x in batches.items()}
+    y_plain = {k: enhance_plain(art.params, x) for k, x in batches.items()}
+
+    def hold(label, y, k, against):
+        """y (batch k) against the unpacked fused and/or plain waveforms and,
+        for the 4 s utterance, the noisy SNR."""
+        msg = []
+        for what, ref in against:
+            err, rel = wave_errs(y, ref[k])
+            msg.append(f"against {what}: max abs err {err:.3e}, rel RMS {rel:.3e}")
+            if not (torch.isfinite(y).all() and y.shape == ref[k].shape
+                    and err <= WAVE_ATOL and rel <= WAVE_REL_RMS):
+                fail(f"{label}, {k}: disagrees with {what}")
+        if k.startswith("4 s"):
+            snr_noisy = snr_db(art.clean, art.noisy / 32768.0)
+            snr_enh = snr_db(art.clean, y[0].cpu().numpy())
+            msg.append(f"SNR noisy {snr_noisy:.3f} dB -> enhanced {snr_enh:.3f} dB")
+            if snr_enh <= snr_noisy:
+                fail(f"{label}, {k}: enhanced SNR does not beat noisy SNR")
+        print(f"[3e] {label}, {k}: " + "; ".join(msg) + f" (tol {WAVE_ATOL:.0e}, "
+              f"{WAVE_REL_RMS:.0e})")
+
+    # (a) resnet-1.1c enhancement through the pack2 kernel
+    for ln in tcn_fused.PACK2_LN_MODES:
+        apply_p2 = (lambda p, m, ln=ln: tcn_fused.resnetv2_apply_fused(
+            p, m, pack2=True, pack2_ln=ln))
+        enhance_p2 = make_enhancer(art.inp_tgt, art.net, "mmse-lsa", apply_fn=apply_p2,
+                                   device=dev)
+        zero_counts()
+        outs = {k: enhance_p2(art.params, x) for k, x in batches.items()}
+        torch.cuda.synchronize()
+        n = counts()
+        print(f"[3e] resnet-1.1c enhance, resnetv2_apply_fused(pack2=True, pack2_ln={ln!r}): "
+              f"launches {n}")
+        if n.get("fused_block_group_whole_pack2", 0) < 1 or "fused_block_group_whole" in n:
+            fail("the pack2 route did not go through the pack2 kernel alone")
+        launches.setdefault("fused_block_group_whole_pack2",
+                            n["fused_block_group_whole_pack2"])
+        for k in batches:
+            hold(f"pack2 ({ln})", outs[k], k, (("the unpacked fused route", y_fused),
+                                               ("the plain path", y_plain)))
+    del outs
+
+    # (b) the xi-hat estimator with the fast path's network on both artifacts
+    tmp = tempfile.mkdtemp(prefix="deepxi_chip_smoke_xi_")
+    try:
+        shutil.copy(os.path.join(FLAGSHIP_ROOT, "stats.npz"),
+                    os.path.join(tmp, "resnet-1.1c_stats.npz"))
+        dx_r = DeepXiTorch(preset("resnet-1.1c", data_path=tmp), device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, art_x, dxi in (("resnet-1.1c", art, dx_r), ("mhanet-1.1c", art_m, runs["full"][0])):
+        seen = {}
+
+        def apply_seen(p, m, fast=dxi.fast_apply(), seen=seen):
+            seen["tgt"] = fast(p, m)
+            return seen["tgt"]
+        estimate = make_xi_estimator(art_x.inp_tgt, art_x.net, apply_fn=apply_seen, device=dev)
+        zero_counts()
+        xi = estimate(art_x.params, art_x.noisy[None])
+        torch.cuda.synchronize()
+        n = counts()
+        if n.get("stft_mag_fused") != 1:
+            fail(f"{label} estimator: stft_mag_fused launched {n.get('stft_mag_fused', 0)} "
+                 "times, not once")
+        launches.setdefault("stft_mag_fused", n["stft_mag_fused"])
+        with torch.no_grad():
+            x = normalise(torch.as_tensor(art_x.noisy[None], device=dev))
+            mag_p = spectral.stft_mag_fused_ref(hop_rows(x, 256), 512, 512)
+            tgt_p = art_x.net(mag_p)
+        valid = sequence_valid_mask(mag_p)[0]
+        net_err = (seen["tgt"] - tgt_p)[0][valid].abs().max().item()
+        mid = (tgt_p >= 1e-3) & (tgt_p <= 1 - 1e-3)
+        xi_db = (10 * torch.log10(xi / art_x.inp_tgt.xi_hat(tgt_p)))[mid].abs().max().item()
+        print(f"[3e] {label} make_xi_estimator(fast_apply()): xi_hat {tuple(xi.shape)}, "
+              f"launches {n}; network output against the plain route (plain |X|, plain "
+              f"network) on {int(valid.sum())} valid frames: max abs err {net_err:.3e} (tol "
+              f"{NET_ATOL:.0e}); largest xi_hat difference {xi_db:.3e} dB over the "
+              f"{mid.float().mean().item():.1%} of bins whose output lies in [1e-3, 1-1e-3]")
+        if not (torch.isfinite(xi).all() and xi.shape == tgt_p.shape) or net_err > NET_ATOL:
+            fail(f"{label} estimator disagrees with its plain route")
+
+    # (c) the spectral-kernel route of resnet-1.1c enhancement
+    def spectral_route(x_int16):
+        x = normalise(torch.as_tensor(x_int16, device=dev))
+        with torch.no_grad():
+            mag = spectral.stft_mag_fused(hop_rows(x, 256), 512, 512)
+            xi_hat = art.inp_tgt.xi_hat(fused(art.params, mag))
+            frames = spectral.enhance_frames_fused(
+                stft_reim(x, 512, 256, 512), gfunc(xi_hat, xi_hat + 1.0, "mmse-lsa"),
+                512, 256, 512)
+        return overlap_and_add(frames, 256)
+
+    zero_counts()
+    outs = {k: spectral_route(x) for k, x in batches.items()}
+    torch.cuda.synchronize()
+    n = counts()
+    print(f"[3e] spectral-kernel route of resnet-1.1c enhancement: launches {n}")
+    if n.get("stft_mag_fused") != 2 or n.get("enhance_frames_fused") != 2:
+        fail("the spectral-kernel route did not launch each spectral kernel once a call")
+    launches["enhance_frames_fused"] = n["enhance_frames_fused"]
+    for k in batches:
+        hold("spectral-kernel route", outs[k], k, (("make_enhancer's waveform", y_fused),))
+    del outs, y_plain
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -794,6 +963,93 @@ def main():
             row.update(keys)
         kernels.append(row)
 
+    # pack2 (both LayerNorm modes) against the unpacked kernel, in turns
+    row = {"name": "fused_block_group_whole_pack2", "route": "cuda",
+           "source": "deepxi_tpu_torch/ops/kernels/csrc/tcn_fused.cu",
+           "replaces": "deepxi_tpu/ops/kernels/tcn_fused.py:160",
+           "launches": launches["fused_block_group_whole_pack2"],
+           "max_abs_err": checks["fused_block_group_whole_pack2"]}
+    pack2 = tcn_fused.fused_block_group_whole_pack2
+    for i, (B, T) in enumerate(shapes["fused_block_group_whole"]):
+        x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
+        unpacked = [cuda_ms(lambda: tcn_fused.fused_block_group_whole(x, w, dil[:G]))]
+        ms = cuda_ms(lambda: pack2(x, w, dil[:G]))
+        ms_mm = cuda_ms(lambda: pack2(x, w, dil[:G], ln_mode="matmul"))
+        unpacked.append(cuda_ms(lambda: tcn_fused.fused_block_group_whole(x, w, dil[:G])))
+        plain = cuda_ms(lambda: tcn_fused.fused_block_group_whole_pack2_ref(x, w, dil[:G]))
+        bound, by = bound_ms(B, T, G)
+        print(f"[4] fused_block_group_whole_pack2: one call of G={G} blocks at B={B} T={T}: "
+              f"{ms:.4f} ms (slice), {ms_mm:.4f} ms (matmul); unpacked kernel "
+              f"{unpacked[0]:.4f}, {unpacked[1]:.4f} ms (before, after); plain {plain:.4f} "
+              f"ms; bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound")
+        times = dict(ms=ms, matmul_ms=ms_mm, plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=None, unpacked_ms=float(np.mean(unpacked)),
+                     shape={"B": B, "T": T, "G": G})
+        row.update(times if i == 0 else {"at_b96_t625": times})
+    kernels.append(row)
+
+    # the spectral kernels. Their bound is the functions' least work: an FFT
+    # takes ~2.5 K log2 K FLOP a frame, far under the bytes, so bytes bound
+    # them; the bound of the dense DFT product the kernels keep (as the TPU
+    # kernels do) is reported beside it. Two yardsticks, each checked against
+    # the kernel first: cuFFT (torch.stft, torch.fft.irfft) and the port's
+    # matmul formulation.
+    w_ana = torch.as_tensor(_hamming_np(512), device=dev)
+    w_syn = torch.as_tensor(_synthesis_window_np(512, 256), device=dev)
+    fft_flops = 2.5 * 512 * np.log2(512)
+    for kname, src_line in (("stft_mag_fused", 116), ("enhance_frames_fused", 168)):
+        row = {"name": kname, "route": "cuda",
+               "source": "deepxi_tpu_torch/ops/kernels/csrc/spectral.cu",
+               "replaces": f"deepxi_tpu/ops/kernels/spectral.py:{src_line}",
+               "launches": launches[kname], "max_abs_err": checks[kname]}
+        for i, (B, T) in enumerate(((1, 250), (96, 625))):
+            wave = (torch.randn(B, T * 256, generator=gen) * 0.1).to(dev)
+            if kname == "stft_mag_fused":
+                x2d = hop_rows(wave, 256)
+                x1d = x2d.reshape(B, -1)
+                fns = (lambda: spectral.stft_mag_fused(x2d, 512, 512),  # noqa: B023
+                       lambda: spectral.stft_mag_fused_ref(x2d, 512, 512),  # noqa: B023
+                       lambda: torch.stft(x1d, 512, 256, 512, w_ana, center=False,  # noqa: B023
+                                          return_complex=True).abs().transpose(1, 2),
+                       lambda: stft_mag(wave, 512, 256, 512))  # noqa: B023
+                lib_names = ("torch.stft (cuFFT) + abs",
+                             "stft_mag (framing, torch.matmul, magnitude)")
+                flops = B * T * (512 + fft_flops + 3 * 257)
+                dft_flops = B * T * 2 * 512 * 514
+                nbytes = 4 * (B * (T + 1) * 256 + B * T * 257 + 512)
+            else:
+                Y = stft_reim(wave, 512, 256, 512)
+                gain = torch.rand(B, T, 257, generator=gen).to(dev)
+                S = spectral._on_device("synthesis", (512, 256, 512), dev)
+                fns = (lambda: spectral.enhance_frames_fused(Y, gain, 512, 256, 512),  # noqa: B023
+                       lambda: spectral.enhance_frames_fused_ref(Y, gain, 512, 256, 512),  # noqa: B023
+                       lambda: torch.fft.irfft(torch.complex(Y[..., :257], Y[..., 257:])  # noqa: B023
+                                               * gain, n=512) * w_syn,  # noqa: B023
+                       lambda: torch.matmul(apply_gain_reim(Y, gain, 512), S))  # noqa: B023
+                lib_names = ("gain x complex spectrum, torch.fft.irfft (cuFFT), window",
+                             "apply_gain_reim + torch.matmul")
+                flops = B * T * (2 * 257 + fft_flops + 512)
+                dft_flops = B * T * (2 * 514 * 512 + 514)
+                nbytes = 4 * (B * T * (514 + 257 + 512) + 512)
+            y = fns[0]()
+            lib_rel = [((f() - y).abs().max() / y.abs().max()).item() for f in fns[2:]]
+            for name, rel in zip(lib_names, lib_rel):
+                if rel > LIB_TOL_REL:
+                    fail(f"{name} is not {kname}'s function ({rel:.3e})")
+            ms, plain, lib, lib_mm = (cuda_ms(f) for f in fns)
+            bound, by = roofline_ms(flops, nbytes)
+            dft_bound = roofline_ms(dft_flops, nbytes + 4 * 512 * 514)[0]
+            print(f"[4] {kname}: B={B} T={T}: {ms:.4f} ms; plain {plain:.4f} ms; "
+                  f"{lib_names[0]} {lib:.4f} ms (within {lib_rel[0]:.1e} rel); "
+                  f"{lib_names[1]} {lib_mm:.4f} ms (within {lib_rel[1]:.1e} rel); bound "
+                  f"{bound:.4f} ms ({by}); {bound / ms:.1%} of the bound; the DFT "
+                  f"product's bound {dft_bound:.4f} ms ({dft_bound / ms:.1%})")
+            times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                         matmul_library_ms=lib_mm, dft_bound_ms=dft_bound,
+                         shape={"B": B, "T": T})
+            row.update(times if i == 0 else {"at_b96_t625": times})
+        kernels.append(row)
+
     for B, n in ((1, art.noisy.shape[0]), (96, 160000)):
         x = np.tile(art.noisy, -(-n // art.noisy.shape[0]))[:n][None].repeat(B, 0)
         t_fused = host_ms(lambda: enhance(art.params, x))
@@ -802,6 +1058,20 @@ def main():
         print(f"[4] enhance B={B} x {n / 16000:.1f} s: fused {t_fused:.3f} ms "
               f"({audio_s / t_fused * 1e3:.1f} audio-s/s), plain {t_plain:.3f} ms "
               f"({audio_s / t_plain * 1e3:.1f} audio-s/s)")
+    # resnet-1.1c enhancement at B=96 x 10 s (distinct rows), pack2 against
+    # unpacked, in turns
+    x = batches["B=96 x 10 s, T=625"]
+    enhance_p2 = make_enhancer(art.inp_tgt, art.net, "mmse-lsa", device=dev,
+                               apply_fn=lambda p, m: tcn_fused.resnetv2_apply_fused(
+                                   p, m, pack2=True))
+    turns = [("unpacked", enhance), ("pack2", enhance_p2), ("pack2", enhance_p2),
+             ("unpacked", enhance)]
+    e2e = {}
+    for arm, fn in turns:
+        e2e.setdefault(arm, []).append(host_ms(lambda: fn(art.params, x)))  # noqa: B023
+    print("[4] enhance B=96 x 10 s (distinct rows), median of 10 a turn: " + "; ".join(
+        f"{arm} {', '.join(f'{t:.3f}' for t in ts)} ms "
+        f"({96 * 10 / np.mean(ts) * 1e3:.1f} audio-s/s)" for arm, ts in e2e.items()))
     mag = torch.relu(torch.randn(96, 625, 257, generator=gen)).to(dev)
     t_stack = cuda_ms(lambda: fused(art.params, mag), iters=5)
     print(f"[4] resnetv2_apply_fused B=96 T=625 (40 blocks): {t_stack:.3f} ms "

@@ -1,12 +1,15 @@
-"""Offline enhancement, int16 waveforms to enhanced float waveforms
-(follows deepxi_tpu/enhance.py; the MagXi family so far):
+"""Offline enhancement, int16 waveforms to enhanced float waveforms, and
+the a priori SNR estimate alone (follows deepxi_tpu/enhance.py; the MagXi
+family so far):
 
     normalise -> frame -> windowed real DFT (matmul) -> |X| -> network
     -> inverse xi map -> gain -> gain * [re || im] -> inverse DFT (matmul,
     COLA window folded in) -> overlap-add
 
 No complex dtypes and no phase: a real gain times [re || im] equals the
-polar resynthesis of the gained magnitude with the noisy phase.
+polar resynthesis of the gained magnitude with the noisy phase. The
+estimator stops at the inverse xi map and takes |X| from the fused
+`stft_mag_fused` kernel.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ from torch.func import functional_call
 
 from deepxi_tpu_torch import resolve_device
 from deepxi_tpu_torch.ops.gains import gfunc
-from deepxi_tpu_torch.ops.kernels.spectral import (apply_gain_reim, stft_reim,
+from deepxi_tpu_torch.ops.kernels.spectral import (apply_gain_reim,
+                                                   stft_mag_fused, stft_reim,
                                                    synthesis_from_reim)
 from deepxi_tpu_torch.sig.mix import normalise
+from deepxi_tpu_torch.sig.stft import hop_rows
 
 
 def make_enhancer(inp_tgt, network: torch.nn.Module, gtype: str = "mmse-lsa",
@@ -46,3 +51,24 @@ def make_enhancer(inp_tgt, network: torch.nn.Module, gtype: str = "mmse-lsa",
         return synthesis_from_reim(apply_gain_reim(Y, G, K), N_d, N_s, K)
 
     return enhance
+
+
+def make_xi_estimator(inp_tgt, network: torch.nn.Module,
+                      apply_fn: Optional[Callable] = None,
+                      device=None) -> Callable:
+    """Build `estimate(params, x_int16[B, L]) -> xi_hat[B, T, K/2+1]` for
+    the xi_hat/deepmmse/ibm output modes, on `device` (the card unless
+    ``device="cpu"``): |X| from the hop rows through `stft_mag_fused`, then
+    the network (`apply_fn(params, mag)` in place of its own forward, as in
+    `make_enhancer`) and the inverse xi map."""
+    dev = resolve_device(device)
+    N_d, N_s, K = inp_tgt.N_d, inp_tgt.N_s, inp_tgt.K
+    net_apply = apply_fn or (lambda p, m: functional_call(network, p, (m,)))
+
+    @torch.no_grad()
+    def estimate(params, x_int16) -> torch.Tensor:
+        x = normalise(torch.as_tensor(x_int16, device=dev))
+        mag = stft_mag_fused(hop_rows(x, N_s), N_d, K)
+        return inp_tgt.xi_hat(net_apply(params, mag))
+
+    return estimate

@@ -42,20 +42,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// relu(row) into v (lane's W/32 elements) and its mean and 1/sqrt(var+eps),
-// two-pass as the reference computes them.
-template <int W>
+// relu(row) into v (lane's W/32 elements) and its mean and 1/sqrt(var+eps):
+// two-pass as the reference computes them, or with ONE_PASS the variance as
+// E[x^2] - E[x]^2 (no clip at 0), as the JAX pack2 kernel's "matmul" mode.
+template <int W, bool ONE_PASS = false>
 __device__ __forceinline__ void relu_moments(const float* row, int lane,
                                              float (&v)[W / 32], float& mu,
                                              float& rstd) {
-  float s = 0.f;
+  float s = 0.f, q = 0.f;
 #pragma unroll
   for (int e = 0; e < W / 32; ++e) {
     v[e] = fmaxf(row[lane + 32 * e], 0.f);
     s += v[e];
+    if (ONE_PASS) q = fmaf(v[e], v[e], q);
   }
   mu = warp_sum(s) * (1.f / W);
-  float q = 0.f;
+  if (ONE_PASS) {
+    rstd = rsqrtf(warp_sum(q) * (1.f / W) - mu * mu + EPS);
+    return;
+  }
+  q = 0.f;
 #pragma unroll
   for (int e = 0; e < W / 32; ++e) {
     const float t = v[e] - mu;
@@ -79,12 +85,13 @@ __device__ void h_moments(const float* h, float* st, int r0, int r1) {
 
 // x[r] <- LN(relu(x[r])) in place for rows [r0, r1) of a DF-wide buffer;
 // rows below zero_below (before t = 0) become zero.
+template <bool ONE_PASS = false>
 __device__ void relu_ln_inplace(float* x, int r0, int r1, int zero_below) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = r0 + warp; r < r1; r += NT / 32) {
     float* row = x + r * LDF;
     float v[DF / 32], mu, rstd;
-    relu_moments<DF>(row, lane, v, mu, rstd);
+    relu_moments<DF, ONE_PASS>(row, lane, v, mu, rstd);
     const bool pre = r < zero_below;
 #pragma unroll
     for (int e = 0; e < DF / 32; ++e)
@@ -98,11 +105,14 @@ __device__ void relu_ln_inplace(float* x, int r0, int r1, int zero_below) {
 // shared-memory rows of A, or LN(relu(A)) from the moments st when LN_IN.
 // A negative d reads rows after r (the input gradient of a causal conv).
 // Thread (tr, tc) owns columns 4tc..4tc+3 of rows base+tr+i*TR, i < RM.
-template <int KD, int N, int TAPS, bool LN_IN, bool ACCUM, bool BIAS = true>
+// With NB > 1 the same rows of NB batch rows' windows, bs floats apart in
+// A, st and out alike, share each weight load.
+template <int KD, int N, int TAPS, bool LN_IN, bool ACCUM, bool BIAS = true,
+          int NB = 1>
 __device__ void unit_product(const float* A, int lda, const float* st,
                              const float* __restrict__ W,
                              const float* __restrict__ bias, int d,
-                             float* out, int ldo, int r0, int r1) {
+                             float* out, int ldo, int r0, int r1, int bs = 0) {
   constexpr int TN = N / 4;
   constexpr int TR = NT / TN;
   constexpr int ROWS = TR * RM;
@@ -110,27 +120,32 @@ __device__ void unit_product(const float* A, int lda, const float* st,
   const float4 b = BIAS ? __ldg(reinterpret_cast<const float4*>(bias) + tc)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int base = r0; base < r1; base += ROWS) {
-    float acc[RM][4];
+    float acc[NB][RM][4];
     int rows[RM];
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       // rows past r1 repeat the last row and are not stored
       rows[i] = min(base + tr + i * TR, r1 - 1);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][i][c] = 0.f;
     }
 #pragma unroll
     for (int j = 0; j < TAPS; ++j) {
       const int shift = (j - (TAPS - 1)) * d;
       const float* Ar[RM];
-      float sh[RM], sc[RM];
+      float sh[NB][RM], sc[NB][RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const int r = rows[i] + shift;
         Ar[i] = A + r * lda;
         if (LN_IN) {
-          sh[i] = st[2 * r];
-          sc[i] = st[2 * r + 1];
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            sh[n][i] = st[n * bs + 2 * r];
+            sc[n][i] = st[n * bs + 2 * r + 1];
+          }
         }
       }
       const float4* Wj = reinterpret_cast<const float4*>(W + j * KD * N) + tc;
@@ -138,27 +153,33 @@ __device__ void unit_product(const float* A, int lda, const float* st,
       for (int q = 0; q < KD; ++q) {
         const float4 w = __ldg(Wj + q * TN);
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          float a = Ar[i][q];
-          if (LN_IN) a = fmaf(fmaxf(a, 0.f), sc[i], sh[i]);
-          acc[i][0] = fmaf(a, w.x, acc[i][0]);
-          acc[i][1] = fmaf(a, w.y, acc[i][1]);
-          acc[i][2] = fmaf(a, w.z, acc[i][2]);
-          acc[i][3] = fmaf(a, w.w, acc[i][3]);
+        for (int n = 0; n < NB; ++n) {
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            float a = Ar[i][n * bs + q];
+            if (LN_IN) a = fmaf(fmaxf(a, 0.f), sc[n][i], sh[n][i]);
+            acc[n][i][0] = fmaf(a, w.x, acc[n][i][0]);
+            acc[n][i][1] = fmaf(a, w.y, acc[n][i][1]);
+            acc[n][i][2] = fmaf(a, w.z, acc[n][i][2]);
+            acc[n][i][3] = fmaf(a, w.w, acc[n][i][3]);
+          }
         }
       }
     }
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = base + tr + i * TR;
-      if (r < r1) {
-        float4* o = reinterpret_cast<float4*>(out + r * ldo) + tc;
-        float4 v = ACCUM ? *o : make_float4(0.f, 0.f, 0.f, 0.f);
-        v.x += acc[i][0] + b.x;
-        v.y += acc[i][1] + b.y;
-        v.z += acc[i][2] + b.z;
-        v.w += acc[i][3] + b.w;
-        *o = v;
+    for (int n = 0; n < NB; ++n) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = base + tr + i * TR;
+        if (r < r1) {
+          float4* o = reinterpret_cast<float4*>(out + n * bs + r * ldo) + tc;
+          float4 v = ACCUM ? *o : make_float4(0.f, 0.f, 0.f, 0.f);
+          v.x += acc[n][i][0] + b.x;
+          v.y += acc[n][i][1] + b.y;
+          v.z += acc[n][i][2] + b.z;
+          v.w += acc[n][i][3] + b.w;
+          *o = v;
+        }
       }
     }
   }

@@ -1,20 +1,39 @@
-"""Spectral transforms as matrix products (follows the plain parts of
+"""Spectral transforms as matrix products (follows
 deepxi_tpu/ops/kernels/spectral.py).
 
 At K=512 the windowed real DFT is a [*, 512] x [512, 514] product and the
 inverse DFT, with the COLA synthesis window folded in, a [*, 514] x [514, 512]
-product. Both stay `torch.matmul`, as the JAX package leaves them to XLA.
+product. `stft_reim`, `stft_mag` and `synthesis_from_reim` leave them to
+`torch.matmul`, as the JAX package leaves them to XLA.
+
+Two CUDA kernels for Hopper (`csrc/spectral.cu`) replace the module's two
+Pallas kernels:
+
+  * `stft_mag_fused` (`stft_mag_pallas`): hop rows [B, T+1, N_s] to |X|
+    [B, T, K/2+1]; frames are built from two hop rows in shared memory and
+    only the magnitudes reach device memory. The port's ξ̂ estimator
+    (`enhance.make_xi_estimator`) takes its |X| from it.
+  * `enhance_frames_fused` (`enhance_frames_pallas`): the gain times
+    [re || im], then the inverse-DFT product: synthesis frames [B, T, N_d],
+    overlap-added outside (`sig.stft.overlap_and_add`).
+
+Each wrapper launches its kernel for a CUDA tensor and takes its plain
+version (`*_ref`) for a CPU tensor; each has a plain-integer `launches`
+counter and, like `pallas_call`, no backward. Both take N_d = 2 N_s only.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from deepxi_tpu_torch.ops.kernels import refuse_autograd
 from deepxi_tpu_torch.sig.stft import (_hamming_np, _synthesis_window_np,
-                                       frame, overlap_and_add)
+                                       _two_rows, frame, hop_rows,
+                                       overlap_and_add)
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,19 +79,30 @@ def stft_reim(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:
     return torch.matmul(fr, _on_device("analysis", (N_d, K), x.device))
 
 
-def stft_mag(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:
-    """Short-time magnitude spectrum via the matmul DFT."""
+def _magnitude(Y: torch.Tensor, K: int) -> torch.Tensor:
+    """|X| of a [re || im] spectrum."""
     nb = K // 2 + 1
-    Y = stft_reim(x, N_d, N_s, K)
     re, im = Y[..., :nb], Y[..., nb:]
     return torch.sqrt(re * re + im * im)
+
+
+def stft_mag(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:
+    """Short-time magnitude spectrum via the matmul DFT."""
+    _two_rows(N_d, N_s)
+    return stft_mag_fused_ref(hop_rows(x, N_s), N_d, K)
+
+
+def _synthesis_frames(Y: torch.Tensor, N_d: int, N_s: int,
+                      K: int) -> torch.Tensor:
+    """Synthesis frames [..., T, N_d] of [re || im] spectra: the inverse-DFT
+    product with the COLA window folded in."""
+    return torch.matmul(Y, _on_device("synthesis", (N_d, N_s, K), Y.device))
 
 
 def synthesis_from_reim(Y: torch.Tensor, N_d: int, N_s: int,
                         K: int) -> torch.Tensor:
     """Waveform from [re || im] spectra: inverse-DFT product + overlap-add."""
-    M = _on_device("synthesis", (N_d, N_s, K), Y.device)
-    return overlap_and_add(torch.matmul(Y, M), N_s)
+    return overlap_and_add(_synthesis_frames(Y, N_d, N_s, K), N_s)
 
 
 def apply_gain_reim(Y: torch.Tensor, G: torch.Tensor, K: int) -> torch.Tensor:
@@ -80,3 +110,114 @@ def apply_gain_reim(Y: torch.Tensor, G: torch.Tensor, K: int) -> torch.Tensor:
     polar decomposition, so equals |X| G exp(j angle X))."""
     nb = K // 2 + 1
     return torch.cat([Y[..., :nb] * G, Y[..., nb:] * G], dim=-1)
+
+
+def stft_mag_fused_ref(x2d: torch.Tensor, N_d: int, K: int) -> torch.Tensor:
+    """Plain version of `stft_mag_fused`: frames from consecutive hop rows,
+    the windowed-DFT product, the magnitude."""
+    fr = torch.cat([x2d[..., :-1, :], x2d[..., 1:, :]], dim=-1)
+    return _magnitude(torch.matmul(fr, _on_device("analysis", (N_d, K), x2d.device)), K)
+
+
+def enhance_frames_fused_ref(Y: torch.Tensor, G: torch.Tensor, N_d: int,
+                             N_s: int, K: int) -> torch.Tensor:
+    """Plain version of `enhance_frames_fused`: the gain into both halves of
+    [re || im], then the inverse-DFT product."""
+    return _synthesis_frames(apply_gain_reim(Y, G, K), N_d, N_s, K)
+
+
+def _check(x: torch.Tensor, shape: tuple, what: str) -> None:
+    """Raise unless x is a float32 tensor of `shape` (None: any size)."""
+    if (x.dtype != torch.float32 or x.dim() != len(shape)
+            or any(n is not None and n != m for n, m in zip(shape, x.shape))):
+        want = "[" + ", ".join("*" if n is None else str(n) for n in shape) + "]"
+        raise ValueError(f"{what} must be a float32 {want} tensor, not "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
+def _check_card(tensors, N_s: int) -> None:
+    """What the kernels need beyond the function's shapes: contiguous,
+    16-byte aligned tensors on one device and 32 | N_s."""
+    if N_s % 32:
+        raise ValueError(f"the spectral kernels take N_s a multiple of 32, not {N_s}")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16 or t.device != tensors[0].device:
+            raise ValueError("the spectral kernels take contiguous, 16-byte "
+                             "aligned tensors on one device")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from deepxi_tpu_torch.ops.kernels import _build
+    lib = _build.load("spectral")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.spectral_error_string.argtypes = [i]
+    lib.spectral_error_string.restype = ctypes.c_char_p
+    lib.stft_mag_forward.argtypes = [p, p, p, i, i, i, i, p]
+    lib.stft_mag_forward.restype = i
+    lib.enhance_frames_forward.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.enhance_frames_forward.restype = i
+    return lib
+
+
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} "
+                           f"({lib.spectral_error_string(rc).decode()})")
+
+
+def stft_mag_fused(x2d: torch.Tensor, N_d: int, K: int) -> torch.Tensor:
+    """Magnitude spectrum [B, T, K/2+1] of hop rows x2d [B, T+1, N_s] with
+    N_d = 2 N_s (`sig.stft.hop_rows` of a waveform): frame, window, real DFT
+    and |X| in one kernel (replaces `stft_mag_pallas`)."""
+    refuse_autograd([x2d], "stft_mag_fused")
+    _check(x2d, (None, None, N_d // 2), "x2d")
+    _two_rows(N_d, x2d.shape[2])
+    if x2d.shape[1] < 2:
+        raise ValueError("x2d needs T+1 >= 2 hop rows")
+    if x2d.device.type == "cpu":
+        return stft_mag_fused_ref(x2d, N_d, K)
+    B, T, N_s = x2d.shape[0], x2d.shape[1] - 1, x2d.shape[2]
+    M = _on_device("analysis", (N_d, K), x2d.device)
+    _check_card([x2d, M], N_s)
+    out = torch.empty(B, T, K // 2 + 1, device=x2d.device)
+    lib = _lib()
+    with torch.cuda.device(x2d.device):
+        _raise_on(lib, lib.stft_mag_forward(
+            x2d.data_ptr(), M.data_ptr(), out.data_ptr(), B, T, N_s, K // 2 + 1,
+            torch.cuda.current_stream().cuda_stream), "stft_mag_forward")
+    stft_mag_fused.launches += 1
+    return out
+
+
+stft_mag_fused.launches = 0
+
+
+def enhance_frames_fused(Y: torch.Tensor, G: torch.Tensor, N_d: int, N_s: int,
+                         K: int) -> torch.Tensor:
+    """Synthesis frames [B, T, N_d] of the gain G [B, T, K/2+1] times the
+    spectrum Y = [re || im] [B, T, 2(K/2+1)]: the gain product, the inverse
+    DFT and the synthesis window in one kernel (replaces
+    `enhance_frames_pallas`); overlap-add them with
+    `sig.stft.overlap_and_add`."""
+    refuse_autograd([Y, G], "enhance_frames_fused")
+    _two_rows(N_d, N_s)
+    nb = K // 2 + 1
+    _check(Y, (None, None, 2 * nb), "Y")
+    _check(G, (Y.shape[0], Y.shape[1], nb), "G")
+    if Y.device.type == "cpu":
+        return enhance_frames_fused_ref(Y, G, N_d, N_s, K)
+    B, T = Y.shape[:2]
+    S = _on_device("synthesis", (N_d, N_s, K), Y.device)
+    _check_card([Y, G, S], N_s)
+    out = torch.empty(B, T, N_d, device=Y.device)
+    lib = _lib()
+    with torch.cuda.device(Y.device):
+        _raise_on(lib, lib.enhance_frames_forward(
+            Y.data_ptr(), G.data_ptr(), S.data_ptr(), out.data_ptr(), B, T, nb,
+            N_d, torch.cuda.current_stream().cuda_stream), "enhance_frames_forward")
+    enhance_frames_fused.launches += 1
+    return out
+
+
+enhance_frames_fused.launches = 0

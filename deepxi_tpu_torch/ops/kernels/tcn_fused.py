@@ -1,10 +1,14 @@
 """Fused ResNetV2 block groups (follows deepxi_tpu/ops/kernels/tcn_fused.py).
 
-Two CUDA kernels for Hopper (`csrc/tcn_fused.cu`) replace the two Pallas
+CUDA kernels for Hopper (`csrc/tcn_fused.cu`) replace the three Pallas
 kernels of the inference path:
 
   * `fused_block_group_whole`: for T <= `whole_max_t`; one launch per block,
     each CTA a time tile plus the 2d rows its dilated conv reaches back.
+  * `fused_block_group_whole_pack2`: the same route with two batch rows per
+    CTA (the JAX kernel packs them into the d_f lanes), and the JAX kernel's
+    `ln_mode` for the two segmented LayerNorms; `resnetv2_apply_fused` takes
+    it with `pack2=True`.
   * `fused_block_group`: the halo-tiled group; one launch per group, each CTA
     carrying the shrinking window of its tile through all G blocks.
 
@@ -16,9 +20,9 @@ These are inference routes: like `pallas_call`, they have no backward, and
 with autograd on they raise when an input or weight requires grad, on both
 devices. Training takes `tcn_fused_train.resnetv2_apply_fused_train`.
 
-The TPU layout knobs of the JAX module (`pack2`, `batch_group`) are left
-out: they reshape work for the TPU's matrix unit and do not change the
-function.
+The JAX module's `batch_group` (batch rows per grid cell of the unpacked
+whole-sequence kernel) is left out: it reshapes work for the TPU's matrix
+unit, does not change the function and is no kernel of its own.
 """
 
 from __future__ import annotations
@@ -101,6 +105,48 @@ def fused_block_group_whole_ref(x: torch.Tensor,
     return h
 
 
+PACK2_LN_MODES = ("slice", "matmul")
+
+
+def _pack2_ln(u: torch.Tensor, ln_mode: str) -> torch.Tensor:
+    """The pack2 kernel's segmented LayerNorm of each row's d_f features:
+    two-pass ("slice"), or ("matmul") mean and E[x^2] from products with
+    1/d_f and the variance E[x^2] - mean^2, unclipped, as the JAX kernel's
+    block-average product computes them."""
+    if ln_mode == "slice":
+        return layer_norm(u)
+    inv = 1.0 / u.shape[-1]
+    m = (u * inv).sum(-1, keepdim=True)
+    v = (u * u * inv).sum(-1, keepdim=True) - m * m
+    return (u - m) * torch.rsqrt(v + 1e-6)
+
+
+def fused_block_group_whole_pack2_ref(x: torch.Tensor,
+                                      weights: Sequence[BlockWeights],
+                                      dilations: Sequence[int], k: int = 3,
+                                      ln_mode: str = "slice") -> torch.Tensor:
+    """Plain version of the lane-packed whole-sequence group, as the JAX
+    kernel computes it: B padded to even with zero rows, the LN of h
+    two-pass, the segmented LNs by `ln_mode`, biases added where it adds
+    them. Its block-diagonal zeros add exact 0.0 terms, so each row is
+    computed on its own."""
+    if ln_mode not in PACK2_LN_MODES:
+        raise ValueError(f"ln_mode must be one of {PACK2_LN_MODES}, not {ln_mode!r}")
+    B, T, _ = x.shape
+    h = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, B % 2))
+    for bw, d in zip(weights, dilations):
+        reach = (k - 1) * d
+        u1 = layer_norm(torch.relu(h)) @ bw.w1[0] + bw.b1
+        a2 = torch.nn.functional.pad(_pack2_ln(torch.relu(u1), ln_mode),
+                                     (0, 0, reach, 0))
+        y = a2[:, reach:reach + T] @ bw.w2[k - 1]
+        for j in range(k - 1):
+            y = y + a2[:, j * d:j * d + T] @ bw.w2[j]
+        y = y + bw.b2
+        h = h + _pack2_ln(torch.relu(y), ln_mode) @ bw.w3[0] + bw.b3
+    return h[:B]
+
+
 def _halo(dilations: Sequence[int], k: int) -> int:
     halo = sum((k - 1) * d for d in dilations)
     return -(-halo // 8) * 8
@@ -168,6 +214,8 @@ def _lib() -> ctypes.CDLL:
     lib.tcn_error_string.restype = ctypes.c_char_p
     lib.tcn_block_forward.argtypes = [p, p, p, i, i, i, i, p]
     lib.tcn_block_forward.restype = i
+    lib.tcn_block_forward_pack2.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.tcn_block_forward_pack2.restype = i
     lib.tcn_group_forward.argtypes = [p, p, p, ctypes.POINTER(i), i, i, i,
                                       i, i, p]
     lib.tcn_group_forward.restype = i
@@ -228,6 +276,53 @@ def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
 fused_block_group_whole.launches = 0
 
 
+def _pack2_tile(x: torch.Tensor) -> int:
+    """Time tile of the pack2 kernel: 32 rows when the row pairs alone give
+    every SM a CTA, else 16."""
+    B, T, _ = x.shape
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return 32 if -(-B // 2) * -(-T // 32) >= n_sm else 16
+
+
+def fused_block_group_whole_pack2(x: torch.Tensor,
+                                  weights: Sequence[BlockWeights],
+                                  dilations: Sequence[int], k: int = 3,
+                                  ln_mode: str = "slice") -> torch.Tensor:
+    """`fused_block_group_whole` with rows 2b and 2b+1 in one CTA (one
+    launch per block): each weight load feeds both rows' FMAs. `ln_mode`
+    ("slice" or "matmul") picks the segmented LayerNorm as in the JAX
+    kernel. Raises ValueError when a CTA cannot hold two windows."""
+    _refuse_autograd([x, *(w for bw in weights for w in bw)],
+                     "fused_block_group_whole_pack2")
+    if ln_mode not in PACK2_LN_MODES:
+        raise ValueError(f"ln_mode must be one of {PACK2_LN_MODES}, not {ln_mode!r}")
+    if x.device.type == "cpu":
+        return fused_block_group_whole_pack2_ref(x, weights, dilations, k, ln_mode)
+    packed = _check(x, weights, dilations, k)
+    lib = _lib()
+    B, T, _ = x.shape
+    tile = _pack2_tile(x)
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    src = x
+    with torch.cuda.device(x.device):
+        max_rows = lib.tcn_max_window_rows(torch.cuda.current_device())
+        if 2 * (tile + (k - 1) * max(dilations)) + 1 > max_rows:
+            raise ValueError(f"two windows of {tile} + {(k - 1) * max(dilations)} "
+                             f"rows do not fit one CTA ({max_rows} rows)")
+        stream = torch.cuda.current_stream().cuda_stream
+        for g, d in enumerate(dilations):
+            dst = bufs[g % 2]
+            _raise_on(lib, lib.tcn_block_forward_pack2(
+                src.data_ptr(), dst.data_ptr(), packed[g].data_ptr(), d, B, T,
+                tile, int(ln_mode == "matmul"), stream), "tcn_block_forward_pack2")
+            fused_block_group_whole_pack2.launches += 1
+            src = dst
+    return src
+
+
+fused_block_group_whole_pack2.launches = 0
+
+
 def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
                       dilations: Sequence[int], k: int = 3,
                       tile_t: int = TILED_TILE_T) -> torch.Tensor:
@@ -275,14 +370,20 @@ def resnetv2_apply_fused(params: Dict[str, torch.Tensor], x: torch.Tensor,
                          n_blocks: int = 40, max_d_rate: int = 16, k: int = 3,
                          group: int = TILED_GROUP,
                          tile_t: int = TILED_TILE_T, whole_max_t: int = 1024,
+                         pack2: bool = False, pack2_ln: str = "slice",
                          outp_act: str = "Sigmoid") -> torch.Tensor:
     """ResNetV2 forward (causal, ReLU->LN->W+b) with the block stack run by
     the fused group kernels; `params` is the flat dict of
     `models.tcn.ResNetV2.state_dict()`. Sequences of at most `whole_max_t`
-    frames take the per-block kernel, longer ones the halo-tiled kernel with
-    `group` blocks per launch. `ff_conv` and `out_conv` stay matmuls.
-    Forward only: raises under autograd when `x` or a parameter requires
-    grad."""
+    frames take the per-block kernel (with `pack2`, its two-rows-per-CTA
+    form and the segmented LayerNorm `pack2_ln`), longer ones the halo-tiled
+    kernel with `group` blocks per launch, whatever `pack2` says. `ff_conv`
+    and `out_conv` stay matmuls. Forward only: raises under autograd when
+    `x` or a parameter requires grad.
+
+    `pack2` is kept for parity with the JAX kernel and its numerics (the
+    "matmul" LayerNorm); it has no speed case on an H100: no faster than the
+    unpacked kernel at B=1, slower at B=96 (PERF.md, row 3)."""
     _refuse_autograd([x, *params.values()], "resnetv2_apply_fused")
     whole = x.shape[1] <= whole_max_t
     h = x @ params["ff_conv.kernel"][0] + params["ff_conv.bias"]
@@ -291,7 +392,10 @@ def resnetv2_apply_fused(params: Dict[str, torch.Tensor], x: torch.Tensor,
     for g0 in range(0, n_blocks, group):
         idx = range(g0, min(g0 + group, n_blocks))
         weights = [block_weights(params, i) for i in idx]
-        if whole:
+        if whole and pack2:
+            h = fused_block_group_whole_pack2(h, weights, [dil[i] for i in idx],
+                                              k, pack2_ln)
+        elif whole:
             h = fused_block_group_whole(h, weights, [dil[i] for i in idx], k)
         else:
             h = fused_block_group(h, weights, [dil[i] for i in idx], k, tile_t)

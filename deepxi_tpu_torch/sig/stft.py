@@ -43,15 +43,21 @@ def _two_rows(N_d: int, N_s: int) -> None:
         raise ValueError(f"framing takes N_d = 2 N_s only, not {N_d}/{N_s}")
 
 
-def frame(x: torch.Tensor, N_d: int, N_s: int) -> torch.Tensor:
-    """[..., n] -> [..., T, N_d] frames with ``pad_end=True``
-    (``tf.signal.frame``), T = ceil(n / N_s): frame i is rows (i, i+1) of the
-    zero-padded [T+1, N_s] reshape."""
-    _two_rows(N_d, N_s)
+def hop_rows(x: torch.Tensor, N_s: int) -> torch.Tensor:
+    """[..., n] -> [..., T+1, N_s] hop rows, T = ceil(n / N_s), zero-padded
+    to (T+1) N_s samples: with N_d = 2 N_s, frame i is rows (i, i+1)."""
     T = n_frames(x.shape[-1], N_s)
     x = F.pad(x, (0, (T + 1) * N_s - x.shape[-1]))
-    x2 = x.reshape(x.shape[:-1] + (T + 1, N_s))
-    return torch.cat([x2[..., :T, :], x2[..., 1:, :]], dim=-1)
+    return x.reshape(x.shape[:-1] + (T + 1, N_s))
+
+
+def frame(x: torch.Tensor, N_d: int, N_s: int) -> torch.Tensor:
+    """[..., n] -> [..., T, N_d] frames with ``pad_end=True``
+    (``tf.signal.frame``), T = ceil(n / N_s): frame i is rows (i, i+1) of
+    `hop_rows`."""
+    _two_rows(N_d, N_s)
+    x2 = hop_rows(x, N_s)
+    return torch.cat([x2[..., :-1, :], x2[..., 1:, :]], dim=-1)
 
 
 @functools.lru_cache(maxsize=None)

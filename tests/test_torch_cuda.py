@@ -41,6 +41,53 @@ def test_kernels_match_plain(cuda, B, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,tile", [(1, 1, None), (3, 37, None), (4, 250, None),
+                                      (5, 130, None), (3, 101, 32)])
+@pytest.mark.parametrize("ln_mode", ["slice", "matmul"])
+def test_pack2_kernel_matches_plain(cuda, monkeypatch, B, T, tile, ln_mode):
+    """The two-rows-per-CTA kernel at full width, odd B (a zero second row)
+    and ragged tiles included, both LayerNorm modes, against its plain
+    version and, for "slice", against the unpacked kernel: 1e-4 of the
+    output's scale. The rows differ, so rows of a pair swapped would fail.
+    These shapes take 16-row tiles; `tile` forces the 32-row one, otherwise
+    taken only from 132 row-pair CTAs on."""
+    if tile is not None:
+        monkeypatch.setattr(tcn_fused, "_pack2_tile", lambda x: tile)
+    gen = torch.Generator().manual_seed(T + B)
+    w = tcn_fused.random_block_weights(5, gen, cuda)
+    dil = [cyclic_dilation(i, 16) for i in range(5)]
+    x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(cuda)
+    y = tcn_fused.fused_block_group_whole_pack2(x, w, dil, ln_mode=ln_mode)
+    y_ref = tcn_fused.fused_block_group_whole_pack2_ref(x, w, dil, ln_mode=ln_mode)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    assert _close(y, y_ref, 1e-4), _rel_err(y, y_ref)
+    if ln_mode == "slice":
+        assert _close(y, tcn_fused.fused_block_group_whole(x, w, dil), 1e-4)
+
+
+@pytest.mark.cuda
+def test_pack2_counts_launches_refuses_autograd_and_bad_input(cuda):
+    w = tcn_fused.random_block_weights(3, torch.Generator().manual_seed(0), cuda)
+    dil = [1, 2, 4]
+    x = torch.zeros(3, 50, 256, device=cuda)
+    fn = tcn_fused.fused_block_group_whole_pack2
+    n, n_whole = fn.launches, tcn_fused.fused_block_group_whole.launches
+    fn(x, w, dil)
+    fn(x, w, dil, ln_mode="matmul")
+    assert fn.launches == n + 6
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(x.clone().requires_grad_(True), w, dil)
+    for bad in ((x.double(), w, dil), (x[:, :, :128].contiguous(), w, dil),
+                (x, w, dil[:2]), (x, w, [1, 2, 200])):
+        with pytest.raises(ValueError):
+            fn(*bad)
+    with pytest.raises(ValueError):
+        fn(x, w, dil, ln_mode="lanes")
+    assert (fn.launches, tcn_fused.fused_block_group_whole.launches) == (n + 6, n_whole)
+
+
+@pytest.mark.cuda
 def test_wrappers_count_launches_and_reject_bad_input(cuda):
     w = tcn_fused.random_block_weights(5, torch.Generator().manual_seed(0), cuda)
     dil = [cyclic_dilation(i, 16) for i in range(5)]
@@ -184,6 +231,82 @@ def test_apply_fused_train_matches_plain_autograd(cuda, save_acts):
     assert tcn_fused_train.fused_block_group_bwd.launches > n[1]
     for name, a, b in zip(params, g_fused, g_plain):
         assert _close(a, b, 2e-4), (name, _rel_err(a, b))
+
+
+# -- the spectral kernels -------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 1), (2, 63), (3, 130), (1, 250)])
+def test_spectral_kernels_match_plain(cuda, B, T):
+    """stft_mag_fused and enhance_frames_fused at the main path's widths
+    (N_s 256, K 512: 257 bins, 514 spectrum columns, no multiple of a tile),
+    T = 1 and T off the 64- and 128-frame tiles, against their plain
+    versions: 1e-4 of the output's scale."""
+    from deepxi_tpu_torch.ops.kernels import spectral
+    gen = torch.Generator().manual_seed(T)
+    x2d = torch.randn(B, T + 1, 256, generator=gen).to(cuda)
+    Y = torch.randn(B, T, 514, generator=gen).to(cuda)
+    G = torch.rand(B, T, 257, generator=gen).to(cuda)
+    for y, y_ref in ((spectral.stft_mag_fused(x2d, 512, 512),
+                      spectral.stft_mag_fused_ref(x2d, 512, 512)),
+                     (spectral.enhance_frames_fused(Y, G, 512, 256, 512),
+                      spectral.enhance_frames_fused_ref(Y, G, 512, 256, 512))):
+        torch.cuda.synchronize()
+        assert y.shape == y_ref.shape and torch.isfinite(y).all()
+        assert _close(y, y_ref, 1e-4), _rel_err(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_spectral_wrappers_count_launches_and_refuse_bad_input(cuda):
+    from deepxi_tpu_torch.ops.kernels import spectral
+    x2d = torch.randn(2, 9, 256, device=cuda)
+    Y, G = torch.randn(2, 8, 514, device=cuda), torch.rand(2, 8, 257, device=cuda)
+    fns = (spectral.stft_mag_fused, spectral.enhance_frames_fused)
+    n = [f.launches for f in fns]
+    fns[0](x2d, 512, 512)
+    fns[1](Y, G, 512, 256, 512)
+    assert [f.launches for f in fns] == [c + 1 for c in n]
+    with pytest.raises(RuntimeError, match="no backward"):
+        fns[0](x2d.clone().requires_grad_(True), 512, 512)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fns[1](Y, G.clone().requires_grad_(True), 512, 256, 512)
+    for call in (lambda: fns[0](x2d, 400, 512),                      # N_d != 2 N_s
+                 lambda: fns[0](x2d[:, :, :128].contiguous(), 512, 512),
+                 lambda: fns[0](x2d[:, :, 8:], 512, 512),             # not contiguous
+                 lambda: fns[0](torch.randn(2, 9, 80, device=cuda), 160, 160),  # 32 ∤ N_s
+                 lambda: fns[1](Y, G, 512, 200, 512),
+                 lambda: fns[1](Y[..., :500].contiguous(), G, 512, 256, 512),
+                 lambda: fns[1](Y, G[:, :7].contiguous(), 512, 256, 512)):
+        with pytest.raises(ValueError):
+            call()
+    assert [f.launches for f in fns] == [c + 1 for c in n]
+
+
+@pytest.mark.cuda
+def test_xi_estimator_launches_stft_kernel(cuda):
+    """make_xi_estimator on the card takes |X| from one stft_mag_fused
+    launch a call and gives the plain route's estimate."""
+    from deepxi_tpu_torch.enhance import make_xi_estimator
+    from deepxi_tpu_torch.inp_tgt import MagXi
+    from deepxi_tpu_torch.ops.kernels import spectral
+    from deepxi_tpu_torch.ops.maps import NormalCDF
+    from deepxi_tpu_torch.sig.stft import hop_rows
+    gen = torch.Generator().manual_seed(6)
+    net = init_flax_like(ResNetV2(257, 257, n_blocks=3, d_model=32, d_f=16), gen).to(cuda)
+    params = {k: v.detach() for k, v in net.state_dict().items()}
+    it = MagXi(xi_map=NormalCDF(use_db=True, mu=torch.zeros(257, device=cuda),
+                                sigma=torch.full((257,), 10.0, device=cuda)))
+    x = (torch.randn(2, 5000, generator=gen) * 3000).to(torch.int16)
+    n = spectral.stft_mag_fused.launches
+    xi = make_xi_estimator(it, net, device=cuda)(params, x)
+    assert spectral.stft_mag_fused.launches == n + 1
+    with torch.no_grad():
+        mag = spectral.stft_mag_fused_ref(hop_rows(x.to(cuda) / 32768.0, 256), 512, 512)
+        tgt = net(mag)
+    keep = (tgt >= 1e-3) & (tgt <= 1 - 1e-3)  # away from the map's ends
+    err_db = (10 * torch.log10(xi / it.xi_hat(tgt)))[keep].abs().max().item()
+    assert xi.shape == (2, 20, 257) and torch.isfinite(xi).all()
+    assert keep.float().mean().item() > 0.5 and err_db <= 1e-2, err_db
 
 
 # -- the MHANet kernels ---------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's fused-TCN module against the JAX package: the plain ResNetV2,
 the weight bridge, and `resnetv2_apply_fused` on both routes against JAX
 `resnetv2_apply_fused` run in Pallas interpret mode (as
-tests/test_tcn_fused.py runs it). Small widths, nonzero biases (zero biases
+tests/test_tcn_fused.py runs it), with and without `pack2` (whose plain
+version is also held to the JAX kernel for both `ln_mode`s). Small widths, nonzero biases (zero biases
 hid the pre-sequence halo bug). The kernels against their plain versions
 on the card are in tests/test_torch_cuda.py."""
 
@@ -111,3 +112,68 @@ def test_causality(small):
         y2 = tcn_fused.resnetv2_apply_fused(p_t, torch.as_tensor(x2), **kw).numpy()
         np.testing.assert_array_equal(y2[0, :causal_pos], y[0, :causal_pos])
         assert np.abs(y2[0, causal_pos:] - y[0, causal_pos:]).max() > 1e-4
+
+
+# -- pack2: two batch rows per grid cell ----------------------------------------
+
+def _weights_j(params, idx):
+    p = params["params"]
+    return [tcn_fused_j.BlockWeights(*(p[f"block{i}_u{u}_conv"][leaf]
+                                       for u in (1, 2, 3) for leaf in ("kernel", "bias")))
+            for i in idx]
+
+
+# Measured on the CPU: 7.9e-6 abs at most over the cases, the same with 1 or
+# 3 threads; held to 1e-5. The
+# JAX kernel runs in interpret mode at T <= 64 and 3 blocks (its own test, at
+# T=100 with 10 blocks, is marked slow); T=45 is no multiple of its 8-row
+# sublane padding.
+@pytest.mark.parametrize("ln_mode", ["slice", "matmul"])
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_pack2_ref_matches_jax_kernel(small, ln_mode, B):
+    _, params, _, p_t = small
+    h = np.random.RandomState(B).randn(B, 45, 32).astype(np.float32)
+    dil = [cyclic_dilation(i, 4) for i in range(3)]
+    ref = np.asarray(tcn_fused_j.fused_block_group_whole_pack2(
+        jnp.asarray(h), _weights_j(params, range(3)), dil, ln_mode=ln_mode,
+        interpret=True))
+    w = [tcn_fused.block_weights(p_t, i) for i in range(3)]
+    out = tcn_fused.fused_block_group_whole_pack2_ref(torch.as_tensor(h), w, dil,
+                                                      ln_mode=ln_mode).numpy()
+    assert out.shape == ref.shape == (B, 45, 32)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+# Measured on the CPU: 4.4e-6 abs at most; held to 1e-5.
+@pytest.mark.parametrize("ln_mode", ["slice", "matmul"])
+def test_apply_fused_pack2_matches_jax(small, ln_mode):
+    """resnetv2_apply_fused(pack2=True) on 3 blocks of the small net, B=3
+    (an odd batch: the JAX kernel pads a zero row), T=64."""
+    _, params, _, p_t = small
+    x = np.abs(np.random.RandomState(4).randn(3, 64, 257)).astype(np.float32)
+    kw = dict(n_blocks=3, max_d_rate=4, pack2=True, pack2_ln=ln_mode)
+    y_j = np.asarray(tcn_fused_j.resnetv2_apply_fused(params, jnp.asarray(x), **kw))
+    y = tcn_fused.resnetv2_apply_fused(p_t, torch.as_tensor(x), **kw).numpy()
+    np.testing.assert_allclose(y, y_j, rtol=0, atol=1e-5)
+
+
+def test_pack2_wrapper_takes_plain_version_on_cpu(small):
+    """On the CPU the wrapper is its plain version (launch counter still);
+    pack2 leaves the tiled route as it is; an unknown ln_mode raises."""
+    _, _, x, p_t = small
+    h = torch.as_tensor(np.random.RandomState(5).randn(3, 40, 32).astype(np.float32))
+    w = [tcn_fused.block_weights(p_t, i) for i in range(2)]
+    n = tcn_fused.fused_block_group_whole_pack2.launches
+    for ln_mode in ("slice", "matmul"):
+        torch.testing.assert_close(
+            tcn_fused.fused_block_group_whole_pack2(h, w, [1, 2], ln_mode=ln_mode),
+            tcn_fused.fused_block_group_whole_pack2_ref(h, w, [1, 2], ln_mode=ln_mode),
+            rtol=0, atol=0)
+    assert tcn_fused.fused_block_group_whole_pack2.launches == n
+    with pytest.raises(ValueError):
+        tcn_fused.fused_block_group_whole_pack2(h, w, [1, 2], ln_mode="lanes")
+    kw = dict(n_blocks=10, max_d_rate=4, tile_t=64, whole_max_t=0)
+    xt = torch.as_tensor(x)
+    torch.testing.assert_close(tcn_fused.resnetv2_apply_fused(p_t, xt, pack2=True, **kw),
+                               tcn_fused.resnetv2_apply_fused(p_t, xt, **kw),
+                               rtol=0, atol=0)
