@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero before the result line):
   1. device: the card's name and power limit, torch and CUDA versions, and
      the build of every CUDA kernel from `deepxi_tpu_torch/ops/kernels/csrc`
-     (one nvcc per source, all started together);
+     at the flagship widths and at phase 3f's (one nvcc per source and set
+     of widths, all started together);
   2. each kernel against its plain PyTorch version on the card at full width
      (d_model 256, d_f 64, k 3, seeded weights with nonzero biases): the two
      inference kernels, the training stack's saving forward, and its
@@ -18,8 +19,11 @@ Phases (any failure exits non-zero before the result line):
      MHANet at B=3, L=2048 with f32 and bf16 caches, the clock at 0, 700,
      2047 and 2500 (past the cap), every cache row nonzero; the pack2 TCN
      kernel (two batch rows a CTA) at B=3 (odd) and 4, T=250 and 1024, and
-     at B=96 T=625 (its 32-row tiles), G=20, both LayerNorm modes; the spectral kernels (|X| of hop rows, and
-     gain times spectrum through the inverse DFT) at B=4, T=1, 250 and 625;
+     at B=96 T=625 (its 32-row tiles), G=20, both LayerNorm modes; the
+     spectral kernels (an FFT a frame: |X| of hop rows, and gain times
+     spectrum through the inverse FFT) at B=4, T=1, 250 and 625, at
+     (N_s, K) = (256, 512), (128, 256), (200, 512) and (768, 2048), every row
+     within the gate;
   3. the enhancement path: the checked-in trained resnet-1.1c artifact
      enhances its 4 s noisy utterance (T=250, per-block kernel) and the same
      utterance tiled five times (T=1250, halo-tiled kernel); both kernels
@@ -61,6 +65,13 @@ Phases (any failure exits non-zero before the result line):
      spectral-kernel route of resnet-1.1c enhancement (stft_mag_fused, the
      fused TCN, the gain, enhance_frames_fused, overlap-add) against
      `make_enhancer`'s waveform;
+  3f. every width on its own kernels (the fault C1; tools/torch_small_widths.py):
+     every kernel built for small widths (TCN 32/16/3 and 48/12/2, MHANet 4
+     heads of 8 and 12 of 4) against its plain version; then at d_model 32
+     resnet-1.1c trains (`DeepXiTorch.train`, one epoch) and infers, an
+     MHANetV3 with 4 heads of 8 runs its fused blocks and "full", "fused" and
+     "stream" attention, and StreamingMHANet(fused=True) streams, on the card
+     and on the CPU; each route's kernels must launch and the results agree;
   4. times from CUDA events after warm-up: each kernel and its plain version
      at the main-path shapes (and the inference kernels at B=96, T=625), the
      end-to-end enhance, and one train step, fused against plain (median,
@@ -74,11 +85,14 @@ Phases (any failure exits non-zero before the result line):
      B=256 (bf16 caches, t=1023), `step_block` of 8 hops at B=256 against
      its 128 ms, and the ResNet `step` at B=1 and B=4096; the pack2 kernel
      (both modes) beside the unpacked kernel and its plain version, and the
-     spectral kernels beside their plain versions and two yardsticks, cuFFT
-     (torch.stft and abs; torch.fft.irfft of the gained spectrum times the
-     synthesis window) and the port's matmul formulation (`stft_mag`;
-     `apply_gain_reim` and torch.matmul), at B=1 T=250 and B=96 T=625;
-     resnet-1.1c enhancement at B=96 x 10 s, pack2 against unpacked.
+     spectral kernels (in turns with cuFFT) beside their plain versions and
+     two yardsticks, cuFFT (torch.stft and abs; torch.fft.irfft of the
+     gained spectrum times the synthesis window) and the port's matmul
+     formulation (`stft_mag`; `apply_gain_reim` and torch.matmul), at B=1
+     T=250 and B=96 T=625, against the bytes they must move; resnet-1.1c
+     `make_enhancer`, `make_xi_estimator` and the spectral-kernel route end
+     to end at B=1 x 4 s and B=96 x 10 s; resnet-1.1c enhancement at B=96 x
+     10 s, pack2 against unpacked.
 The last three lines are the card line, the kernels JSON and the result JSON.
 """
 
@@ -116,6 +130,10 @@ WAVE_REL_RMS = 1e-3
 # A library yardstick against the kernel on valid rows before it is timed:
 # cuBLAS/SDPA f32 sums in other orders, through two LayerNorms.
 LIB_TOL_REL = 1e-3
+
+# (N_s, K) at which the spectral kernels are held to their plain versions:
+# the main path's; 8 kHz; N_d = 400 < K with 32 not dividing N_s; a 48 ms hop.
+SPECTRAL_SHAPES = ((256, 512), (128, 256), (200, 512), (768, 2048))
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -331,15 +349,22 @@ def main():
     # 1. device and build -------------------------------------------------
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build_s = _build.build(["tcn_fused", "tcn_fused_train", "spectral", "mha_attention",
-                            "mha_block_fused", "mha_cache"])
-    print(f"[1] build: {time.perf_counter() - t0:.1f} s wall "
+    # every kernel at the flagship widths, and at phase 3f's small widths
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_small_widths
+    flagship = [tcn_fused.build_spec("tcn_fused", 256, 64, 3),
+                tcn_fused.build_spec("tcn_fused_train", 256, 64, 3), "spectral",
+                ("mha_attention", mha_fused.head_defines(8, 32)),
+                mha_block_fused.build_spec(8, 32, 1024),
+                ("mha_cache", mha_fused.head_defines(8, 32))]
+    build_s = _build.build(flagship + torch_small_widths.build_specs())
+    print(f"[1] build: {time.perf_counter() - t0:.1f} s wall, {len(build_s)} libraries "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
-    for lib in build_s:
-        with open(_build.log_path(lib)) as f:
+    for spec in flagship:
+        with open(_build.log_path(spec)) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"[1] ptxas {lib}: {line.strip()}")
+                if any(w in line for w in ("registers", "spill", "entry function")):
+                    print(f"[1] ptxas {_build.tag(spec)}: {line.strip()}")
 
     # 2. each kernel against its plain version at full width ----------------
     gen = torch.Generator().manual_seed(0)
@@ -421,13 +446,18 @@ def main():
                    for _ in range(3))
         return [t.to(dev) for t in (q * 32 ** -0.5, k, v, valid)]
 
-    def check(kname, label, y, y_ref):
+    def check(kname, label, y, y_ref, per_row=False):
+        """y within KERNEL_TOL_REL of y_ref's max abs (with `per_row`, of each
+        row's own max abs)."""
         torch.cuda.synchronize()
-        err, scale = (y - y_ref).abs().max().item(), y_ref.abs().max().item()
+        diff = (y - y_ref).abs()
+        err = diff.max().item()
+        rel = ((diff.amax(-1) / y_ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+               if per_row else err / y_ref.abs().max().item())
         print(f"[2] {kname}: {label}: max abs err {err:.3e}, max rel err "
-              f"{err / scale:.3e} (tol {KERNEL_TOL_REL:.0e} rel), finite "
-              f"{bool(torch.isfinite(y).all())}")
-        if not (err <= KERNEL_TOL_REL * scale and torch.isfinite(y).all()):
+              f"{'of a row ' if per_row else ''}{rel:.3e} (tol {KERNEL_TOL_REL:.0e} rel), "
+              f"finite {bool(torch.isfinite(y).all())}")
+        if not (rel <= KERNEL_TOL_REL and torch.isfinite(y).all()):
             fail(f"{kname} disagrees with its plain version")
         checks[kname] = max(checks.get(kname, 0.0), err)
 
@@ -478,17 +508,22 @@ def main():
                   f"B={B} T={T} G=20 ({tcn_fused._pack2_tile(x)}-row tiles), ln_mode {ln}",
                   tcn_fused.fused_block_group_whole_pack2(x, w, dil[:20], ln_mode=ln),
                   tcn_fused.fused_block_group_whole_pack2_ref(x, w, dil[:20], ln_mode=ln))
-    # the spectral kernels on a random waveform's hop rows and spectrum
-    # (257 bins and 514 spectrum columns are no multiple of a tile)
-    for T in (1, 250, 625):
-        wave = (torch.randn(4, T * 256, generator=gen) * 0.1).to(dev)
-        x2d, Y = hop_rows(wave, 256), stft_reim(wave, 512, 256, 512)
-        gain = torch.rand(4, T, 257, generator=gen).to(dev)
-        check("stft_mag_fused", f"B=4 T={T}", spectral.stft_mag_fused(x2d, 512, 512),
-              spectral.stft_mag_fused_ref(x2d, 512, 512))
-        check("enhance_frames_fused", f"B=4 T={T}, gain in [0, 1]",
-              spectral.enhance_frames_fused(Y, gain, 512, 256, 512),
-              spectral.enhance_frames_fused_ref(Y, gain, 512, 256, 512))
+    # the spectral kernels on a random waveform's hop rows and spectrum at
+    # each (N_s, K) of the tests (the main path's 512: 257 bins and 514
+    # spectrum columns, no multiple of 4; N_d < K with N_s = 200), every row
+    # held to the gate; T = 1 takes one frame a CTA, 250 and 625 (ragged) four
+    for N_s, K in SPECTRAL_SHAPES:
+        N_d = 2 * N_s
+        for T in (1, 250, 625):
+            wave = (torch.randn(4, T * N_s, generator=gen) * 0.1).to(dev)
+            x2d, Y = hop_rows(wave, N_s), stft_reim(wave, N_d, N_s, K)
+            gain = torch.rand(4, T, K // 2 + 1, generator=gen).to(dev)
+            check("stft_mag_fused", f"B=4 T={T} N_s={N_s} K={K}",
+                  spectral.stft_mag_fused(x2d, N_d, K),
+                  spectral.stft_mag_fused_ref(x2d, N_d, K), per_row=True)
+            check("enhance_frames_fused", f"B=4 T={T} N_s={N_s} K={K}, gain in [0, 1]",
+                  spectral.enhance_frames_fused(Y, gain, N_d, N_s, K),
+                  spectral.enhance_frames_fused_ref(Y, gain, N_d, N_s, K), per_row=True)
 
     # 3. the enhancement path -----------------------------------------------
     art = load_flagship_artifact(device=dev)
@@ -934,6 +969,43 @@ def main():
         hold("spectral-kernel route", outs[k], k, (("make_enhancer's waveform", y_fused),))
     del outs, y_plain
 
+    # 3f. the fault C1: every width runs its own kernels --------------------
+    # The kernels are built for each set of widths. (a) Each kernel at small
+    # widths (TCN 32/16/3 and 48/12/2, MHANet 4 heads of 8 and 12 heads of 4)
+    # against its plain version. (b) The routes at d_model 32, counted:
+    # resnet-1.1c (d_f 16, 3 blocks) through `DeepXiTorch.train` and
+    # `infer`, an MHANetV3 with 4 heads of 8 through `mhanetv3_apply_fused`
+    # and "full", "fused" and "stream" attention, and
+    # StreamingMHANet(fused=True); each of their kernels must launch, and the
+    # card must give the CPU's results (tools/torch_small_widths.py).
+    c1_checks = torch_small_widths.kernel_checks(dev)
+    for name, err in c1_checks.items():
+        tol = torch_small_widths.BWD_TOL_REL if "bwd" in name else KERNEL_TOL_REL
+        print(f"[3f] {name}: max rel err {err:.3e} (tol {tol:.0e})")
+        if not err <= tol:
+            fail(f"{name} disagrees with its plain version")
+    tmp = tempfile.mkdtemp(prefix="deepxi_chip_smoke_c1_")
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        got = torch_small_widths.small_widths_run(dev, tmp)
+        torch.cuda.synchronize()
+        n, wall = counts(), time.perf_counter() - t0
+        ref = torch_small_widths.small_widths_run("cpu", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in torch_small_widths.ROUTE_KERNELS if not n.get(k)]
+    c1_rel, c1_worst, wav_steps = torch_small_widths.compare_runs(got, ref)
+    print(f"[3f] d_model 32 on the card ({wall:.1f} s): {len(got)} outputs (resnet-1.1c "
+          f"train and infer, MHANetV3 fused blocks and full/fused/stream attention, "
+          f"StreamingMHANet(fused=True)); launches {n}; against the CPU: worst rel err "
+          f"{c1_rel:.3e} ({c1_worst}; tol {KERNEL_TOL_REL:.0e}), written wavs within "
+          f"{wav_steps:g} int16 steps (tol 1)")
+    if missing:
+        fail(f"no launch at d_model 32 of {missing}")
+    if not (c1_rel <= KERNEL_TOL_REL and wav_steps <= 1):
+        fail("the card's results at d_model 32 differ from the CPU's")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -990,10 +1062,8 @@ def main():
 
     # the spectral kernels. Their bound is the functions' least work: an FFT
     # takes ~2.5 K log2 K FLOP a frame, far under the bytes, so bytes bound
-    # them; the bound of the dense DFT product the kernels keep (as the TPU
-    # kernels do) is reported beside it. Two yardsticks, each checked against
-    # the kernel first: cuFFT (torch.stft, torch.fft.irfft) and the port's
-    # matmul formulation.
+    # them. Two yardsticks, each checked against the kernel first: cuFFT
+    # (torch.stft, torch.fft.irfft) and the port's matmul formulation.
     w_ana = torch.as_tensor(_hamming_np(512), device=dev)
     w_syn = torch.as_tensor(_synthesis_window_np(512, 256), device=dev)
     fft_flops = 2.5 * 512 * np.log2(512)
@@ -1015,7 +1085,6 @@ def main():
                 lib_names = ("torch.stft (cuFFT) + abs",
                              "stft_mag (framing, torch.matmul, magnitude)")
                 flops = B * T * (512 + fft_flops + 3 * 257)
-                dft_flops = B * T * 2 * 512 * 514
                 nbytes = 4 * (B * (T + 1) * 256 + B * T * 257 + 512)
             else:
                 Y = stft_reim(wave, 512, 256, 512)
@@ -1029,23 +1098,27 @@ def main():
                 lib_names = ("gain x complex spectrum, torch.fft.irfft (cuFFT), window",
                              "apply_gain_reim + torch.matmul")
                 flops = B * T * (2 * 257 + fft_flops + 512)
-                dft_flops = B * T * (2 * 514 * 512 + 514)
                 nbytes = 4 * (B * T * (514 + 257 + 512) + 512)
             y = fns[0]()
             lib_rel = [((f() - y).abs().max() / y.abs().max()).item() for f in fns[2:]]
             for name, rel in zip(lib_names, lib_rel):
                 if rel > LIB_TOL_REL:
                     fail(f"{name} is not {kname}'s function ({rel:.3e})")
-            ms, plain, lib, lib_mm = (cuda_ms(f) for f in fns)
+            # in turns: kernel, cuFFT, kernel, cuFFT; then plain and matmul
+            ms_runs, lib_runs = [], []
+            for _ in range(2):
+                ms_runs.append(cuda_ms(fns[0]))
+                lib_runs.append(cuda_ms(fns[2]))
+            plain, lib_mm = cuda_ms(fns[1]), cuda_ms(fns[3])
+            ms, lib = float(np.mean(ms_runs)), float(np.mean(lib_runs))
             bound, by = roofline_ms(flops, nbytes)
-            dft_bound = roofline_ms(dft_flops, nbytes + 4 * 512 * 514)[0]
-            print(f"[4] {kname}: B={B} T={T}: {ms:.4f} ms; plain {plain:.4f} ms; "
-                  f"{lib_names[0]} {lib:.4f} ms (within {lib_rel[0]:.1e} rel); "
-                  f"{lib_names[1]} {lib_mm:.4f} ms (within {lib_rel[1]:.1e} rel); bound "
-                  f"{bound:.4f} ms ({by}); {bound / ms:.1%} of the bound; the DFT "
-                  f"product's bound {dft_bound:.4f} ms ({dft_bound / ms:.1%})")
+            print(f"[4] {kname}: B={B} T={T}: {ms_runs[0]:.4f}, {ms_runs[1]:.4f} ms; "
+                  f"{lib_names[0]} {lib_runs[0]:.4f}, {lib_runs[1]:.4f} ms (within "
+                  f"{lib_rel[0]:.1e} rel; kernel {lib / ms:.2f}x as fast); plain {plain:.4f} "
+                  f"ms; {lib_names[1]} {lib_mm:.4f} ms (within {lib_rel[1]:.1e} rel); bound "
+                  f"{bound:.4f} ms ({by}); {bound / ms:.1%} of the bound")
             times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
-                         matmul_library_ms=lib_mm, dft_bound_ms=dft_bound,
+                         matmul_library_ms=lib_mm,
                          shape={"B": B, "T": T})
             row.update(times if i == 0 else {"at_b96_t625": times})
         kernels.append(row)
@@ -1058,6 +1131,20 @@ def main():
         print(f"[4] enhance B={B} x {n / 16000:.1f} s: fused {t_fused:.3f} ms "
               f"({audio_s / t_fused * 1e3:.1f} audio-s/s), plain {t_plain:.3f} ms "
               f"({audio_s / t_plain * 1e3:.1f} audio-s/s)")
+    # the xi-hat estimator (make_xi_estimator with fast_apply(): |X| by
+    # stft_mag_fused) and the spectral-kernel route end to end beside
+    # make_enhancer, on 3e's batches, in turns forward then back
+    estimate_r = make_xi_estimator(art.inp_tgt, art.net, apply_fn=dx_r.fast_apply(),
+                                   device=dev)
+    for k, x in batches.items():
+        arms = (("make_enhancer", lambda: enhance(art.params, x)),  # noqa: B023
+                ("make_xi_estimator", lambda: estimate_r(art.params, x)),  # noqa: B023
+                ("spectral-kernel route", lambda: spectral_route(x)))  # noqa: B023
+        e2e = {name: [] for name, _ in arms}
+        for name, fn in arms + arms[::-1]:
+            e2e[name].append(host_ms(fn))
+        print(f"[4] resnet-1.1c {k}, median of 10 a turn: " + "; ".join(
+            f"{name} {', '.join(f'{t:.3f}' for t in ts)} ms" for name, ts in e2e.items()))
     # resnet-1.1c enhancement at B=96 x 10 s (distinct rows), pack2 against
     # unpacked, in turns
     x = batches["B=96 x 10 s, T=625"]

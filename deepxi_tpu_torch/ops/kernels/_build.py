@@ -2,9 +2,12 @@
 with ctypes (a plain C interface: no PyTorch headers, so a build takes
 seconds, not minutes).
 
-Each source `csrc/<name>.cu` becomes `build/lib<name>-<digest>.so`, where the
-digest covers the source, the shared headers `csrc/*.cuh` and the flags, so an
-edited source never loads a stale library. `build/` is listed in
+A build is a source name and, for the kernels whose widths are compile-time
+constants, the widths as preprocessor defines: `("tcn_fused", {"TCN_C": 32,
+"TCN_DF": 16, "TCN_KS": 3})`. Each becomes `build/lib<name>[-<widths>]-
+<digest>.so`, where the digest covers the source, the shared headers
+`csrc/*.cuh`, the defines and the flags, so an edited source never loads a
+stale library and every set of widths has its own. `build/` is listed in
 `.gitignore`. Only sources in the repository are built.
 """
 
@@ -16,7 +19,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -24,6 +27,8 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+Spec = Union[str, Tuple[str, Mapping[str, int]]]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -40,40 +45,61 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> str:
+def _split(spec: Spec) -> Tuple[str, Tuple[Tuple[str, int], ...]]:
+    if isinstance(spec, str):
+        return spec, ()
+    name, defines = spec
+    return name, tuple(sorted((k, int(v)) for k, v in defines.items()))
+
+
+def tag(spec: Spec) -> str:
+    """The build's name: the source, then its defines, e.g.
+    `tcn_fused-TCN_C32-TCN_DF16-TCN_KS3`."""
+    name, defines = _split(spec)
+    return "".join([name, *(f"-{k}{v}" for k, v in defines)])
+
+
+def _flags(spec: Spec) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in _split(spec)[1])
+
+
+def library_path(spec: Spec) -> str:
     """The library's path; its digest covers the source, every shared header
-    in `csrc/` and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    in `csrc/`, the defines and the flags."""
+    name = _split(spec)[0]
+    digest = hashlib.sha256(" ".join(_flags(spec)).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for fname in [name + ".cu", *headers]:
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"lib{tag(spec)}-{digest.hexdigest()[:12]}.so")
 
 
-def log_path(name: str) -> str:
-    """nvcc's output for the last build of `name` (ptxas register and
+def log_path(spec: Spec) -> str:
+    """nvcc's output for the last build of `spec` (ptxas register and
     shared-memory report included)."""
-    return os.path.join(BUILD_DIR, f"{name}.log")
+    return os.path.join(BUILD_DIR, f"{tag(spec)}.log")
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every named source not built yet, one nvcc each, all started
-    together. Returns the seconds each build took (0.0 when up to date);
+def build(specs: Iterable[Spec]) -> Dict[str, float]:
+    """Compile every build not made yet, one nvcc each, all started
+    together. Returns the seconds each took by `tag` (0.0 when up to date);
     raises with nvcc's output when a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
+    specs = list(specs)
     running = {}
-    for name in names:
-        out = library_path(name)
-        if os.path.exists(out):
+    for spec in specs:
+        out = library_path(spec)
+        if os.path.exists(out) or tag(spec) in running:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        log = open(log_path(name), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
-        running[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                         log, tmp, out, time.perf_counter())
-    seconds = {name: 0.0 for name in names}
+        log = open(log_path(spec), "w")
+        src = os.path.join(CSRC_DIR, _split(spec)[0] + ".cu")
+        cmd = [nvcc, *_flags(spec), "-o", tmp, src]
+        running[tag(spec)] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                              log, tmp, out, time.perf_counter())
+    seconds = {tag(spec): 0.0 for spec in specs}
     failed = []
     for name, (proc, log, tmp, out, t0) in running.items():
         rc = proc.wait()
@@ -84,14 +110,18 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         else:
             failed.append(name)
     if failed:
-        msgs = "\n".join(f"--- {n} ---\n{open(log_path(n)).read()}" for n in failed)
+        msgs = "\n".join(f"--- {n} ---\n{open(os.path.join(BUILD_DIR, n + '.log')).read()}"
+                         for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library for `csrc/<name>.cu`, building it on first use."""
-    if name not in _LIBS:
-        build([name])
-        _LIBS[name] = ctypes.CDLL(library_path(name))
-    return _LIBS[name]
+def load(name: str, defines: Optional[Mapping[str, int]] = None) -> ctypes.CDLL:
+    """The built library for `csrc/<name>.cu` with `defines`, building it on
+    first use."""
+    spec: Spec = (name, defines) if defines else name
+    key = tag(spec)
+    if key not in _LIBS:
+        build([spec])
+        _LIBS[key] = ctypes.CDLL(library_path(spec))
+    return _LIBS[key]

@@ -9,7 +9,8 @@
 // The two differ only in the keys a fully masked (padded) query row visits,
 // which the launch states as n_keys and the skip tile sizes.
 //
-// What bounds it on this card: 4 * 32 FLOP per (query row, head, key), with
+// What bounds it on this card (mhanet-1.1c's 8 heads of 32): 4 * 32 FLOP
+// per (query row, head, key), with
 // q, k, v read and the output written once, so operations at any length past
 // a few hundred frames: B=1, T=2250 causal is 2.6 GFLOP, 39 us at the 67
 // TFLOP/s f32 CUDA-core peak, against 2.8 us of HBM traffic. The TPU keeps a
@@ -26,7 +27,7 @@ const char* mha_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// out[b, t, h, :] = softmax-weighted values for q, k, v [B, T, 8, 32] and
+// out[b, t, h, :] = softmax-weighted values for q, k, v [B, T, NH, DK] and
 // valid [B, T]. skip_bq = 0: every invalid row visits n_keys keys
 // (flash_attention); skip_bq > 0: causal key-tile skipping with tiles of
 // skip_bq queries and skip_bk keys (flash_attention_streaming).

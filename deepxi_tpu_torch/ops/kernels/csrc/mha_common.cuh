@@ -3,6 +3,11 @@
 // block): widths, the masked attention kernel and its launch. float32
 // throughout.
 //
+// The widths are compile-time constants given as defines (MHA_NH heads of
+// MHA_DK); the wrappers build one library per set of widths (_build.py).
+// They take a head width that is a multiple of 4 up to 64 (a thread holds a
+// query row and its accumulator in registers) and up to 1024 columns.
+//
 // Attention follows the tfa convention of the reference:
 //   logits = q.k + (-1e10) (1 - valid_q valid_k [causal])
 // then a softmax over the keys the row visits, then the weighted values.
@@ -26,11 +31,16 @@
 
 namespace {
 
-constexpr int C = 256;     // d_model
-constexpr int NH = 8;      // heads
-constexpr int DK = 32;     // head width
-constexpr int DFF = 1024;  // FFN width
+#if !defined(MHA_NH) || !defined(MHA_DK)
+#error "build with -DMHA_NH=<heads> -DMHA_DK=<head width>"
+#endif
+
+constexpr int NH = MHA_NH;   // heads
+constexpr int DK = MHA_DK;   // head width
+constexpr int C = NH * DK;   // d_model
 constexpr float NEG = -1.0e10f;
+static_assert(NH >= 1 && DK % 4 == 0 && DK >= 4 && DK <= 64 && C <= 1024,
+              "head widths a multiple of 4 up to 64, at most 1024 columns");
 
 // attention tiles: one query row per thread, AQ rows a CTA; keys staged in
 // shared memory AK at a time and folded into the running softmax KC at a time

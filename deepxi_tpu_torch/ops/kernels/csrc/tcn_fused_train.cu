@@ -17,16 +17,17 @@
 //      the dilated conv reads; pre-sequence rows of a2 zero), y, a3, then
 //      da3 = dout W3^T and dy = LN'(da3) * (y > 0). Writes u1, a2, a3, dy and
 //      the moments of relu(h) for the tile rows to a scratch of [B*T, 64]
-//      buffers (0.5 MB each at B 8, T 256).
+//      buffers (0.5 MB each at B 8, T 256, DF 64).
 //   2. tcn_bwd_input_kernel, one CTA per (time tile, batch row): the conv's
 //      input gradient reaches FORWARD, da2[t] = sum_j dy[t + (k-1-j) d] W2[j]^T,
 //      so the CTA reads dy over the tile and the 2d rows after it (zero past
 //      T); then du1 = LN'(da2) * (u1 > 0), da = du1 W1^T and
 //      dh = dout + LN'(da) * (h > 0).
 //   3. tcn_bwd_wgrad_kernel: dW1 = a^T du1, dW2[j] = a2(shifted by (k-1-j) d)^T dy,
-//      dW3 = a3^T dout and the bias sums. 11 output tiles of 64 x 64, each
-//      contracting over a fixed slice (split) of the B*T rows; every split
-//      writes its own partial copy of the block's packed gradients. No atomics.
+//      dW3 = a3^T dout and the bias sums. Output tiles of up to 64 x 64 (11
+//      at C 256, DF 64, k 3), each contracting over a fixed slice (split) of
+//      the B*T rows; every split writes its own partial copy of the block's
+//      packed gradients. No atomics.
 //   4. tcn_bwd_reduce_kernel sums the splits in a fixed order, so the weight
 //      gradients are bitwise the same from run to run.
 // Products are register-tiled FMA loops (tcn_common.cuh's unit_product, and a
@@ -34,7 +35,10 @@
 // gradient products read transposed weights packed by the wrapper
 // (w1t [64, 256], w2t[j] = W2[j]^T, w3t [256, 64]).
 //
-// What bounds it on this card: per row and block the backward computes the
+// The widths are tcn_common.cuh's build defines.
+//
+// What bounds it on this card (resnet-1.1c's widths, C 256, DF 64, k 3): per
+// row and block the backward computes the
 // recompute's two products (57,344 FLOP), the input gradients (90,112) and
 // the weight gradients (90,112), 237,568 FLOP against ~4 KB of activations
 // and gradients moved, so it is bound by operations: 19.5 GFLOP for 40
@@ -56,7 +60,11 @@ constexpr int BLOCK_T_FLOATS = OFFT_W3T + C * DF;
 constexpr int ACT_ROW_FLOATS = LDH + 3 * LDF + 2;
 
 constexpr int WG_RC = 32;    // rows per chunk of the weight-gradient loop
-constexpr int WG_TILES = 11; // 4 of dW1 (256 x 64), 3 of dW2, 4 of dW3 (64 x 256)
+constexpr int WT = 64;       // edge of a weight-gradient tile
+constexpr int LDT = WT + 4;  // its padded shared-memory row stride
+constexpr int TI_C = (C + WT - 1) / WT, TI_F = (DF + WT - 1) / WT;
+// tiles of dW1 [C, DF], of the KS taps of dW2 [DF, DF] and of dW3 [DF, C]
+constexpr int WG_TILES = TI_C * TI_F + KS * TI_F * TI_F + TI_F * TI_C;
 
 __global__ void __launch_bounds__(NT, 2)
 tcn_bwd_act_kernel(const float* __restrict__ h, const float* __restrict__ dout,
@@ -127,13 +135,14 @@ tcn_bwd_act_kernel(const float* __restrict__ h, const float* __restrict__ dout,
   __syncthreads();
   // a3 = LN(relu(y)), dy = LN'(da3; relu(y)) * (y > 0)
   for (int r = halo + warp; r < nrows; r += NT / 32) {
-    float z[DF / 32], mu, rstd;
+    float z[per_lane(DF)], mu, rstd;
     relu_moments<DF>(yb + r * LDF, lane, z, mu, rstd);
-    float zh[DF / 32], u[DF / 32], su = 0.f, suz = 0.f;
+    float zh[per_lane(DF)], u[per_lane(DF)], su = 0.f, suz = 0.f;
 #pragma unroll
-    for (int e = 0; e < DF / 32; ++e) {
-      zh[e] = (z[e] - mu) * rstd;
-      u[e] = db[r * LDF + lane + 32 * e];
+    for (int e = 0; e < per_lane(DF); ++e) {
+      const bool in = in_row<DF>(lane, e);
+      zh[e] = in ? (z[e] - mu) * rstd : 0.f;
+      u[e] = in ? db[r * LDF + lane + 32 * e] : 0.f;
       su += u[e];
       suz += u[e] * zh[e];
     }
@@ -141,7 +150,8 @@ tcn_bwd_act_kernel(const float* __restrict__ h, const float* __restrict__ dout,
     suz = warp_sum(suz) * (1.f / DF);
     const size_t gr = row0 + (first + r);
 #pragma unroll
-    for (int e = 0; e < DF / 32; ++e) {
+    for (int e = 0; e < per_lane(DF); ++e) {
+      if (!in_row<DF>(lane, e)) continue;
       a3s[gr * DF + lane + 32 * e] = zh[e];
       dys[gr * DF + lane + 32 * e] =
           z[e] > 0.f ? rstd * (u[e] - su - zh[e] * suz) : 0.f;
@@ -183,20 +193,22 @@ tcn_bwd_input_kernel(const float* __restrict__ h,
   __syncthreads();
   // du1 = LN'(da2; relu(u1)) * (u1 > 0)
   for (int r = warp; r < n; r += NT / 32) {
-    float z[DF / 32], mu, rstd;
+    float z[per_lane(DF)], mu, rstd;
     relu_moments<DF>(u1s + (row0 + r) * DF, lane, z, mu, rstd);
-    float zh[DF / 32], u[DF / 32], su = 0.f, suz = 0.f;
+    float zh[per_lane(DF)], u[per_lane(DF)], su = 0.f, suz = 0.f;
 #pragma unroll
-    for (int e = 0; e < DF / 32; ++e) {
-      zh[e] = (z[e] - mu) * rstd;
-      u[e] = g2[r * LDF + lane + 32 * e];
+    for (int e = 0; e < per_lane(DF); ++e) {
+      const bool in = in_row<DF>(lane, e);
+      zh[e] = in ? (z[e] - mu) * rstd : 0.f;
+      u[e] = in ? g2[r * LDF + lane + 32 * e] : 0.f;
       su += u[e];
       suz += u[e] * zh[e];
     }
     su = warp_sum(su) * (1.f / DF);
     suz = warp_sum(suz) * (1.f / DF);
 #pragma unroll
-    for (int e = 0; e < DF / 32; ++e) {
+    for (int e = 0; e < per_lane(DF); ++e) {
+      if (!in_row<DF>(lane, e)) continue;
       const float v = z[e] > 0.f ? rstd * (u[e] - su - zh[e] * suz) : 0.f;
       g2[r * LDF + lane + 32 * e] = v;
       du1s[(row0 + r) * DF + lane + 32 * e] = v;
@@ -211,27 +223,30 @@ tcn_bwd_input_kernel(const float* __restrict__ h,
   for (int r = warp; r < n; r += NT / 32) {
     const size_t gr = row0 + r;
     const float sh = hst[2 * gr], sc = hst[2 * gr + 1];
-    float hv[C / 32], zh[C / 32], u[C / 32], su = 0.f, suz = 0.f;
+    float hv[per_lane(C)], zh[per_lane(C)], u[per_lane(C)], su = 0.f, suz = 0.f;
 #pragma unroll
-    for (int e = 0; e < C / 32; ++e) {
-      hv[e] = h[gr * C + lane + 32 * e];
-      zh[e] = fmaf(fmaxf(hv[e], 0.f), sc, sh);
-      u[e] = ga[r * LDH + lane + 32 * e];
+    for (int e = 0; e < per_lane(C); ++e) {
+      const bool in = in_row<C>(lane, e);
+      hv[e] = in ? h[gr * C + lane + 32 * e] : 0.f;
+      zh[e] = in ? fmaf(fmaxf(hv[e], 0.f), sc, sh) : 0.f;
+      u[e] = in ? ga[r * LDH + lane + 32 * e] : 0.f;
       su += u[e];
       suz += u[e] * zh[e];
     }
     su = warp_sum(su) * (1.f / C);
     suz = warp_sum(suz) * (1.f / C);
 #pragma unroll
-    for (int e = 0; e < C / 32; ++e) {
+    for (int e = 0; e < per_lane(C); ++e) {
+      if (!in_row<C>(lane, e)) continue;
       const size_t o = gr * C + lane + 32 * e;
       dh[o] = dout[o] + (hv[e] > 0.f ? sc * (u[e] - su - zh[e] * suz) : 0.f);
     }
   }
 }
 
-// blockIdx.x: output tile (0-3 dW1 rows 64x, 4-6 dW2 tap, 7-10 dW3 columns
-// 64x); blockIdx.y: split of the N = B*T rows. Writes the split's partial
+// blockIdx.x: output tile, the TI_C x TI_F tiles of dW1, then TI_F x TI_F
+// for each tap of dW2, then TI_F x TI_C of dW3, each up to 64 x 64;
+// blockIdx.y: split of the N = B*T rows. Writes the split's partial
 // gradients into part[split] in the packed block layout.
 __global__ void __launch_bounds__(NT)
 tcn_bwd_wgrad_kernel(const float* __restrict__ h,
@@ -242,22 +257,35 @@ tcn_bwd_wgrad_kernel(const float* __restrict__ h,
                      const float* __restrict__ du1s,
                      const float* __restrict__ dout, int d, int T, int N,
                      float* __restrict__ part) {
-  __shared__ __align__(16) float As[WG_RC][LDF];
-  __shared__ __align__(16) float Ds[WG_RC][LDF];
-  const int tile = blockIdx.x, split = blockIdx.y;
-  int job, i0 = 0, j0 = 0, tap = 0;
-  if (tile < 4) {
-    job = 0;  // dW1 = a^T du1, rows i0 .. i0+63
-    i0 = 64 * tile;
-  } else if (tile < 7) {
+  __shared__ __align__(16) float As[WG_RC][LDT];
+  __shared__ __align__(16) float Ds[WG_RC][LDT];
+  const int split = blockIdx.y;
+  int tile = blockIdx.x, job, tap = 0, i0, j0, wa, wd;
+  if (tile < TI_C * TI_F) {
+    job = 0;  // dW1 = a^T du1
+    i0 = WT * (tile / TI_F);
+    j0 = WT * (tile % TI_F);
+    wa = C - i0;
+    wd = DF - j0;
+  } else if ((tile -= TI_C * TI_F) < KS * TI_F * TI_F) {
     job = 1;  // dW2[tap] = a2(t - (KS-1-tap) d)^T dy
-    tap = tile - 4;
+    tap = tile / (TI_F * TI_F);
+    i0 = WT * (tile % (TI_F * TI_F) / TI_F);
+    j0 = WT * (tile % TI_F);
+    wa = DF - i0;
+    wd = DF - j0;
   } else {
-    job = 2;  // dW3 = a3^T dout, columns j0 .. j0+63
-    j0 = 64 * (tile - 7);
+    tile -= KS * TI_F * TI_F;
+    job = 2;  // dW3 = a3^T dout
+    i0 = WT * (tile / TI_C);
+    j0 = WT * (tile % TI_C);
+    wa = DF - i0;
+    wd = C - j0;
   }
+  wa = min(wa, WT);
+  wd = min(wd, WT);
   const int shift = (KS - 1 - tap) * d;
-  const bool bias = (job == 0 && i0 == 0) || (job == 1 && tap == 0) || job == 2;
+  const bool bias = i0 == 0 && (job != 1 || tap == 0);
   const int r_begin = (int)((long long)N * split / gridDim.y);
   const int r_end = (int)((long long)N * (split + 1) / gridDim.y);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -271,29 +299,39 @@ tcn_bwd_wgrad_kernel(const float* __restrict__ h,
   float bacc = 0.f;
 
   for (int rc = r_begin; rc < r_end; rc += WG_RC) {
-    for (int idx = threadIdx.x; idx < WG_RC * 16; idx += NT) {
-      const int rr = idx / 16, c4 = idx % 16;
+    for (int idx = threadIdx.x; idx < WG_RC * (WT / 4); idx += NT) {
+      const int rr = idx / (WT / 4), c4 = idx % (WT / 4);
       const int r = rc + rr;
+      const bool ain = 4 * c4 < wa, din = 4 * c4 < wd;
       float4 a = zero4, g = zero4;
       if (r < r_end) {
         if (job == 0) {
-          const float4 hv =
-              __ldg(reinterpret_cast<const float4*>(h + (size_t)r * C + i0) + c4);
-          const float sh = hst[2 * (size_t)r], sc = hst[2 * (size_t)r + 1];
-          a = make_float4(fmaf(fmaxf(hv.x, 0.f), sc, sh),
-                          fmaf(fmaxf(hv.y, 0.f), sc, sh),
-                          fmaf(fmaxf(hv.z, 0.f), sc, sh),
-                          fmaf(fmaxf(hv.w, 0.f), sc, sh));
-          g = __ldg(reinterpret_cast<const float4*>(du1s + (size_t)r * DF) + c4);
+          if (ain) {
+            const float4 hv = __ldg(
+                reinterpret_cast<const float4*>(h + (size_t)r * C + i0) + c4);
+            const float sh = hst[2 * (size_t)r], sc = hst[2 * (size_t)r + 1];
+            a = make_float4(fmaf(fmaxf(hv.x, 0.f), sc, sh),
+                            fmaf(fmaxf(hv.y, 0.f), sc, sh),
+                            fmaf(fmaxf(hv.z, 0.f), sc, sh),
+                            fmaf(fmaxf(hv.w, 0.f), sc, sh));
+          }
+          if (din)
+            g = __ldg(reinterpret_cast<const float4*>(du1s + (size_t)r * DF + j0) +
+                      c4);
         } else if (job == 1) {
-          if (r % T >= shift)
+          if (ain && r % T >= shift)
             a = __ldg(reinterpret_cast<const float4*>(
-                          a2s + (size_t)(r - shift) * DF) + c4);
-          g = __ldg(reinterpret_cast<const float4*>(dys + (size_t)r * DF) + c4);
+                          a2s + (size_t)(r - shift) * DF + i0) + c4);
+          if (din)
+            g = __ldg(reinterpret_cast<const float4*>(dys + (size_t)r * DF + j0) +
+                      c4);
         } else {
-          a = __ldg(reinterpret_cast<const float4*>(a3s + (size_t)r * DF) + c4);
-          g = __ldg(reinterpret_cast<const float4*>(dout + (size_t)r * C + j0) +
-                    c4);
+          if (ain)
+            a = __ldg(reinterpret_cast<const float4*>(a3s + (size_t)r * DF + i0) +
+                      c4);
+          if (din)
+            g = __ldg(reinterpret_cast<const float4*>(dout + (size_t)r * C + j0) +
+                      c4);
         }
       }
       *reinterpret_cast<float4*>(&As[rr][4 * c4]) = a;
@@ -313,7 +351,7 @@ tcn_bwd_wgrad_kernel(const float* __restrict__ h,
         acc[i][3] = fmaf(av[i], g.w, acc[i][3]);
       }
     }
-    if (bias && threadIdx.x < 64)
+    if (bias && threadIdx.x < wd)
       for (int rr = 0; rr < WG_RC; ++rr) bacc += Ds[rr][threadIdx.x];
     __syncthreads();
   }
@@ -322,22 +360,25 @@ tcn_bwd_wgrad_kernel(const float* __restrict__ h,
   float* Wt;
   int ldw;
   if (job == 0) {
-    Wt = P + OFF_W1 + i0 * DF;
+    Wt = P + OFF_W1 + i0 * DF + j0;
     ldw = DF;
   } else if (job == 1) {
-    Wt = P + OFF_W2 + tap * DF * DF;
+    Wt = P + OFF_W2 + tap * DF * DF + i0 * DF + j0;
     ldw = DF;
   } else {
-    Wt = P + OFF_W3 + j0;
+    Wt = P + OFF_W3 + i0 * C + j0;
     ldw = C;
   }
+  if (4 * tx < wd) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(Wt + (4 * ty + i) * ldw + 4 * tx) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  if (bias && threadIdx.x < 64) {
-    float* bp = job == 0 ? P + OFF_B1 : job == 1 ? P + OFF_B2 : P + OFF_B3 + j0;
-    bp[threadIdx.x] = bacc;
+    for (int i = 0; i < 4; ++i)
+      if (4 * ty + i < wa)
+        *reinterpret_cast<float4*>(Wt + (4 * ty + i) * ldw + 4 * tx) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  if (bias && threadIdx.x < wd) {
+    float* bp = job == 0 ? P + OFF_B1 : job == 1 ? P + OFF_B2 : P + OFF_B3;
+    bp[j0 + threadIdx.x] = bacc;
   }
 }
 
@@ -359,13 +400,23 @@ int tcn_train_block_floats() { return BLOCK_FLOATS; }
 
 int tcn_train_block_t_floats() { return BLOCK_T_FLOATS; }
 
+// Largest window (tile + 2d rows) the first backward kernel's CTA can hold
+// on `device`; the second kernel's CTA needs less.
+int tcn_train_max_window_rows(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return optin / (int)(ACT_ROW_FLOATS * sizeof(float));
+}
+
 const char* tcn_train_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Backward of one block: h, dout, dh [B, T, 256] (dh not aliasing dout);
+// Backward of one block: h, dout, dh [B, T, C] (dh not aliasing dout);
 // w, wt the block's packed and transposed weights; u1s, a2s, a3s, dys, du1s
-// [B*T, 64], hst [B*T, 2] and part [splits, block floats] scratch; dw the
+// [B*T, DF], hst [B*T, 2] and part [splits, block floats] scratch; dw the
 // block's packed gradients (overwritten). Launches four kernels on `stream`.
 int tcn_block_backward(const void* h, const void* dout, void* dh,
                        const void* w, const void* wt, int d, int B, int T,

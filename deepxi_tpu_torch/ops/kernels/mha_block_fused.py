@@ -6,7 +6,9 @@ attention, output projection, residual, LN1, the 4x FFN, residual, LN2) as
 one call of `csrc/mha_block_fused.cu` (three launches: projections,
 attention, the per-row rest) for a CUDA tensor, and its plain version
 `fused_transformer_block_ref` for a CPU tensor. Its `launches` counter counts
-calls, one per block.
+calls, one per block. The widths (heads, d_model, the FFN's) are read from
+the weights; the wrapper builds one library per set of widths that
+`kernel_takes` accepts, and raises ValueError on the card at any other.
 
 Semantics as the JAX kernel: q scaled by d_k^-1/2, logits
 ``q.k + (-1e10)(1 - valid_q valid_k [causal])`` over all Tp keys and a
@@ -35,11 +37,22 @@ from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
                                                sequence_valid_mask)
 from deepxi_tpu_torch.models.tcn import output_activation
 from deepxi_tpu_torch.ops.kernels import refuse_autograd
-from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEAD_DIM,
-                                                    KERNEL_HEADS,
+from deepxi_tpu_torch.ops.kernels import mha_fused
+from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEADS,
                                                     masked_softmax_attention)
 
+# mhanet-1.1c's widths, the defaults of `random_block_weights`.
 KERNEL_D_MODEL, KERNEL_D_FF = 256, 1024
+
+
+def kernel_takes(d_model: int, n_heads: int, d_ff: int) -> bool:
+    """Whether the block kernels can be built for these widths: heads that
+    `mha_fused.kernel_takes` accepts, splitting d_model evenly, and an FFN
+    width that is a multiple of d_model (the products walk it d_model
+    columns at a time)."""
+    return (n_heads >= 1 and d_model % n_heads == 0
+            and mha_fused.kernel_takes(n_heads, d_model // n_heads)
+            and d_ff >= d_model and d_ff % d_model == 0)
 
 
 class BlockWeights(NamedTuple):
@@ -92,16 +105,19 @@ def fused_transformer_block_ref(x: torch.Tensor, validf: torch.Tensor,
     return layer_norm_two_pass(x1 + f2 + w.ff2_b, w.ln2_s, w.ln2_b)
 
 
-def _check(x: torch.Tensor, validf: torch.Tensor, weights: BlockWeights) -> None:
-    """Raise on what the kernel does not take."""
-    if (x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous()
-            or x.shape[2] != KERNEL_D_MODEL):
-        raise ValueError(f"x must be a contiguous float32 [B, T, "
-                         f"{KERNEL_D_MODEL}] tensor, not {tuple(x.shape)} {x.dtype}")
+def _check(x: torch.Tensor, validf: torch.Tensor, weights: BlockWeights):
+    """Raise on what the kernel does not take; returns the widths (heads,
+    head width, FFN width), read from the query kernel and W1."""
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 [B, T, C] tensor, "
+                         f"not {tuple(x.shape)} {x.dtype}")
     B, T, C = x.shape
     if validf.shape != (B, 1, T) or validf.device != x.device:
         raise ValueError(f"validf must be [B, 1, T] = {(B, 1, T)} on {x.device}")
-    H, dk, F = KERNEL_HEADS, KERNEL_HEAD_DIM, KERNEL_D_FF
+    H, dk, F = weights.qk.shape[0], weights.qk.shape[-1], weights.ff1_w.shape[-1]
+    if H * dk != C or not kernel_takes(C, H, F):
+        raise ValueError(f"the kernels do not take d_model {C} with {H} heads of "
+                         f"{dk} and d_ff {F} (see kernel_takes)")
     shapes = BlockWeights((H, C, dk), (H, C, dk), (H, C, dk), (H, dk, C), (C,), (C,),
                           (C, F), (F,), (F, C), (C,), (C,), (C,))
     for t, shape in zip(weights, shapes):
@@ -111,12 +127,19 @@ def _check(x: torch.Tensor, validf: torch.Tensor, weights: BlockWeights) -> None
             raise ValueError(f"block weight of shape {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}; expected a contiguous {shape} "
                              f"float32 on {x.device}")
+    return H, dk, F
+
+
+def build_spec(n_heads: int, head_dim: int, d_ff: int):
+    """The `_build` spec of `csrc/mha_block_fused.cu` at these widths."""
+    return "mha_block_fused", {**mha_fused.head_defines(n_heads, head_dim),
+                               "MHA_DFF": d_ff}
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def _lib(n_heads: int, head_dim: int, d_ff: int) -> ctypes.CDLL:
     from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("mha_block_fused")
+    lib = _build.load(*build_spec(n_heads, head_dim, d_ff))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mha_block_error_string.argtypes = [i]
     lib.mha_block_error_string.restype = ctypes.c_char_p
@@ -132,16 +155,16 @@ def fused_transformer_block(x: torch.Tensor, validf: torch.Tensor,
     refuse_autograd([x, *weights], "fused_transformer_block")
     if x.device.type == "cpu":
         return fused_transformer_block_ref(x, validf, weights, causal)
-    _check(x, validf, weights)
+    H, dk, F = _check(x, validf, weights)
     B, T, _ = x.shape
     vf = validf.to(torch.float32).contiguous()
     q, k, v, o, out = (torch.empty_like(x) for _ in range(5))
-    lib = _lib()
+    lib = _lib(H, dk, F)
     with torch.cuda.device(x.device):
         rc = lib.mha_block_forward(
             x.data_ptr(), vf.data_ptr(), *(t.data_ptr() for t in weights),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            out.data_ptr(), B, T, int(causal), float(KERNEL_HEAD_DIM) ** -0.5,
+            out.data_ptr(), B, T, int(causal), float(dk) ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mha_block_forward failed: CUDA error {rc} "

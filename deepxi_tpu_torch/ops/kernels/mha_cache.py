@@ -16,6 +16,10 @@ the mask itself; streaming only ever hands it this one, so the port takes
 row 0 is always valid, so each masked row's weight is exp(-1e10 + ...) = 0
 exactly in float32 and the kernel reads only the written rows.
 
+The heads' widths are compile-time constants of the kernel, built once per
+set of widths that `mha_fused.kernel_takes` accepts; at any other the
+wrapper raises ValueError on the card.
+
 Inference only, as `pallas_call`: the wrapper raises under autograd when an
 input requires grad.
 """
@@ -29,8 +33,7 @@ import torch
 
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
 from deepxi_tpu_torch.ops.kernels import refuse_autograd
-from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEAD_DIM,
-                                                    KERNEL_HEADS)
+from deepxi_tpu_torch.ops.kernels.mha_fused import head_defines, kernel_takes
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 # Keys a warp scores at a time (csrc/mha_cache.cu TK), and the CTAs a launch
@@ -54,11 +57,11 @@ def mha_cache_step_ref(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 def _check(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, t: int) -> None:
     """Raise on what the kernel does not take."""
-    H, d = KERNEL_HEADS, KERNEL_HEAD_DIM
-    if q.dtype != torch.float32 or q.dim() != 3 or tuple(q.shape[1:]) != (H, d):
-        raise ValueError(f"q must be float32 [B, {H}, {d}], not "
-                         f"{tuple(q.shape)} {q.dtype}")
-    B = q.shape[0]
+    if q.dtype != torch.float32 or q.dim() != 3 or not kernel_takes(*q.shape[1:]):
+        raise ValueError(f"q must be float32 [B, H, d] with heads the kernel "
+                         f"takes (mha_fused.kernel_takes), not {tuple(q.shape)} "
+                         f"{q.dtype}")
+    B, H, d = q.shape
     if (kc.dtype not in CACHE_DTYPES or kc.dim() != 4 or kc.shape[0] != B
             or tuple(kc.shape[2:]) != (H, d) or vc.shape != kc.shape
             or vc.dtype != kc.dtype):
@@ -83,9 +86,9 @@ def key_splits(B: int, n_valid: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def _lib(n_heads: int, head_dim: int) -> ctypes.CDLL:
     from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("mha_cache")
+    lib = _build.load("mha_cache", head_defines(n_heads, head_dim))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mha_cache_error_string.argtypes = [i]
     lib.mha_cache_error_string.restype = ctypes.c_char_p
@@ -108,11 +111,11 @@ def mha_cache_step(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     out = torch.empty_like(q)
     parts = [None] * 3
     if n_split > 1:
-        shape = (B, n_split, KERNEL_HEADS)
+        shape = (B, n_split, q.shape[1])
         parts = [torch.empty(shape, device=q.device),
                  torch.empty(shape, device=q.device),
-                 torch.empty(shape + (KERNEL_HEAD_DIM,), device=q.device)]
-    lib = _lib()
+                 torch.empty(shape + (q.shape[2],), device=q.device)]
+    lib = _lib(*q.shape[1:])
     with torch.cuda.device(q.device):
         rc = lib.mha_cache_forward(
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),

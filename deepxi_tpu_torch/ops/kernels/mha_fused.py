@@ -14,7 +14,10 @@ the weighted values. The JAX kernel pads the keys to T rounded up to 128
 averages the values of all those keys; both versions here reproduce that on
 every row. The JAX kernel's query tiling (`block_q`) does not change the
 function and is left out. On the card each CTA takes 64 query rows of one
-head and walks 64-key tiles with an online softmax.
+head and walks 64-key tiles with an online softmax. The heads' widths are
+compile-time constants of the kernel: the wrapper builds one library per
+set of widths that `kernel_takes` accepts, and raises ValueError on the card
+at any other.
 
 Inference only, as `pallas_call`: the wrappers raise under autograd when an
 input requires grad.
@@ -30,8 +33,23 @@ import torch
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
 from deepxi_tpu_torch.ops.kernels import refuse_autograd
 
-# The kernel's widths (mhanet-1.1c): 8 heads of 32.
-KERNEL_HEADS, KERNEL_HEAD_DIM = 8, 32
+# mhanet-1.1c's heads, the default of `mha_block_fused.random_block_weights`.
+KERNEL_HEADS = 8
+
+
+def kernel_takes(n_heads: int, head_dim: int) -> bool:
+    """Whether the attention kernels (`csrc/mha_common.cuh` and
+    `csrc/mha_cache.cu`; shared with `mha_flash_stream` and `mha_cache`) can
+    be built for these heads: a head width that is a multiple of 4 up to 64
+    (a thread holds a query row and its accumulator in registers), at most
+    32 heads and 1024 columns."""
+    return (1 <= n_heads <= 32 and head_dim % 4 == 0 and 4 <= head_dim <= 64
+            and n_heads * head_dim <= 1024)
+
+
+def head_defines(n_heads: int, head_dim: int) -> dict:
+    """The build defines of the attention kernels at these heads."""
+    return {"MHA_NH": n_heads, "MHA_DK": head_dim}
 
 
 def masked_softmax_attention(qp, kp, vp, valid_q, valid_k, causal: bool,
@@ -69,9 +87,9 @@ def flash_attention_ref(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def _lib(n_heads: int, head_dim: int) -> ctypes.CDLL:
     from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("mha_attention")
+    lib = _build.load("mha_attention", head_defines(n_heads, head_dim))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mha_attention_error_string.argtypes = [i]
     lib.mha_attention_error_string.restype = ctypes.c_char_p
@@ -89,9 +107,9 @@ def check_heads(*heads: torch.Tensor) -> None:
                 or t.data_ptr() % 16):
             raise ValueError("q, k, v must be contiguous float32 [B, T, H, d] "
                              "tensors of one shape on one device")
-    if tuple(shape[2:]) != (KERNEL_HEADS, KERNEL_HEAD_DIM):
-        raise ValueError(f"the kernel takes {KERNEL_HEADS} heads of "
-                         f"{KERNEL_HEAD_DIM}, not {tuple(shape[2:])}")
+    if not kernel_takes(*shape[2:]):
+        raise ValueError(f"the kernel takes up to 32 heads of a multiple of 4 "
+                         f"up to 64, at most 1024 columns, not {tuple(shape[2:])}")
 
 
 def launch_attention(qp, kp, vp, valid, causal: bool, n_keys: int,
@@ -104,7 +122,7 @@ def launch_attention(qp, kp, vp, valid, causal: bool, n_keys: int,
         raise ValueError(f"valid must be [B, T] = {(B, T)}, not {tuple(valid.shape)}")
     vf = valid.to(device=qp.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(qp)
-    lib = _lib()
+    lib = _lib(*qp.shape[2:])
     with torch.cuda.device(qp.device):
         rc = lib.mha_attention_forward(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), vf.data_ptr(),

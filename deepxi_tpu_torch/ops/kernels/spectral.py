@@ -7,19 +7,23 @@ product. `stft_reim`, `stft_mag` and `synthesis_from_reim` leave them to
 `torch.matmul`, as the JAX package leaves them to XLA.
 
 Two CUDA kernels for Hopper (`csrc/spectral.cu`) replace the module's two
-Pallas kernels:
+Pallas kernels. Each computes its plain version's function with an FFT a
+frame in shared memory, reading the window and a twiddle table instead of
+the DFT matrices:
 
   * `stft_mag_fused` (`stft_mag_pallas`): hop rows [B, T+1, N_s] to |X|
     [B, T, K/2+1]; frames are built from two hop rows in shared memory and
     only the magnitudes reach device memory. The port's ξ̂ estimator
     (`enhance.make_xi_estimator`) takes its |X| from it.
   * `enhance_frames_fused` (`enhance_frames_pallas`): the gain times
-    [re || im], then the inverse-DFT product: synthesis frames [B, T, N_d],
+    [re || im], then the inverse DFT: synthesis frames [B, T, N_d],
     overlap-added outside (`sig.stft.overlap_and_add`).
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
-version (`*_ref`) for a CPU tensor; each has a plain-integer `launches`
-counter and, like `pallas_call`, no backward. Both take N_d = 2 N_s only.
+version (`*_ref`, the matrix products: the definition) for a CPU tensor;
+each has a plain-integer `launches` counter and, like `pallas_call`, no
+backward. Both take N_d = 2 N_s and K a power of two with
+N_d <= K and 64 <= K <= 4096 (every K `Config.K` gives), on every device.
 """
 
 from __future__ import annotations
@@ -67,10 +71,22 @@ def _synthesis_matrix(N_d: int, N_s: int, K: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _twiddles(K: int) -> np.ndarray:
+    """[K/2+1, 2] (cos, sin) of e^{-2 pi i j / K}, j = 0 .. K/2: the FFT
+    kernels' twiddle table (float64, then cast)."""
+    ang = -2.0 * np.pi * np.arange(K // 2 + 1) / K
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+_TABLES = {"analysis": _analysis_matrix, "synthesis": _synthesis_matrix,
+           "hamming": _hamming_np, "synthesis_window": _synthesis_window_np,
+           "twiddles": _twiddles}
+
+
+@functools.lru_cache(maxsize=None)
 def _on_device(name: str, args: tuple, device: torch.device) -> torch.Tensor:
-    """One device copy of a host matrix per (matrix, device)."""
-    fn = {"analysis": _analysis_matrix, "synthesis": _synthesis_matrix}[name]
-    return torch.as_tensor(fn(*args), device=device)
+    """One device copy of a host table per (table, arguments, device)."""
+    return torch.as_tensor(_TABLES[name](*args), device=device)
 
 
 def stft_reim(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:
@@ -135,15 +151,37 @@ def _check(x: torch.Tensor, shape: tuple, what: str) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
 
 
-def _check_card(tensors, N_s: int) -> None:
-    """What the kernels need beyond the function's shapes: contiguous,
-    16-byte aligned tensors on one device and 32 | N_s."""
-    if N_s % 32:
-        raise ValueError(f"the spectral kernels take N_s a multiple of 32, not {N_s}")
+def _check_domain(N_d: int, K: int) -> None:
+    """The kernels' domain, held on every device: K a power of two with
+    N_d <= K and 64 <= K <= 4096."""
+    if not (64 <= K <= 4096 and K & (K - 1) == 0 and N_d <= K):
+        raise ValueError(f"the spectral kernels take K a power of two in [64, 4096] "
+                         f"and N_d <= K, not N_d {N_d}, K {K}")
+
+
+def _check_card(tensors) -> None:
+    """What the kernels need beyond the function's shapes: contiguous
+    tensors on one device."""
     for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16 or t.device != tensors[0].device:
-            raise ValueError("the spectral kernels take contiguous, 16-byte "
-                             "aligned tensors on one device")
+        if not t.is_contiguous() or t.device != tensors[0].device:
+            raise ValueError("the spectral kernels take contiguous tensors on one device")
+
+
+# Complex points a CTA of the spectral kernels takes where the frames allow
+# (4 frames at K = 512; its buffers hold 2048): on the H100, faster than
+# twice as many at B=96 T=625 (chip_smoke.py times both; PERF.md).
+CTA_POINTS = 1024
+
+
+def _frames_per_cta(ctas, K: int, device: torch.device) -> int:
+    """Frames a CTA takes: CTA_POINTS worth (one at K >= 2048), halved
+    while `ctas(F)` would leave an SM without a CTA, so that short batches
+    spread over the card."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    F = max(1, CTA_POINTS // (K // 2))
+    while F > 1 and ctas(F) < n_sm:
+        F //= 2
+    return F
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,9 +191,9 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.spectral_error_string.argtypes = [i]
     lib.spectral_error_string.restype = ctypes.c_char_p
-    lib.stft_mag_forward.argtypes = [p, p, p, i, i, i, i, p]
+    lib.stft_mag_forward.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.stft_mag_forward.restype = i
-    lib.enhance_frames_forward.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.enhance_frames_forward.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.enhance_frames_forward.restype = i
     return lib
 
@@ -168,24 +206,27 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def stft_mag_fused(x2d: torch.Tensor, N_d: int, K: int) -> torch.Tensor:
     """Magnitude spectrum [B, T, K/2+1] of hop rows x2d [B, T+1, N_s] with
-    N_d = 2 N_s (`sig.stft.hop_rows` of a waveform): frame, window, real DFT
-    and |X| in one kernel (replaces `stft_mag_pallas`)."""
+    N_d = 2 N_s (`sig.stft.hop_rows` of a waveform): frame, window, real FFT
+    of length K and |X| in one kernel (replaces `stft_mag_pallas`)."""
     refuse_autograd([x2d], "stft_mag_fused")
     _check(x2d, (None, None, N_d // 2), "x2d")
     _two_rows(N_d, x2d.shape[2])
+    _check_domain(N_d, K)
     if x2d.shape[1] < 2:
         raise ValueError("x2d needs T+1 >= 2 hop rows")
     if x2d.device.type == "cpu":
         return stft_mag_fused_ref(x2d, N_d, K)
     B, T, N_s = x2d.shape[0], x2d.shape[1] - 1, x2d.shape[2]
-    M = _on_device("analysis", (N_d, K), x2d.device)
-    _check_card([x2d, M], N_s)
+    win = _on_device("hamming", (N_d,), x2d.device)
+    tw = _on_device("twiddles", (K,), x2d.device)
+    _check_card([x2d, win, tw])
     out = torch.empty(B, T, K // 2 + 1, device=x2d.device)
     lib = _lib()
+    F = _frames_per_cta(lambda F: B * -(-T // F), K, x2d.device)
     with torch.cuda.device(x2d.device):
         _raise_on(lib, lib.stft_mag_forward(
-            x2d.data_ptr(), M.data_ptr(), out.data_ptr(), B, T, N_s, K // 2 + 1,
-            torch.cuda.current_stream().cuda_stream), "stft_mag_forward")
+            x2d.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), B, T, N_s,
+            K, F, torch.cuda.current_stream().cuda_stream), "stft_mag_forward")
     stft_mag_fused.launches += 1
     return out
 
@@ -197,25 +238,29 @@ def enhance_frames_fused(Y: torch.Tensor, G: torch.Tensor, N_d: int, N_s: int,
                          K: int) -> torch.Tensor:
     """Synthesis frames [B, T, N_d] of the gain G [B, T, K/2+1] times the
     spectrum Y = [re || im] [B, T, 2(K/2+1)]: the gain product, the inverse
-    DFT and the synthesis window in one kernel (replaces
+    real FFT of length K and the synthesis window in one kernel (replaces
     `enhance_frames_pallas`); overlap-add them with
     `sig.stft.overlap_and_add`."""
     refuse_autograd([Y, G], "enhance_frames_fused")
     _two_rows(N_d, N_s)
+    _check_domain(N_d, K)
     nb = K // 2 + 1
     _check(Y, (None, None, 2 * nb), "Y")
     _check(G, (Y.shape[0], Y.shape[1], nb), "G")
     if Y.device.type == "cpu":
         return enhance_frames_fused_ref(Y, G, N_d, N_s, K)
     B, T = Y.shape[:2]
-    S = _on_device("synthesis", (N_d, N_s, K), Y.device)
-    _check_card([Y, G, S], N_s)
+    wsyn = _on_device("synthesis_window", (N_d, N_s), Y.device)
+    tw = _on_device("twiddles", (K,), Y.device)
+    _check_card([Y, G, wsyn, tw])
     out = torch.empty(B, T, N_d, device=Y.device)
     lib = _lib()
+    F = _frames_per_cta(lambda F: -(-B * T // F), K, Y.device)
     with torch.cuda.device(Y.device):
         _raise_on(lib, lib.enhance_frames_forward(
-            Y.data_ptr(), G.data_ptr(), S.data_ptr(), out.data_ptr(), B, T, nb,
-            N_d, torch.cuda.current_stream().cuda_stream), "enhance_frames_forward")
+            Y.data_ptr(), G.data_ptr(), wsyn.data_ptr(), tw.data_ptr(), out.data_ptr(),
+            B * T, N_d, K, F, torch.cuda.current_stream().cuda_stream),
+            "enhance_frames_forward")
     enhance_frames_fused.launches += 1
     return out
 

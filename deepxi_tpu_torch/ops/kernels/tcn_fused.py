@@ -16,6 +16,11 @@ Each wrapper launches its kernel for a CUDA tensor and takes its plain
 version (`*_ref`, the same arithmetic in PyTorch) for a CPU tensor. Each has
 a plain-integer `launches` counter that counts kernel launches.
 
+The kernels' widths (d_model, d_f, k) are compile-time constants: a wrapper
+builds one library per set of widths at first use, so every width that
+`kernel_takes` accepts runs its own kernel; at any other width it raises
+ValueError on the card.
+
 These are inference routes: like `pallas_call`, they have no backward, and
 with autograd on they raise when an input or weight requires grad, on both
 devices. Training takes `tcn_fused_train.resnetv2_apply_fused_train`.
@@ -37,8 +42,23 @@ from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
 from deepxi_tpu_torch.ops.kernels import refuse_autograd
 
-# The kernels are built for resnet-1.1c's widths.
+# resnet-1.1c's widths, the defaults of `random_block_weights`.
 KERNEL_D_MODEL, KERNEL_D_F, KERNEL_K = 256, 64, 3
+
+
+def kernel_takes(d_model: int, d_f: int, k: int) -> bool:
+    """Whether the TCN kernels (`csrc/tcn_common.cuh`, shared with
+    `tcn_fused_train`) can be built for these widths: d_model and d_f
+    multiples of 4 up to 1024 (a thread owns 4 output columns of a product,
+    and a CTA's 256 threads span a row), any k >= 1."""
+    return (all(w % 4 == 0 and 4 <= w <= 1024 for w in (d_model, d_f))
+            and k >= 1)
+
+
+def build_spec(name: str, d_model: int, d_f: int, k: int):
+    """The `_build` spec of `csrc/<name>.cu` ("tcn_fused" or
+    "tcn_fused_train") at these widths."""
+    return name, {"TCN_C": d_model, "TCN_DF": d_f, "TCN_KS": k}
 
 # Group and tile of the halo-tiled route. A CTA's window is (tile_t + halo)
 # rows of 1,592 bytes (h, two d_f buffers, LN moments), and a Hopper block
@@ -177,19 +197,19 @@ def fused_block_group_ref(x: torch.Tensor, weights: Sequence[BlockWeights],
 
 
 def _check(x: torch.Tensor, weights: Sequence[BlockWeights],
-           dilations: Sequence[int], k: int) -> torch.Tensor:
+           dilations: Sequence[int], k: int):
     """Validate what the kernels take; returns the weights packed as
-    [G, block_floats] in BlockWeights order."""
+    [G, block_floats] in BlockWeights order and the widths (d_model, d_f,
+    k), d_f read from the first block's W1."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 [B, T, C] tensor")
-    if x.shape[2] != KERNEL_D_MODEL or k != KERNEL_K:
-        raise ValueError(f"the kernels take d_model {KERNEL_D_MODEL} and k "
-                         f"{KERNEL_K}, not {x.shape[2]} and {k}")
     if len(weights) != len(dilations) or not weights:
         raise ValueError("one dilation per block, at least one block")
-    shapes = BlockWeights((1, KERNEL_D_MODEL, KERNEL_D_F), (KERNEL_D_F,),
-                          (KERNEL_K, KERNEL_D_F, KERNEL_D_F), (KERNEL_D_F,),
-                          (1, KERNEL_D_F, KERNEL_D_MODEL), (KERNEL_D_MODEL,))
+    C, F = x.shape[2], weights[0].w1.shape[-1]
+    if not kernel_takes(C, F, k):
+        raise ValueError(f"the kernels take d_model and d_f multiples of 4 up "
+                         f"to 1024 and k >= 1, not {C}, {F} and {k}")
+    shapes = BlockWeights((1, C, F), (F,), (k, F, F), (F,), (1, F, C), (C,))
     for bw in weights:
         for w, shape in zip(bw, shapes):
             if (tuple(w.shape) != shape or w.dtype != torch.float32
@@ -197,16 +217,16 @@ def _check(x: torch.Tensor, weights: Sequence[BlockWeights],
                 raise ValueError(f"block weight of shape {tuple(w.shape)} "
                                  f"{w.dtype} on {w.device}; expected {shape} "
                                  f"float32 on {x.device}")
-    return torch.cat([w.reshape(-1) for bw in weights for w in bw]).reshape(
-        len(weights), -1)
+    packed = torch.cat([w.reshape(-1) for bw in weights for w in bw])
+    return packed.reshape(len(weights), -1), (C, F, k)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built kernels, typed; checks that the C side packs a block's
-    weights as `_check` does."""
+def _lib(d_model: int, d_f: int, k: int) -> ctypes.CDLL:
+    """The kernels built for these widths, typed; checks that the C side
+    packs a block's weights as `_check` does."""
     from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("tcn_fused")
+    lib = _build.load(*build_spec("tcn_fused", d_model, d_f, k))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tcn_max_window_rows.argtypes, lib.tcn_max_window_rows.restype = [i], i
     lib.tcn_block_floats.argtypes, lib.tcn_block_floats.restype = [], i
@@ -219,7 +239,7 @@ def _lib() -> ctypes.CDLL:
     lib.tcn_group_forward.argtypes = [p, p, p, ctypes.POINTER(i), i, i, i,
                                       i, i, p]
     lib.tcn_group_forward.restype = i
-    C, F, K = KERNEL_D_MODEL, KERNEL_D_F, KERNEL_K
+    C, F, K = d_model, d_f, k
     if lib.tcn_block_floats() != C * F + F + K * F * F + F + F * C + C:
         raise RuntimeError("csrc/tcn_fused.cu packs block weights differently")
     return lib
@@ -235,15 +255,25 @@ def _refuse_autograd(tensors, what: str) -> None:
     refuse_autograd(tensors, what, "tcn_fused_train.resnetv2_apply_fused_train")
 
 
-def _whole_tile(x: torch.Tensor) -> int:
-    """Time tile of the per-block kernel: the largest of 64/32/16 rows that
-    still gives every SM a CTA, so short batches spread over the card."""
+def _whole_tile(x: torch.Tensor, reach: int, max_rows: int) -> int:
+    """Time tile of a per-block kernel whose CTA holds the tile and the
+    `reach` rows before it, at most `max_rows`: the largest of 64/32/16 rows
+    that fits and still gives every SM a CTA, so short batches spread over
+    the card (8 when only that fits). Raises ValueError when none fits."""
     B, T, _ = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    for tile in (64, 32):
-        if B * -(-T // tile) >= n_sm:
-            return tile
-    return 16
+    fits = [tile for tile in (64, 32, 16, 8) if tile + reach <= max_rows]
+    if not fits:
+        raise ValueError(f"a window of 8 + {reach} rows does not fit one CTA "
+                         f"({max_rows} rows at these widths)")
+    return next(tile for tile in fits if tile <= 16 or B * -(-T // tile) >= n_sm)
+
+
+def whole_tile(lib: ctypes.CDLL, x: torch.Tensor, dilations: Sequence[int],
+               k: int) -> int:
+    """`_whole_tile` for `tcn_block_forward` on x's device."""
+    return _whole_tile(x, (k - 1) * max(dilations),
+                       lib.tcn_max_window_rows(x.device.index or 0))
 
 
 def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
@@ -255,10 +285,10 @@ def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
                      "fused_block_group_whole")
     if x.device.type == "cpu":
         return fused_block_group_whole_ref(x, weights, dilations, k)
-    packed = _check(x, weights, dilations, k)
-    lib = _lib()
+    packed, widths = _check(x, weights, dilations, k)
+    lib = _lib(*widths)
     B, T, _ = x.shape
-    tile = _whole_tile(x)
+    tile = whole_tile(lib, x, dilations, k)
     bufs = (torch.empty_like(x), torch.empty_like(x))
     src = x
     with torch.cuda.device(x.device):
@@ -298,8 +328,8 @@ def fused_block_group_whole_pack2(x: torch.Tensor,
         raise ValueError(f"ln_mode must be one of {PACK2_LN_MODES}, not {ln_mode!r}")
     if x.device.type == "cpu":
         return fused_block_group_whole_pack2_ref(x, weights, dilations, k, ln_mode)
-    packed = _check(x, weights, dilations, k)
-    lib = _lib()
+    packed, widths = _check(x, weights, dilations, k)
+    lib = _lib(*widths)
     B, T, _ = x.shape
     tile = _pack2_tile(x)
     bufs = (torch.empty_like(x), torch.empty_like(x))
@@ -337,8 +367,8 @@ def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
                          f"{tile_t}; reduce the group size or grow the tile")
     if x.device.type == "cpu":
         return fused_block_group_ref(x, weights, dilations, k, tile_t)
-    packed = _check(x, weights, dilations, k)
-    lib = _lib()
+    packed, widths = _check(x, weights, dilations, k)
+    lib = _lib(*widths)
     B, T, _ = x.shape
     G = len(dilations)
     out = torch.empty_like(x)

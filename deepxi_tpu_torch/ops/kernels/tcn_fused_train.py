@@ -16,9 +16,11 @@ Two wrappers stand for the two Pallas kernels of the training path:
 
 Each wrapper takes its plain version (`*_ref`, the same arithmetic in
 PyTorch) for a CPU tensor and has a plain-integer `launches` counter of
-kernel launches. `_FusedStack` (a `torch.autograd.Function`) stands for the
-JAX `custom_vjp` `_stack`: its forward keeps only the group inputs, plus
-every block's input with `save_acts`.
+kernel launches. Like `tcn_fused`'s, the kernels are built for each set of
+widths that `tcn_fused.kernel_takes` accepts. `_FusedStack` (a
+`torch.autograd.Function`) stands for the JAX `custom_vjp` `_stack`: its
+forward keeps only the group inputs, plus every block's input with
+`save_acts`.
 """
 
 from __future__ import annotations
@@ -33,9 +35,7 @@ import torch.nn.functional as F
 from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
 from deepxi_tpu_torch.ops.kernels import tcn_fused
-from deepxi_tpu_torch.ops.kernels.tcn_fused import (KERNEL_D_F, KERNEL_D_MODEL,
-                                                    KERNEL_K, BlockWeights,
-                                                    block_weights)
+from deepxi_tpu_torch.ops.kernels.tcn_fused import BlockWeights, block_weights
 
 _EPS = 1e-6
 # ReLU inputs within this of 0 are ties: two f32 evaluations of one
@@ -179,21 +179,23 @@ def bwd_ref_up_to_ties(got, h0: torch.Tensor, dout: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built backward, typed; checks that the C side packs a block's
-    weights (and their transposes) as the wrappers do."""
+def _lib(d_model: int, d_f: int, k: int) -> ctypes.CDLL:
+    """The backward built for these widths, typed; checks that the C side
+    packs a block's weights (and their transposes) as the wrappers do."""
     from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("tcn_fused_train")
+    lib = _build.load(*tcn_fused.build_spec("tcn_fused_train", d_model, d_f, k))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tcn_train_block_floats.argtypes, lib.tcn_train_block_floats.restype = [], i
     lib.tcn_train_block_t_floats.argtypes = []
     lib.tcn_train_block_t_floats.restype = i
+    lib.tcn_train_max_window_rows.argtypes = [i]
+    lib.tcn_train_max_window_rows.restype = i
     lib.tcn_train_error_string.argtypes = [i]
     lib.tcn_train_error_string.restype = ctypes.c_char_p
     lib.tcn_block_backward.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                        p, p, p, p, p, p, p, p, p]
     lib.tcn_block_backward.restype = i
-    C, F_, K = KERNEL_D_MODEL, KERNEL_D_F, KERNEL_K
+    C, F_, K = d_model, d_f, k
     if (lib.tcn_train_block_floats() != C * F_ + F_ + K * F_ * F_ + F_ + F_ * C + C
             or lib.tcn_train_block_t_floats() != 2 * C * F_ + K * F_ * F_):
         raise RuntimeError("csrc/tcn_fused_train.cu packs block weights differently")
@@ -201,16 +203,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def _saved_forward(x: torch.Tensor, packed: torch.Tensor,
-                   dilations: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+                   dilations: Sequence[int], widths: Tuple[int, int, int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch `tcn_block_forward` once per block: block g reads buffer slot g
     and writes slot g+1 (the last writes `out`). Returns (out, [G, B, T, C])."""
-    lib = tcn_fused._lib()
+    lib = tcn_fused._lib(*widths)
     B, T, _ = x.shape
     G = len(dilations)
+    tile = tcn_fused.whole_tile(lib, x, dilations, widths[2])
     buf = torch.empty((G,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     buf[0].copy_(x)
     out = torch.empty_like(x)
-    tile = tcn_fused._whole_tile(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         for g, d in enumerate(dilations):
@@ -232,8 +235,8 @@ def fused_block_group_whole_saved(x: torch.Tensor,
                                "fused_block_group_whole_saved")
     if x.device.type == "cpu":
         return fused_block_group_whole_saved_ref(x, weights, dilations, k)
-    packed = tcn_fused._check(x, weights, dilations, k)
-    out, buf = _saved_forward(x, packed, dilations)
+    packed, widths = tcn_fused._check(x, weights, dilations, k)
+    out, buf = _saved_forward(x, packed, dilations, widths)
     fused_block_group_whole_saved.launches += len(dilations)
     return out, buf.permute(1, 0, 2, 3)
 
@@ -268,16 +271,16 @@ def fused_block_group_bwd(h0: torch.Tensor, dout: torch.Tensor,
     """
     if h0.device.type == "cpu":
         return fused_block_group_bwd_ref(h0, dout, weights, dilations, k, saved_h)
-    packed = tcn_fused._check(h0, weights, dilations, k)
+    packed, widths = tcn_fused._check(h0, weights, dilations, k)
     B, T, C = h0.shape
     G = len(dilations)
     dout = dout.contiguous()
     if dout.shape != h0.shape or dout.dtype != h0.dtype or dout.device != h0.device:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} on {dout.device}; "
                          f"expected {tuple(h0.shape)} {h0.dtype} on {h0.device}")
-    lib = _lib()
+    lib = _lib(*widths)
     if saved_h is None:
-        _, buf = _saved_forward(h0, packed, dilations)
+        _, buf = _saved_forward(h0, packed, dilations, widths)
         fused_block_group_bwd.launches += G
         inputs = [buf[g] for g in range(G)]
     else:
@@ -290,11 +293,12 @@ def fused_block_group_bwd(h0: torch.Tensor, dout: torch.Tensor,
     N = B * T
     splits = max(1, min(_MAX_SPLITS, -(-N // _ROWS_PER_SPLIT)))
     new = functools.partial(torch.empty, device=h0.device, dtype=torch.float32)
-    u1s, a2s, a3s, dys, du1s = (new(N, KERNEL_D_F) for _ in range(5))
+    u1s, a2s, a3s, dys, du1s = (new(N, widths[1]) for _ in range(5))
     hst, part = new(N, 2), new(splits, packed.shape[1])
     dpacked = torch.empty_like(packed)
     bufs = (torch.empty_like(h0), torch.empty_like(h0))
-    tile = tcn_fused._whole_tile(h0)  # the per-block forward's tile
+    tile = tcn_fused._whole_tile(h0, (k - 1) * max(dilations),
+                                 lib.tcn_train_max_window_rows(h0.device.index or 0))
     d = dout
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -6,12 +6,18 @@ runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+import sys
+
 import pytest
 import torch
 
 from deepxi_tpu_torch.models.tcn import (ResNetV2, cyclic_dilation,
                                          init_flax_like)
 from deepxi_tpu_torch.ops.kernels import tcn_fused, tcn_fused_train
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import torch_small_widths  # noqa: E402
 
 
 @pytest.fixture
@@ -235,25 +241,38 @@ def test_apply_fused_train_matches_plain_autograd(cuda, save_acts):
 
 # -- the spectral kernels -------------------------------------------------------
 
+SPECTRAL_SHAPES = [(256, 512), (128, 256), (200, 512), (768, 2048)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(1, 1), (2, 63), (3, 130), (1, 250)])
-def test_spectral_kernels_match_plain(cuda, B, T):
-    """stft_mag_fused and enhance_frames_fused at the main path's widths
-    (N_s 256, K 512: 257 bins, 514 spectrum columns, no multiple of a tile),
-    T = 1 and T off the 64- and 128-frame tiles, against their plain
-    versions: 1e-4 of the output's scale."""
+@pytest.mark.parametrize("N_s,K", SPECTRAL_SHAPES)
+@pytest.mark.parametrize("B,T,F", [(1, 1, None), (2, 63, None), (3, 130, 3), (1, 250, None),
+                                   (3, 1001, None)])
+def test_spectral_kernels_match_plain(cuda, monkeypatch, N_s, K, B, T, F):
+    """stft_mag_fused and enhance_frames_fused at each (N_s, K) of the
+    tests on the CPU (the main path's 512, where 257 bins and 514 spectrum
+    columns are no multiple of 4; N_d < K with N_s = 200), against their
+    plain versions on every row: 1e-4 of the output's scale. T = 1, and T
+    off every run of frames a CTA takes: the small shapes take one frame a
+    CTA, (3, 1001) its 1024 points (4 frames at K = 512, 8 at 256), and
+    F = 3 is forced once (2 at K = 2048: a CTA's buffers hold 2048 points)."""
     from deepxi_tpu_torch.ops.kernels import spectral
-    gen = torch.Generator().manual_seed(T)
-    x2d = torch.randn(B, T + 1, 256, generator=gen).to(cuda)
-    Y = torch.randn(B, T, 514, generator=gen).to(cuda)
-    G = torch.rand(B, T, 257, generator=gen).to(cuda)
-    for y, y_ref in ((spectral.stft_mag_fused(x2d, 512, 512),
-                      spectral.stft_mag_fused_ref(x2d, 512, 512)),
-                     (spectral.enhance_frames_fused(Y, G, 512, 256, 512),
-                      spectral.enhance_frames_fused_ref(Y, G, 512, 256, 512))):
+    if F is not None:
+        monkeypatch.setattr(spectral, "_frames_per_cta",
+                            lambda ctas, K, device: min(F, 2048 // (K // 2)))
+    N_d, nb = 2 * N_s, K // 2 + 1
+    gen = torch.Generator().manual_seed(T + K)
+    x2d = torch.randn(B, T + 1, N_s, generator=gen).to(cuda)
+    Y = torch.randn(B, T, 2 * nb, generator=gen).to(cuda)
+    G = torch.rand(B, T, nb, generator=gen).to(cuda)
+    for y, y_ref in ((spectral.stft_mag_fused(x2d, N_d, K),
+                      spectral.stft_mag_fused_ref(x2d, N_d, K)),
+                     (spectral.enhance_frames_fused(Y, G, N_d, N_s, K),
+                      spectral.enhance_frames_fused_ref(Y, G, N_d, N_s, K))):
         torch.cuda.synchronize()
         assert y.shape == y_ref.shape and torch.isfinite(y).all()
-        assert _close(y, y_ref, 1e-4), _rel_err(y, y_ref)
+        rows = (y - y_ref).abs().amax(-1) / y_ref.abs().amax(-1)
+        assert rows.max().item() <= 1e-4, rows.max().item()
 
 
 @pytest.mark.cuda
@@ -265,7 +284,9 @@ def test_spectral_wrappers_count_launches_and_refuse_bad_input(cuda):
     n = [f.launches for f in fns]
     fns[0](x2d, 512, 512)
     fns[1](Y, G, 512, 256, 512)
-    assert [f.launches for f in fns] == [c + 1 for c in n]
+    fns[0](torch.randn(2, 9, 200, device=cuda), 400, 512)  # N_d < K, 32 ∤ N_s
+    fns[1](Y, G, 400, 200, 512)
+    assert [f.launches for f in fns] == [c + 2 for c in n]
     with pytest.raises(RuntimeError, match="no backward"):
         fns[0](x2d.clone().requires_grad_(True), 512, 512)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -273,13 +294,14 @@ def test_spectral_wrappers_count_launches_and_refuse_bad_input(cuda):
     for call in (lambda: fns[0](x2d, 400, 512),                      # N_d != 2 N_s
                  lambda: fns[0](x2d[:, :, :128].contiguous(), 512, 512),
                  lambda: fns[0](x2d[:, :, 8:], 512, 512),             # not contiguous
-                 lambda: fns[0](torch.randn(2, 9, 80, device=cuda), 160, 160),  # 32 ∤ N_s
+                 lambda: fns[0](torch.randn(2, 9, 80, device=cuda), 160, 160),  # K not 2^n
+                 lambda: fns[0](x2d, 512, 256),                       # K < N_d
                  lambda: fns[1](Y, G, 512, 200, 512),
                  lambda: fns[1](Y[..., :500].contiguous(), G, 512, 256, 512),
                  lambda: fns[1](Y, G[:, :7].contiguous(), 512, 256, 512)):
         with pytest.raises(ValueError):
             call()
-    assert [f.launches for f in fns] == [c + 1 for c in n]
+    assert [f.launches for f in fns] == [c + 2 for c in n]
 
 
 @pytest.mark.cuda
@@ -384,9 +406,9 @@ def test_mha_wrappers_count_launches_and_refuse_autograd(cuda):
                  lambda: fns[2](x, vf, w, True)):
         with pytest.raises(RuntimeError, match="no backward"):
             call()
-    with pytest.raises(ValueError):
-        fns[0](q.detach()[..., :16].contiguous(), k[..., :16].contiguous(),
-               v[..., :16].contiguous(), valid, True)
+    with pytest.raises(ValueError):  # a head width no kernel takes
+        fns[0](q.detach()[..., :6].contiguous(), k[..., :6].contiguous(),
+               v[..., :6].contiguous(), valid, True)
     with pytest.raises(ValueError):
         fns[2](x.detach()[:, :, :128].contiguous(), vf, w, True)
     assert [f.launches for f in fns] == [c + 1 for c in n]
@@ -425,12 +447,43 @@ def test_cache_step_counts_launches_and_refuses_autograd(cuda):
     assert fn.launches == n + 1
     with pytest.raises(RuntimeError, match="no backward"):
         fn(q.clone().requires_grad_(True), kc, vc, 5)
-    for bad in ((q[:, :4].contiguous(), kc[:, :, :4].contiguous(), vc[:, :, :4].contiguous(), 5),
+    for bad in ((q[..., :6].contiguous(), kc[..., :6].contiguous(), vc[..., :6].contiguous(), 5),
+                (q[:, :4].contiguous(), kc, vc, 5),
                 (q, kc, vc.to(torch.bfloat16), 5), (q, kc.half(), vc.half(), 5),
                 (q, kc, vc, -1)):
         with pytest.raises(ValueError):
             fn(*bad)
     assert fn.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_at_small_widths(cuda):
+    """Every kernel built for widths other than the flagship's (TCN 32/16/3
+    and 48/12/2, MHANet 4 heads of 8 and 12 heads of 4) against its plain
+    version: 1e-4 of the output's scale, the backward 2e-4 of each leaf's
+    (tools/torch_small_widths.py, as chip_smoke.py phase 3f)."""
+    errs = torch_small_widths.kernel_checks(cuda)
+    torch.cuda.synchronize()
+    for name, err in errs.items():
+        tol = (torch_small_widths.BWD_TOL_REL if "bwd" in name
+               else torch_small_widths.TOL_REL)
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_non_flagship_widths_run_the_kernels_on_the_card(cuda, tmp_path):
+    """C1: at d_model 32 every route launches the kernels built for those
+    widths, and the card's results match the CPU's: 1e-4 of each output's
+    scale (f32 sums in other orders; the wavs within an int16 step)."""
+    n = torch_small_widths.kernel_counts()
+    got = torch_small_widths.small_widths_run(cuda, str(tmp_path))
+    torch.cuda.synchronize()
+    counts = torch_small_widths.kernel_counts()
+    for name in torch_small_widths.ROUTE_KERNELS:
+        assert counts[name] > n[name], name
+    ref = torch_small_widths.small_widths_run("cpu", str(tmp_path))
+    rel, worst, wav = torch_small_widths.compare_runs(got, ref)
+    assert rel <= 1e-4 and wav <= 1.0, (rel, worst, wav)
 
 
 @pytest.mark.cuda

@@ -32,39 +32,47 @@ from deepxi_tpu_torch.ops.maps import NormalCDF
 from deepxi_tpu_torch.sig.stft import hop_rows, overlap_and_add
 
 N_d, N_s, K = 512, 256, 512
+# (N_s, K) of the kernels' domain: the main path's; 8 kHz; N_d = 400 < K
+# with 32 not dividing N_s; a 48 ms hop
+SHAPES = [(256, 512), (128, 256), (200, 512), (768, 2048)]
 
 
 @pytest.fixture(scope="module", params=[20000, 200], ids=["T79", "T1"])
 def wav(request):
     """tests/test_kernels.py's [2, 20000] waveform, and a 200-sample one
-    (T = 1 frame)."""
+    (T = 1 frame at N_s >= 200)."""
     rng = np.random.RandomState(0)
     return (rng.randn(2, request.param) * 0.1).astype(np.float32)
 
 
-def _x2d_j(wav):
+def _x2d_j(wav, N_s):
     """The hop rows as tests/test_kernels.py builds them for the kernel."""
     T = -(-wav.shape[-1] // N_s)
     pad = (T + 1) * N_s - wav.shape[-1]
     return jnp.pad(jnp.asarray(wav), ((0, 0), (0, pad))).reshape(wav.shape[0], T + 1, N_s)
 
 
-# Measured on the CPU: 8.9e-7 of the output's max abs at most, against the
-# Pallas kernel and against JAX stft_mag; held to 1e-5.
-def test_stft_mag_fused_matches_jax(wav):
+# Measured on the CPU: 8.9e-7 of the output's max abs at most over the four
+# shapes, against the Pallas kernel and against JAX stft_mag; held to 1e-5.
+@pytest.mark.parametrize("N_s,K", SHAPES)
+def test_stft_mag_fused_matches_jax(wav, N_s, K):
+    N_d = 2 * N_s
     x2d = hop_rows(torch.as_tensor(wav), N_s)
-    np.testing.assert_array_equal(x2d.numpy(), np.asarray(_x2d_j(wav)))
+    np.testing.assert_array_equal(x2d.numpy(), np.asarray(_x2d_j(wav, N_s)))
     out = spectral.stft_mag_fused(x2d, N_d, K).numpy()
-    for ref in (stft_mag_pallas(_x2d_j(wav), N_d, K),
+    for ref in (stft_mag_pallas(_x2d_j(wav, N_s), N_d, K),
                 spectral_j.stft_mag(jnp.asarray(wav), N_d, N_s, K, "highest")):
         ref = np.asarray(ref)
         assert out.shape == ref.shape == (2, x2d.shape[1] - 1, K // 2 + 1)
         assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
-# Measured on the CPU: 2.2e-7 abs at most; held to 2e-6, the limit of
-# tests/test_kernels.py for the JAX pair against polar synthesis.
-def test_enhance_frames_fused_matches_jax(wav):
+# Measured on the CPU: 2.2e-7 abs at most over the four shapes; held to
+# 2e-6, the limit of tests/test_kernels.py for the JAX pair against polar
+# synthesis.
+@pytest.mark.parametrize("N_s,K", SHAPES)
+def test_enhance_frames_fused_matches_jax(wav, N_s, K):
+    N_d = 2 * N_s
     Y = np.array(spectral_j.stft_reim(jnp.asarray(wav), N_d, N_s, K, "highest"))
     G = np.random.RandomState(2).uniform(0.1, 1.0, Y.shape[:2] + (K // 2 + 1,)
                                          ).astype(np.float32)
@@ -94,11 +102,16 @@ def test_wrappers_take_plain_version_on_cpu():
 
 
 def test_bad_input_raises():
-    """N_d != 2 N_s, widths that do not match N_s or K, a dtype, and fewer
-    than two hop rows raise on the CPU as on the card."""
+    """N_d != 2 N_s, widths that do not match N_s or K, a dtype, fewer
+    than two hop rows, and a K outside the kernels' domain (not a power of
+    two, or under N_d) raise on the CPU as on the card."""
     x2d = torch.zeros(1, 4, N_s)
     Y, G = torch.zeros(1, 3, 2 * (K // 2 + 1)), torch.zeros(1, 3, K // 2 + 1)
     for call in (lambda: spectral.stft_mag_fused(x2d, 400, K),
+                 lambda: spectral.stft_mag_fused(x2d, N_d, 500),
+                 lambda: spectral.stft_mag_fused(x2d, N_d, 256),
+                 lambda: spectral.enhance_frames_fused(Y[..., :502], G[..., :251],
+                                                       N_d, N_s, 500),
                  lambda: spectral.stft_mag_fused(x2d[:, :, :128], N_d, K),
                  lambda: spectral.stft_mag_fused(x2d.double(), N_d, K),
                  lambda: spectral.stft_mag_fused(x2d[:, :1], N_d, K),
