@@ -10,16 +10,20 @@ Phases (any failure exits non-zero before the result line):
      of widths, all started together);
   2. each kernel against its plain PyTorch version on the card at full width
      (d_model 256, d_f 64, k 3, seeded weights with nonzero biases): the two
-     inference kernels, the training stack's saving forward, and its
-     backward with saved block inputs and with a replayed forward; then the
-     MHANet kernels (d_model 256, 8 heads of 32, d_ff 1024, LN scales != 1,
-     padded tails of zero frames): the fused transformer block at T=250 and
-     T=2048, flash_attention at T=250 and T=700, the streaming attention at
-     T=2250, causal and not; the KV-cache attention step of streaming
+     inference kernels (the per-block one at B=4 T=250, B=1 T=1, B=3 T=37
+     and B=96 T=625; the halo-tiled one in groups of two blocks over 10, at
+     B=4 T=1250 and B=1 T=1100), the training stack's saving forward, and
+     its backward with saved block inputs and with a replayed forward; then
+     the MHANet kernels (d_model 256, 8 heads of 32, d_ff 1024, LN scales
+     != 1, padded tails of zero frames): the fused transformer block at
+     T=250 and T=2048, flash_attention at T=250 and T=700, the streaming
+     attention at T=2250, causal and not, and both attentions at T=1, T=17,
+     every row invalid and B=2 lengths [250, 83] (the streaming one at
+     256/512 and 64/128 tiles); the KV-cache attention step of streaming
      MHANet at B=3, L=2048 with f32 and bf16 caches, the clock at 0, 700,
      2047 and 2500 (past the cap), every cache row nonzero; the pack2 TCN
      kernel (two batch rows a CTA) at B=3 (odd) and 4, T=250 and 1024, and
-     at B=96 T=625 (its 32-row tiles), G=20, both LayerNorm modes; the
+     at B=96 T=625, G=20, both LayerNorm modes; the
      spectral kernels (an FFT a frame: |X| of hop rows, and gain times
      spectrum through the inverse FFT) at B=4, T=1, 250 and 625, at
      (N_s, K) = (256, 512), (128, 256), (200, 512) and (768, 2048), every row
@@ -72,7 +76,10 @@ Phases (any failure exits non-zero before the result line):
      MHANetV3 with 4 heads of 8 runs its fused blocks and "full", "fused" and
      "stream" attention, and StreamingMHANet(fused=True) streams, on the card
      and on the CPU; each route's kernels must launch and the results agree;
-  4. times from CUDA events after warm-up: each kernel and its plain version
+  4. times from CUDA events after warm-up (and, for the TCN forward's four
+     rows, the fused block and both attentions with their library calls,
+     the device-only time: the summed device durations of a call's
+     operations under torch.profiler): each kernel and its plain version
      at the main-path shapes (and the inference kernels at B=96, T=625), the
      end-to-end enhance, and one train step, fused against plain (median,
      min and max over 30 and 10 steps); the MHANet kernels with their plain
@@ -135,8 +142,12 @@ LIB_TOL_REL = 1e-3
 # the main path's; 8 kHz; N_d = 400 < K with 32 not dividing N_s; a 48 ms hop.
 SPECTRAL_SHAPES = ((256, 512), (128, 256), (200, 512), (768, 2048))
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3;
+# and f32-accurate products on the tensor cores, three dense TF32 products
+# (495 TFLOP/s) for one (csrc/mma_tf32x3.cuh), the bound of the kernels
+# that take their products there (the TCN forward, the attention).
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 # Matrix-product FLOPs of one bottleneck block per row: 1x1 256->64, k=3
 # 64->64, 1x1 64->256. The forward, the backward's input gradients and its
@@ -207,27 +218,27 @@ def host_ms(fn, iters=10, warmup=2):
     return float(np.median(host_times(fn, iters, warmup)))
 
 
-def roofline_ms(flops, nbytes):
-    """(ms, bound_by): product FLOPs at the f32 peak or bytes at the HBM
-    rate, whichever is larger."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def roofline_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """(ms, bound_by): product FLOPs at `peak` (the f32 peak) or bytes at the
+    HBM rate, whichever is larger."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound_ms(B, T, G):
+def bound_ms(B, T, G, peak=PEAK_F32_FLOPS):
     """Least time for one group call: x read once, y written once, weights
     read once."""
     return roofline_ms(BLOCK_FLOPS_PER_ROW * B * T * G,
-                       4 * (2 * B * T * 256 + G * BLOCK_FLOATS))
+                       4 * (2 * B * T * 256 + G * BLOCK_FLOATS), peak)
 
 
-def train_bound_ms(B, T, G, flops_per_row, act_rows, grads):
+def train_bound_ms(B, T, G, flops_per_row, act_rows, grads, peak=PEAK_F32_FLOPS):
     """Least time of a training kernel call: `flops_per_row` product FLOPs
     per row and block; `act_rows` [B, T, 256] activation tensors read or
     written once, weights in and, with `grads`, their gradients out."""
     return roofline_ms(flops_per_row * B * T * G,
                        4 * (act_rows * B * T * 256
-                            + (2 if grads else 1) * G * BLOCK_FLOATS))
+                            + (2 if grads else 1) * G * BLOCK_FLOATS), peak)
 
 
 def keys_needed(T, causal):
@@ -236,17 +247,18 @@ def keys_needed(T, causal):
     return (T + 1) / 2 if causal else T
 
 
-def mha_block_bound_ms(B, T, causal):
+def mha_block_bound_ms(B, T, causal, peak=PEAK_F32_FLOPS):
     """Least time of one transformer block on B x T valid rows: x read and
     the output written once, the weights read once."""
     flops = B * T * (MHA_BLOCK_FLOPS_PER_ROW + 4 * 256 * keys_needed(T, causal))
-    return roofline_ms(flops, 4 * (2 * B * T * 256 + MHA_BLOCK_FLOATS))
+    return roofline_ms(flops, 4 * (2 * B * T * 256 + MHA_BLOCK_FLOATS), peak)
 
 
-def attention_bound_ms(B, T, causal):
+def attention_bound_ms(B, T, causal, peak=PEAK_F32_FLOPS):
     """Least time of the masked attention on B x T valid rows: q, k, v read
     and the output written once."""
-    return roofline_ms(B * T * 4 * 256 * keys_needed(T, causal), 4 * 4 * B * T * 256)
+    return roofline_ms(B * T * 4 * 256 * keys_needed(T, causal), 4 * 4 * B * T * 256,
+                       peak)
 
 
 def cache_bound_ms(B, n_valid, itemsize):
@@ -352,7 +364,9 @@ def main():
     # every kernel at the flagship widths, and at phase 3f's small widths
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import torch_small_widths
+    from torch_profile import device_ms
     flagship = [tcn_fused.build_spec("tcn_fused", 256, 64, 3),
+                tcn_fused.build_spec("tcn_fused", 256, 128, 3),  # weights read from memory
                 tcn_fused.build_spec("tcn_fused_train", 256, 64, 3), "spectral",
                 ("mha_attention", mha_fused.head_defines(8, 32)),
                 mha_block_fused.build_spec(8, 32, 1024),
@@ -370,26 +384,52 @@ def main():
     gen = torch.Generator().manual_seed(0)
     dil = [cyclic_dilation(i, 16) for i in range(40)]
     checks = {}
+    def tiled_groups(fn):
+        """The halo-tiled route over a stack, TILED_GROUP blocks a call, as
+        `resnetv2_apply_fused` runs it."""
+        G = tcn_fused.TILED_GROUP
+
+        def run(x, w, ds):
+            for g0 in range(0, len(ds), G):
+                x = fn(x, w[g0:g0 + G], ds[g0:g0 + G])
+            return x
+        return run
+
+    # the per-block kernel: the main path's shapes, T = 1, a ragged T under
+    # one tile, and at B <= 3 16-row tiles, which the d = 16 conv reaches 32
+    # rows past; the halo-tiled kernel over 10 blocks (every group of two
+    # blocks of the cycle, halos 8 to 48)
     cases = (
         ("fused_block_group_whole", tcn_fused.fused_block_group_whole,
-         tcn_fused.fused_block_group_whole_ref, 20, 250, {}),
-        ("fused_block_group", tcn_fused.fused_block_group,
-         tcn_fused.fused_block_group_ref, tcn_fused.TILED_GROUP, 1250,
-         {"tile_t": tcn_fused.TILED_TILE_T}),
+         tcn_fused.fused_block_group_whole_ref, 20,
+         ((4, 250), (1, 1), (3, 37), (96, 625))),
+        ("fused_block_group", tiled_groups(tcn_fused.fused_block_group),
+         tiled_groups(tcn_fused.fused_block_group_ref), 10, ((4, 1250), (1, 1100))),
     )
-    for kname, kernel, ref, G, T, kw in cases:
-        w = tcn_fused.random_block_weights(G, gen, dev)
-        x = torch.relu(torch.randn(4, T, 256, generator=gen)).to(dev)
-        y, y_ref = kernel(x, w, dil[:G], **kw), ref(x, w, dil[:G], **kw)
-        torch.cuda.synchronize()
-        err = (y - y_ref).abs().max().item()
-        scale = y_ref.abs().max().item()
-        print(f"[2] {kname}: B=4 T={T} G={G}: max abs err {err:.3e}, "
-              f"max rel err {err / scale:.3e} (tol {KERNEL_TOL_REL:.0e} rel), "
-              f"finite {bool(torch.isfinite(y).all())}")
-        if not (err <= KERNEL_TOL_REL * scale and torch.isfinite(y).all()):
-            fail(f"{kname} disagrees with its plain version")
-        checks[kname] = err
+    for kname, kernel, ref, G, shapes_ in cases:
+        ws = {64: tcn_fused.random_block_weights(G, gen, dev)}
+        # d_f 128: weights too wide to stage beside the window, read from memory
+        ws[128] = tcn_fused.random_block_weights(G, gen, dev, d_f=128)
+        for (B, T), d_f in [(bt, 64) for bt in shapes_] + [((2, 300), 128)]:
+            w = ws[d_f]
+            x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
+            y, y_ref = kernel(x, w, dil[:G]), ref(x, w, dil[:G])
+            torch.cuda.synchronize()
+            err = (y - y_ref).abs().max().item()
+            scale = y_ref.abs().max().item()
+            print(f"[2] {kname}: B={B} T={T} G={G} d_f {d_f}: max abs err {err:.3e}, "
+                  f"max rel err {err / scale:.3e} (tol {KERNEL_TOL_REL:.0e} rel), "
+                  f"finite {bool(torch.isfinite(y).all())}")
+            if not (err <= KERNEL_TOL_REL * scale and torch.isfinite(y).all()):
+                fail(f"{kname} disagrees with its plain version")
+            checks[kname] = max(checks.get(kname, 0.0), err)
+            if (B, T, d_f) == (4, 250, 64):  # f32 accuracy of the split products
+                y64 = ref(x.double(), [tcn_fused.BlockWeights(*(t.double() for t in bw))
+                                       for bw in w], dil[:G])
+                print(f"[2] {kname}: B={B} T={T} G={G}: from float64, the kernel "
+                      f"{(y - y64).abs().max().item() / y64.abs().max().item():.3e} and "
+                      f"plain f32 {(y_ref - y64).abs().max().item() / y64.abs().max().item():.3e}"
+                      f" of scale")
 
     # the training kernels at the train step's shape, B=8, T=256, G=10
     # (dilations 1..16, 1, ...): the weight gradients' 12 row splits of 170
@@ -483,6 +523,21 @@ def main():
                 check(kname, f"B={B} T={T} (lengths {lengths}) {kw or ''}, "
                       f"causal {causal}", kernel(q, k, v, valid, causal, **kw),
                       ref(q, k, v, valid, causal, **kw))
+    # edge shapes of the attention kernel: part of one 16-row slab (T = 1,
+    # 17), every row invalid (with values: each row the mean of the keys it
+    # visits), a second row a third as long; the streaming kernel also at
+    # 64/128 tiles
+    for B, T, lengths in ((1, 1, [1]), (1, 17, [17]), (2, 17, [0, 0]),
+                          (2, 250, [250, 83])):
+        q, k, v, valid = heads(B, T, lengths)
+        if not any(lengths):
+            q, k, v = (torch.randn(q.shape, generator=gen).to(dev) for _ in range(3))
+        for kname, kernel, ref, kw, _, _ in attention_cases:
+            for kw_ in (kw, {"block_q": 64, "block_k": 128}) if kw else (kw,):
+                for causal in (True, False):
+                    check(kname, f"B={B} T={T} (lengths {lengths}) {kw_ or ''}, "
+                          f"causal {causal}", kernel(q, k, v, valid, causal, **kw_),
+                          ref(q, k, v, valid, causal, **kw_))
 
     # the KV-cache step: rows past the clock hold values, so only the mask
     # (or, in the kernel, the n_valid limit) leaves them out
@@ -497,15 +552,17 @@ def main():
     del kv, kc, vc
 
     # the pack2 kernel: an odd B gives the last CTA a zero second row; the
-    # rows differ, so a pair's rows swapped would show. B=96 T=625 (the main
-    # path's batch) gives 960 row-pair CTAs and so the 32-row tile, the
-    # smaller shapes the 16-row one.
+    # rows differ, so a pair's rows swapped would show. Two windows of 32
+    # rows and the d = 16 reach do not fit beside the weights, so every
+    # shape takes the 16-row tile.
     w = tcn_fused.random_block_weights(20, gen, dev)
+    pack2_rows = tcn_fused._lib(256, 64, 3).tcn_max_window_rows(0)
     for B, T in ((3, 250), (3, 1024), (4, 250), (4, 1024), (96, 625)):
         x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
         for ln in tcn_fused.PACK2_LN_MODES:
             check("fused_block_group_whole_pack2",
-                  f"B={B} T={T} G=20 ({tcn_fused._pack2_tile(x)}-row tiles), ln_mode {ln}",
+                  f"B={B} T={T} G=20 ({tcn_fused._pack2_tile(x, 32, pack2_rows)}-row "
+                  f"tiles), ln_mode {ln}",
                   tcn_fused.fused_block_group_whole_pack2(x, w, dil[:20], ln_mode=ln),
                   tcn_fused.fused_block_group_whole_pack2_ref(x, w, dil[:20], ln_mode=ln))
     # the spectral kernels on a random waveform's hop rows and spectrum at
@@ -1009,10 +1066,12 @@ def main():
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
+    # five blocks (dilations 1..16) a timed call; the halo-tiled route takes
+    # them TILED_GROUP blocks a launch
     shapes = {"fused_block_group_whole": [(1, 250), (96, 625)],
               "fused_block_group": [(1, 1250), (96, 625)]}
-    G = tcn_fused.TILED_GROUP
-    for kname, kernel, ref, _, _, kw in cases:
+    G = 5
+    for kname, kernel, ref, _, _ in cases:
         w = tcn_fused.random_block_weights(G, gen, dev)
         row = {"name": kname, "route": "cuda",
                "source": "deepxi_tpu_torch/ops/kernels/csrc/tcn_fused.cu",
@@ -1022,16 +1081,22 @@ def main():
                "launches": launches[kname], "max_abs_err": checks[kname]}
         for i, (B, T) in enumerate(shapes[kname]):
             x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
-            ms = cuda_ms(lambda: kernel(x, w, dil[:G], **kw))
-            plain = cuda_ms(lambda: ref(x, w, dil[:G], **kw))
+            ms = cuda_ms(lambda: kernel(x, w, dil[:G]))
+            dev_ms, ops = device_ms(lambda: kernel(x, w, dil[:G]))
+            plain = cuda_ms(lambda: ref(x, w, dil[:G]))
             bound, by = bound_ms(B, T, G)
-            print(f"[4] {kname}: one call of G={G} blocks at B={B} T={T}: "
-                  f"{ms:.4f} ms; plain {plain:.4f} ms; bound {bound:.4f} ms "
-                  f"({by}); {bound / ms:.1%} of the bound")
-            keys = (dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         library_ms=None, shape={"B": B, "T": T, "G": G})
-                    if i == 0 else {"at_b96_t625": dict(ms=ms, plain_ms=plain,
-                                                         bound_ms=bound)})
+            tc = bound_ms(B, T, G, PEAK_TF32X3_FLOPS)[0]
+            print(f"[4] {kname}: {G} blocks at B={B} T={T}: "
+                  f"{ms:.4f} ms (device only {dev_ms:.4f} ms, {ops:g} operations); "
+                  f"plain {plain:.4f} ms; bound {bound:.4f} ms ({by}); "
+                  f"{bound / ms:.1%} of the bound; tensor-core bound {tc:.4f} ms, "
+                  f"{tc / ms:.1%} of it")
+            keys = (dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                         bound_by=by, tc_bound_ms=tc, library_ms=None,
+                         shape={"B": B, "T": T, "G": G})
+                    if i == 0 else {"at_b96_t625": dict(ms=ms, device_ms=dev_ms,
+                                                         plain_ms=plain, bound_ms=bound,
+                                                         tc_bound_ms=tc)})
             row.update(keys)
         kernels.append(row)
 
@@ -1046,15 +1111,18 @@ def main():
         x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
         unpacked = [cuda_ms(lambda: tcn_fused.fused_block_group_whole(x, w, dil[:G]))]
         ms = cuda_ms(lambda: pack2(x, w, dil[:G]))
+        dev_ms, ops = device_ms(lambda: pack2(x, w, dil[:G]))
         ms_mm = cuda_ms(lambda: pack2(x, w, dil[:G], ln_mode="matmul"))
         unpacked.append(cuda_ms(lambda: tcn_fused.fused_block_group_whole(x, w, dil[:G])))
         plain = cuda_ms(lambda: tcn_fused.fused_block_group_whole_pack2_ref(x, w, dil[:G]))
         bound, by = bound_ms(B, T, G)
+        tc = bound_ms(B, T, G, PEAK_TF32X3_FLOPS)[0]
         print(f"[4] fused_block_group_whole_pack2: one call of G={G} blocks at B={B} T={T}: "
-              f"{ms:.4f} ms (slice), {ms_mm:.4f} ms (matmul); unpacked kernel "
+              f"{ms:.4f} ms (slice; device only {dev_ms:.4f} ms, {ops:g} operations), "
+              f"{ms_mm:.4f} ms (matmul); unpacked kernel "
               f"{unpacked[0]:.4f}, {unpacked[1]:.4f} ms (before, after); plain {plain:.4f} "
               f"ms; bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound")
-        times = dict(ms=ms, matmul_ms=ms_mm, plain_ms=plain, bound_ms=bound, bound_by=by,
+        times = dict(ms=ms, device_ms=dev_ms, tc_bound_ms=tc, matmul_ms=ms_mm, plain_ms=plain, bound_ms=bound, bound_by=by,
                      library_ms=None, unpacked_ms=float(np.mean(unpacked)),
                      shape={"B": B, "T": T, "G": G})
         row.update(times if i == 0 else {"at_b96_t625": times})
@@ -1188,9 +1256,15 @@ def main():
     times = {}
     for kname, (kernel, ref, (bound, by)) in timed.items():
         ms, plain = cuda_ms(kernel), cuda_ms(ref)
-        times[kname] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        dev_ms, ops = device_ms(kernel)
+        times[kname] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                            bound_by=by)
+        if kname == "fused_block_group_whole_saved":  # the tensor-core forward
+            times[kname]["tc_bound_ms"] = train_bound_ms(
+                B, T, G, BLOCK_FLOPS_PER_ROW, 2 + G, False, PEAK_TF32X3_FLOPS)[0]
         print(f"[4] {kname if kname != 'replay' else 'fused_block_group_bwd (replay)'}: "
-              f"one call of G={G} blocks at B={B} T={T}: {ms:.4f} ms; plain "
+              f"one call of G={G} blocks at B={B} T={T}: {ms:.4f} ms (device only "
+              f"{dev_ms:.4f} ms, {ops:g} operations); plain "
               f"{plain:.4f} ms; bound {bound:.4f} ms ({by}); {bound / ms:.1%} of "
               f"the bound")
     for kname, src, line in (
@@ -1247,13 +1321,26 @@ def main():
             plain = cuda_ms(lambda: mha_block_fused.fused_transformer_block_ref(
                 x, vf, w_mha, True))
             lib = cuda_ms(lambda: layer(x, src_mask=mask))
+            dev_ms, ops = device_ms(lambda: mha_block_fused.fused_transformer_block(
+                x, vf, w_mha, True))
+            lib_dev, lib_ops = device_ms(lambda: layer(x, src_mask=mask))
             bound, by = mha_block_bound_ms(B, T, True)
+            # its row kernels' products on CUDA cores, its attention's on the
+            # tensor cores
+            tc = max(bound - attention_bound_ms(B, T, True)[0]
+                     + attention_bound_ms(B, T, True, PEAK_TF32X3_FLOPS)[0],
+                     4 * 2 * B * T * 256 / PEAK_BYTES * 1e3)
             print(f"[4] fused_transformer_block: one block at B={B} T={T} (Tp {Tp}): "
-                  f"{ms:.4f} ms; plain {plain:.4f} ms; nn.TransformerEncoderLayer "
-                  f"{lib:.4f} ms (valid rows within {lib_rel:.1e} rel); bound {bound:.4f} "
-                  f"ms ({by}); {bound / ms:.1%} of the bound")
-            times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         library_ms=lib, shape={"B": B, "T": T, "causal": True})
+                  f"{ms:.4f} ms (device only {dev_ms:.4f} ms, {ops:g} operations); "
+                  f"plain {plain:.4f} ms; nn.TransformerEncoderLayer {lib:.4f} ms "
+                  f"(device only {lib_dev:.4f} ms, {lib_ops:g} operations; valid rows "
+                  f"within {lib_rel:.1e} rel); bound {bound:.4f} ms ({by}); "
+                  f"{bound / ms:.1%} of the bound; with the attention at the "
+                  f"tensor-core rate {tc:.4f} ms, {tc / ms:.1%} of it")
+            times = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                         bound_by=by, tc_bound_ms=tc, library_ms=lib,
+                         library_device_ms=lib_dev,
+                         shape={"B": B, "T": T, "causal": True})
             row.update(times if i == 0 else {"at_b64_t625": times})
         kernels.append(row)
         del layer, mask
@@ -1282,12 +1369,20 @@ def main():
                 ms = cuda_ms(lambda: kernel(q, k, v, valid, True, **kw))  # noqa: B023
                 plain = cuda_ms(lambda: ref(q, k, v, valid, True, **kw))  # noqa: B023
                 lib = cuda_ms(sdpa)
+                dev_ms, ops = device_ms(lambda: kernel(q, k, v, valid, True, **kw))  # noqa: B023
+                lib_dev, lib_ops = device_ms(sdpa)
                 bound, by = attention_bound_ms(1, T, True)
-                print(f"[4] {kname}: B=1 T={T} causal: {ms:.4f} ms; plain {plain:.4f} ms; "
-                      f"scaled_dot_product_attention {lib:.4f} ms (within {lib_rel:.1e} "
-                      f"rel); bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound")
-                times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                             library_ms=lib, shape={"B": 1, "T": T, "causal": True})
+                tc = attention_bound_ms(1, T, True, PEAK_TF32X3_FLOPS)[0]
+                print(f"[4] {kname}: B=1 T={T} causal: {ms:.4f} ms (device only "
+                      f"{dev_ms:.4f} ms, {ops:g} operations); plain {plain:.4f} ms; "
+                      f"scaled_dot_product_attention {lib:.4f} ms (device only "
+                      f"{lib_dev:.4f} ms, {lib_ops:g} operations; within {lib_rel:.1e} "
+                      f"rel); bound {bound:.4f} ms ({by}); {bound / ms:.1%} of the bound; "
+                      f"tensor-core bound {tc:.4f} ms, {tc / ms:.1%} of it")
+                times = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                             bound_by=by, tc_bound_ms=tc, library_ms=lib,
+                             library_device_ms=lib_dev,
+                             shape={"B": 1, "T": T, "causal": True})
                 row.update(times if i == 0 else {"at_b1_t2250": times})
             kernels.append(row)
 

@@ -17,9 +17,10 @@
 // makes:
 //   (a) mha_qkv_kernel: R rows a CTA, q, k, v written as [B, Tp, NH, DK];
 //   (b) mha_attention_kernel (mha_common.cuh): one CTA per (query tile,
-//       head, batch row) walking key tiles with an online softmax, n_keys =
-//       Tp, so every row, padded ones included, is the full-row softmax of
-//       the JAX kernel;
+//       head, batch row) walking key tiles with an online softmax, its
+//       products on the tensor cores to f32 accuracy, n_keys = Tp (valid
+//       read as the floats this entry takes), so every row, padded ones
+//       included, is the full-row softmax of the JAX kernel;
 //   (c) mha_post_kernel: R rows a CTA, the output projection, residual,
 //       LN1, the FFN with its [R, DFF] intermediate kept on chip a C-wide
 //       chunk at a time (the second product accumulates in registers across
@@ -303,8 +304,8 @@ int mha_block_forward(const void* x, const void* valid, const void* wq,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   AttnArgs a{(const float*)q, (const float*)k, (const float*)v,
-             (const float*)valid, (float*)o, T, T, causal, 0, 0};
-  e = launch_attention(a, B, s);
+             valid, (float*)o, T, T, causal, 0, 0};
+  e = launch_attention<float>(a, B, s);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(mha_post_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,4 +1,4 @@
-// Fused ResNetV2 bottleneck blocks for Hopper (sm_90a), float32 throughout.
+// Fused ResNetV2 bottleneck blocks for Hopper (sm_90a), float32 values.
 //
 // Replaces the Pallas kernels of deepxi_tpu/ops/kernels/tcn_fused.py:
 //   * tcn_block_forward  -> fused_block_group_whole (whole sequence in VMEM),
@@ -15,29 +15,38 @@
 // device helpers are in tcn_common.cuh.
 //
 // What bounds it on this card (resnet-1.1c's widths, C 256, DF 64, k 3):
-// 90,112 FLOP per row per block against
-// 2 KB of activations in and out per group, so the work is bound by
-// operations. At B=96, T=625 the 40 blocks are 216 GFLOP: 3.2 ms at the
-// 67 TFLOP/s f32 CUDA-core peak, against ~73 us of HBM traffic. The TPU keeps
-// a [<=1024, 256] sequence (1 MB) resident; a Hopper block has 227 KB of shared
-// memory, so this design tiles time and recomputes the causal halo. Weights
-// (7.8 MB for 40 blocks) are read through L1/L2 with read-only loads.
+// 90,112 FLOP per row per block against 2 KB of activations in and out per
+// group, so the work is bound by operations. At B=96, T=625 the 40 blocks
+// are 216 GFLOP: 3.2 ms at the 67 TFLOP/s f32 CUDA-core peak, 1.3 ms at the
+// 165 TFLOP/s of f32-accurate (3xTF32) tensor-core products, against ~73 us
+// of HBM traffic a group (123 MB a block when each block is its own launch:
+// 37 us). The TPU keeps a [<=1024, 256] sequence (1 MB) resident; a Hopper
+// block has 227 KB of shared memory, so this design tiles time and
+// recomputes the causal halo.
 //
-// Design (simple first): 256 threads per CTA, one CTA per (time tile, batch
-// row). Products are register-tiled FMA loops, 4 rows x 4 columns a thread,
-// A operand from shared memory, weights as float4 loads. LayerNorm is one
-// warp per row with shuffle reductions. The first unit's LN is applied on the
-// fly from per-row moments, so h needs no normalised copy.
+// Design: 256 threads (8 warps) per CTA, one CTA per (time tile, batch row).
+// The three products run on the tensor cores as m16n8k8 TF32 products
+// split hi/lo to f32 accuracy (tcn_common.cuh's mma_product): a warp takes
+// 32 rows (16 for tiles under 32 rows and for pack2) by 32 columns at a
+// time, its A operand read from the window in shared memory, its B operand
+// from the unit's weights, which are staged in shared memory once per CTA
+// and unit with cp.async (W1 74 KB, the conv 55 KB, W3 68 KB at the
+// flagship widths, one buffer) while the LayerNorm pass before the unit
+// runs. LayerNorm is one warp per row with shuffle
+// reductions; the first unit's LN is applied while its A fragments are
+// built, from per-row moments, so h needs no normalised copy. The window
+// takes what the weight buffer leaves: 99 rows at the flagship widths (a
+// 64-row tile and the d = 16 conv's 32-row reach; the halo-tiled route 48 +
+// 48 rows, two blocks a launch).
 //
 // pack2: the TPU kernel packs rows 2b and 2b+1 side by side in the lanes so
 // that its matrix unit sees N, K >= 128, multiplying block-diagonal zeros.
 // Here a CTA holds the same time tile of both rows (NB = 2 windows, one after
-// the other in shared memory) and each weight float4 a thread loads feeds the
-// FMAs of both rows: half the weight loads per FLOP, and no zeros multiplied.
-// Its segmented LayerNorms are two-pass per row ("slice") or one-pass,
-// E[x^2] - E[x]^2 ("matmul", ONE_PASS), as the JAX ln_mode says; the LN of h
-// stays two-pass in both. An odd B gives the last CTA a zero second row,
-// computed and never written.
+// the other in shared memory) and each B fragment a warp splits feeds the
+// products of both rows, with no zeros multiplied. Its segmented LayerNorms
+// are two-pass per row ("slice") or one-pass, E[x^2] - E[x]^2 ("matmul",
+// ONE_PASS), as the JAX ln_mode says; the LN of h stays two-pass in both. An
+// odd B gives the last CTA a zero second row, computed and never written.
 
 #include "tcn_common.cuh"
 
@@ -45,6 +54,21 @@ namespace {
 
 constexpr int ROW_FLOATS = LDH + 2 * LDF + 2;  // h, a2, y, LN moments
 constexpr int MAX_G = 40;
+// A unit's weights go to shared memory when a 64-row window still fits
+// beside them (the flagship's: 74 KB and 99 rows); wider ones are read
+// from global memory through L1/L2 (a build define, not a run-time choice).
+constexpr bool W_SMEM =
+    ((size_t)WBUF_FLOATS + 64 * (size_t)ROW_FLOATS) * sizeof(float) <= 232448;
+constexpr int SMEM_W_FLOATS = W_SMEM ? WBUF_FLOATS : 0;
+
+// Stage a unit's weights when they live in shared memory.
+template <int KD, int N, int TAPS>
+__device__ __forceinline__ void stage_unit(float* wbuf, const float* W) {
+  if constexpr (W_SMEM)
+    stage_weights<KD, N, TAPS>(wbuf, W);
+  else
+    cp_async_commit();  // an empty group: the waits count the same
+}
 
 struct Dilations {
   int d[MAX_G];
@@ -60,16 +84,18 @@ __host__ __device__ inline int window_floats(int R) {
 // Each row's window holds rows t0 - halo .. t0 + tile - 1 of h (rows before
 // t = 0 as zeros). Block g computes its units on the window rows still
 // needed downstream and shrinks the window by its reach (KS-1) d; after G
-// blocks the last `tile` rows are the output.
-template <int NB, bool ONE_PASS>
-__global__ void __launch_bounds__(NT, 3 - NB)
+// blocks the last `tile` rows are the output. The next unit's weights land
+// in the one weight buffer while the LayerNorm pass before it runs.
+template <int NB, int MS, bool ONE_PASS>
+__global__ void __launch_bounds__(NT, 1)
 tcn_window_kernel(const float* __restrict__ x, float* __restrict__ y,
                   const float* __restrict__ wpack, Dilations dil, int G,
                   int B, int T, int tile, int halo) {
   extern __shared__ float4 smem4[];
+  float* wbuf = reinterpret_cast<float*>(smem4);
   const int R = tile + halo;
   const int bs = window_floats(R);
-  float* h = reinterpret_cast<float*>(smem4);
+  float* h = wbuf + SMEM_W_FLOATS;
   float* a2 = h + R * LDH;
   float* yb = a2 + R * LDF;
   float* st = yb + R * LDF;
@@ -86,38 +112,53 @@ tcn_window_kernel(const float* __restrict__ x, float* __restrict__ y,
     for (int idx = threadIdx.x; idx < nrows * (C / 4); idx += NT) {
       const int r = idx / (C / 4), c4 = idx % (C / 4);
       const int t = first + r;
-      const float4 v =
-          real && t >= 0
-              ? __ldg(reinterpret_cast<const float4*>(x + (row0 + t) * C) + c4)
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-      reinterpret_cast<float4*>(h + n * bs + r * LDH)[c4] = v;
+      const bool in = real && t >= 0;
+      cp_async16(h + n * bs + r * LDH + 4 * c4,
+                 in ? x + (row0 + t) * C + 4 * c4 : x, !in);
+    }
+    if constexpr (DF != DFP) {  // the padding columns the products read stay zero
+      constexpr int PAD = DFP - DF > 0 ? DFP - DF : 1;
+      for (int idx = threadIdx.x; idx < 2 * R * PAD; idx += NT)
+        a2[n * bs + idx / PAD * LDF + DF + idx % PAD] = 0.f;
     }
   }
-  __syncthreads();
+  cp_async_commit();
+  stage_unit<C, DF, 1>(wbuf, wpack + OFF_W1);
 
   int s = 0;  // first window row still needed
   for (int g = 0; g < G; ++g) {
     const int d = dil.d[g], reach = (KS - 1) * d;
     const float* Wb = wpack + (size_t)g * BLOCK_FLOATS;
+    if (g == 0) {
+      cp_async_wait<1>();  // the window; W1 may still be in flight
+      __syncthreads();
+    }
     for (int n = 0; n < NB; ++n) h_moments(h + n * bs, st + n * bs, s, nrows);
+    cp_async_wait<0>();
     __syncthreads();
-    unit_product<C, DF, 1, true, false, true, NB>(
-        h, LDH, st, Wb + OFF_W1, Wb + OFF_B1, 0, a2, LDF, s, nrows, bs);
+    mma_product<C, DF, 1, true, false, NB, MS, W_SMEM>(
+        h, LDH, st, W_SMEM ? wbuf : Wb + OFF_W1, Wb + OFF_B1, 0, a2, LDF, s,
+        nrows, bs);
     __syncthreads();
+    stage_unit<DF, DF, KS>(wbuf, Wb + OFF_W2);
     for (int n = 0; n < NB; ++n)
       relu_ln_inplace<ONE_PASS>(a2 + n * bs, s, nrows, pre_rows);
+    cp_async_wait<0>();
     __syncthreads();
-    unit_product<DF, DF, KS, false, false, true, NB>(
-        a2, LDF, nullptr, Wb + OFF_W2, Wb + OFF_B2, d, yb, LDF, s + reach,
-        nrows, bs);
+    mma_product<DF, DF, KS, false, false, NB, MS, W_SMEM>(
+        a2, LDF, nullptr, W_SMEM ? wbuf : Wb + OFF_W2, Wb + OFF_B2, d, yb, LDF,
+        s + reach, nrows, bs);
     __syncthreads();
+    stage_unit<DF, C, 1>(wbuf, Wb + OFF_W3);
     for (int n = 0; n < NB; ++n)
       relu_ln_inplace<ONE_PASS>(yb + n * bs, s + reach, nrows, 0);
+    cp_async_wait<0>();
     __syncthreads();
-    unit_product<DF, C, 1, false, true, true, NB>(
-        yb, LDF, nullptr, Wb + OFF_W3, Wb + OFF_B3, 0, h, LDH, s + reach,
-        nrows, bs);
+    mma_product<DF, C, 1, false, true, NB, MS, W_SMEM>(
+        yb, LDF, nullptr, W_SMEM ? wbuf : Wb + OFF_W3, Wb + OFF_B3, 0, h, LDH,
+        s + reach, nrows, bs);
     __syncthreads();
+    if (g + 1 < G) stage_unit<C, DF, 1>(wbuf, Wb + BLOCK_FLOATS + OFF_W1);
     s += reach;
   }
 
@@ -131,37 +172,51 @@ tcn_window_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
+template <int NB, int MS, bool ONE_PASS>
+cudaError_t launch_ms(const void* x, void* y, const void* wpack,
+                      const Dilations& dil, int G, int B, int T, int tile,
+                      int halo, size_t smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      tcn_window_kernel<NB, MS, ONE_PASS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T + tile - 1) / tile, (B + NB - 1) / NB);
+  tcn_window_kernel<NB, MS, ONE_PASS><<<grid, NT, smem, stream>>>(
+      (const float*)x, (float*)y, (const float*)wpack, dil, G, B, T, tile,
+      halo);
+  return cudaGetLastError();
+}
+
+// Two slabs an item (each B fragment feeding 32 rows) where the tile has
+// rows for them, one for short tiles and for pack2, whose two windows
+// already share each B fragment.
 template <int NB, bool ONE_PASS>
 int launch(const void* x, void* y, const void* wpack, const Dilations& dil,
            int G, int B, int T, int tile, int halo, void* stream) {
   if (G < 1 || G > MAX_G || B < 1 || T < 1 || tile < 1 || halo < 0)
     return cudaErrorInvalidValue;
   const int R = tile + halo;
-  const size_t smem =
-      ((size_t)(NB - 1) * window_floats(R) + (size_t)R * ROW_FLOATS) *
-      sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      tcn_window_kernel<NB, ONE_PASS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T + tile - 1) / tile, (B + NB - 1) / NB);
-  tcn_window_kernel<NB, ONE_PASS><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)y, (const float*)wpack, dil, G, B, T, tile,
-      halo);
-  return cudaGetLastError();
+  const size_t smem = ((size_t)SMEM_W_FLOATS + (size_t)(NB - 1) * window_floats(R) +
+                       (size_t)R * ROW_FLOATS) * sizeof(float);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (NB == 1 && tile >= 32)
+    return launch_ms<NB, 2, ONE_PASS>(x, y, wpack, dil, G, B, T, tile, halo, smem, s);
+  return launch_ms<NB, 1, ONE_PASS>(x, y, wpack, dil, G, B, T, tile, halo, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest window (tile + halo rows) one CTA can hold on `device`.
+// Largest window (tile + halo rows) one CTA can hold on `device` beside
+// the weight buffer.
 int tcn_max_window_rows(int device) {
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -1;
-  return optin / (int)(ROW_FLOATS * sizeof(float));
+  return (optin - (int)(SMEM_W_FLOATS * sizeof(float))) /
+         (int)(ROW_FLOATS * sizeof(float));
 }
 
 int tcn_block_floats() { return BLOCK_FLOATS; }

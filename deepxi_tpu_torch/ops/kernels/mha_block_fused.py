@@ -36,7 +36,8 @@ from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
                                                layer_norm_two_pass,
                                                sequence_valid_mask)
 from deepxi_tpu_torch.models.tcn import output_activation
-from deepxi_tpu_torch.ops.kernels import refuse_autograd
+from deepxi_tpu_torch.ops.kernels import (launch_context, raw_stream,
+                                          refuse_autograd)
 from deepxi_tpu_torch.ops.kernels import mha_fused
 from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEADS,
                                                     masked_softmax_attention)
@@ -160,12 +161,12 @@ def fused_transformer_block(x: torch.Tensor, validf: torch.Tensor,
     vf = validf.to(torch.float32).contiguous()
     q, k, v, o, out = (torch.empty_like(x) for _ in range(5))
     lib = _lib(H, dk, F)
-    with torch.cuda.device(x.device):
+    with launch_context(x.device):
         rc = lib.mha_block_forward(
             x.data_ptr(), vf.data_ptr(), *(t.data_ptr() for t in weights),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             out.data_ptr(), B, T, int(causal), float(dk) ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+            raw_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mha_block_forward failed: CUDA error {rc} "
                            f"({lib.mha_block_error_string(rc).decode()})")

@@ -12,9 +12,9 @@ query tile of `block_q` rows visits only the key tiles up to its diagonal.
 Valid rows are the full-row softmax either way; a fully masked (padded)
 query row averages the values of the keys it visits, so its output depends
 on `block_q` and `block_k`, and both versions here take them as the JAX
-kernel does and agree with it on every row. The card's own tiles are 64
-query rows by 64 keys (the JAX defaults are 256 by 512); they do not change
-the function, since the kernel takes the key limit of each row from
+kernel does and agree with it on every row. The card's own tiles are 16 to
+64 query rows by 64 keys (the JAX defaults are 256 by 512); they do not
+change the function, since the kernel takes the key limit of each row from
 `block_q` and `block_k`.
 
 Inference only: raises under autograd when an input requires grad.

@@ -13,11 +13,11 @@ the weighted values. The JAX kernel pads the keys to T rounded up to 128
 (zero k and v, invalid), so a fully masked query row (an invalid frame)
 averages the values of all those keys; both versions here reproduce that on
 every row. The JAX kernel's query tiling (`block_q`) does not change the
-function and is left out. On the card each CTA takes 64 query rows of one
-head and walks 64-key tiles with an online softmax. The heads' widths are
-compile-time constants of the kernel: the wrapper builds one library per
-set of widths that `kernel_takes` accepts, and raises ValueError on the card
-at any other.
+function and is left out. On the card a warp takes 16 query rows of one
+head and walks 64-key tiles with an online softmax, its products on the
+tensor cores to f32 accuracy. The heads' widths are compile-time constants
+of the kernel: the wrapper builds one library per set of widths that
+`kernel_takes` accepts, and raises ValueError on the card at any other.
 
 Inference only, as `pallas_call`: the wrappers raise under autograd when an
 input requires grad.
@@ -31,7 +31,8 @@ import functools
 import torch
 
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
-from deepxi_tpu_torch.ops.kernels import refuse_autograd
+from deepxi_tpu_torch.ops.kernels import (launch_context, raw_stream,
+                                          refuse_autograd)
 
 # mhanet-1.1c's heads, the default of `mha_block_fused.random_block_weights`.
 KERNEL_HEADS = 8
@@ -41,7 +42,8 @@ def kernel_takes(n_heads: int, head_dim: int) -> bool:
     """Whether the attention kernels (`csrc/mha_common.cuh` and
     `csrc/mha_cache.cu`; shared with `mha_flash_stream` and `mha_cache`) can
     be built for these heads: a head width that is a multiple of 4 up to 64
-    (a thread holds a query row and its accumulator in registers), at most
+    (16-byte staging; the tensor-core tiles pad it to a multiple of 8 with
+    zeros, and a lane holds its rows' accumulators in registers), at most
     32 heads and 1024 columns."""
     return (1 <= n_heads <= 32 and head_dim % 4 == 0 and 4 <= head_dim <= 64
             and n_heads * head_dim <= 1024)
@@ -115,19 +117,21 @@ def check_heads(*heads: torch.Tensor) -> None:
 def launch_attention(qp, kp, vp, valid, causal: bool, n_keys: int,
                      skip_bq: int = 0, skip_bk: int = 0) -> torch.Tensor:
     """One launch of `mha_attention_forward` on CUDA tensors; returns the
-    [B, T, H, d] output."""
+    [B, T, H, d] output. The kernel reads `valid` (bool) as bytes."""
     check_heads(qp, kp, vp)
     B, T = qp.shape[:2]
-    if valid.shape != (B, T):
-        raise ValueError(f"valid must be [B, T] = {(B, T)}, not {tuple(valid.shape)}")
-    vf = valid.to(device=qp.device, dtype=torch.float32).contiguous()
+    if valid.shape != (B, T) or valid.dtype != torch.bool or valid.device != qp.device:
+        raise ValueError(f"valid must be a bool [B, T] = {(B, T)} tensor on "
+                         f"{qp.device}, not {valid.dtype} {tuple(valid.shape)} "
+                         f"on {valid.device}")
+    valid = valid.contiguous()
     out = torch.empty_like(qp)
     lib = _lib(*qp.shape[2:])
-    with torch.cuda.device(qp.device):
+    with launch_context(qp.device):
         rc = lib.mha_attention_forward(
-            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), vf.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), valid.data_ptr(),
             out.data_ptr(), B, T, n_keys, int(causal), skip_bq, skip_bk,
-            torch.cuda.current_stream().cuda_stream)
+            raw_stream(qp.device))
     if rc != 0:
         raise RuntimeError(f"mha_attention_forward failed: CUDA error {rc} "
                            f"({lib.mha_attention_error_string(rc).decode()})")

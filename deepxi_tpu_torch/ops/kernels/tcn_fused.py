@@ -40,7 +40,8 @@ import torch
 
 from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
-from deepxi_tpu_torch.ops.kernels import refuse_autograd
+from deepxi_tpu_torch.ops.kernels import (launch_context, raw_stream,
+                                          refuse_autograd)
 
 # resnet-1.1c's widths, the defaults of `random_block_weights`.
 KERNEL_D_MODEL, KERNEL_D_F, KERNEL_K = 256, 64, 3
@@ -60,11 +61,13 @@ def build_spec(name: str, d_model: int, d_f: int, k: int):
     "tcn_fused_train") at these widths."""
     return name, {"TCN_C": d_model, "TCN_DF": d_f, "TCN_KS": k}
 
-# Group and tile of the halo-tiled route. A CTA's window is (tile_t + halo)
-# rows of 1,592 bytes (h, two d_f buffers, LN moments), and a Hopper block
-# holds 227 KB: 146 rows. The JAX defaults (G = 20, tile 640, halo 248) need
-# 888 rows; G = 5 has halo 62 -> 64, leaving a tile of 80.
-TILED_GROUP, TILED_TILE_T = 5, 80
+# Group and tile of the halo-tiled route. A CTA holds one unit's weights
+# (74 KB at the flagship widths) and a window of (tile_t + halo) rows of
+# 1,592 bytes (h, two d_f buffers, LN moments) in a Hopper block's 227 KB:
+# 99 rows. The JAX defaults (G = 20, tile 640, halo 248) need 888 rows; the
+# tile must cover the halo, and two blocks (dilations 8 and 16: halo 48)
+# leave a tile of 48.
+TILED_GROUP, TILED_TILE_T = 2, 48
 
 
 class BlockWeights(NamedTuple):
@@ -291,8 +294,8 @@ def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
     tile = whole_tile(lib, x, dilations, k)
     bufs = (torch.empty_like(x), torch.empty_like(x))
     src = x
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with launch_context(x.device):
+        stream = raw_stream(x.device)
         for g, d in enumerate(dilations):
             dst = bufs[g % 2]
             _raise_on(lib, lib.tcn_block_forward(
@@ -306,12 +309,19 @@ def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
 fused_block_group_whole.launches = 0
 
 
-def _pack2_tile(x: torch.Tensor) -> int:
-    """Time tile of the pack2 kernel: 32 rows when the row pairs alone give
-    every SM a CTA, else 16."""
+def _pack2_tile(x: torch.Tensor, reach: int, max_rows: int) -> int:
+    """Time tile of the pack2 kernel, whose CTA holds two windows of the
+    tile and the `reach` rows before it in `max_rows`: 32 rows when that fits
+    and the row pairs alone give every SM a CTA, else the larger of 16 and
+    8 that fits. Raises ValueError when none fits."""
     B, T, _ = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return 32 if -(-B // 2) * -(-T // 32) >= n_sm else 16
+    fits = [tile for tile in (32, 16, 8) if 2 * (tile + reach) + 1 <= max_rows]
+    if not fits:
+        raise ValueError(f"two windows of 8 + {reach} rows do not fit one CTA "
+                         f"({max_rows} rows at these widths)")
+    return next(tile for tile in fits
+                if tile <= 16 or -(-B // 2) * -(-T // tile) >= n_sm)
 
 
 def fused_block_group_whole_pack2(x: torch.Tensor,
@@ -319,7 +329,7 @@ def fused_block_group_whole_pack2(x: torch.Tensor,
                                   dilations: Sequence[int], k: int = 3,
                                   ln_mode: str = "slice") -> torch.Tensor:
     """`fused_block_group_whole` with rows 2b and 2b+1 in one CTA (one
-    launch per block): each weight load feeds both rows' FMAs. `ln_mode`
+    launch per block): each weight fragment feeds both rows' products. `ln_mode`
     ("slice" or "matmul") picks the segmented LayerNorm as in the JAX
     kernel. Raises ValueError when a CTA cannot hold two windows."""
     _refuse_autograd([x, *(w for bw in weights for w in bw)],
@@ -331,15 +341,12 @@ def fused_block_group_whole_pack2(x: torch.Tensor,
     packed, widths = _check(x, weights, dilations, k)
     lib = _lib(*widths)
     B, T, _ = x.shape
-    tile = _pack2_tile(x)
+    tile = _pack2_tile(x, (k - 1) * max(dilations),
+                       lib.tcn_max_window_rows(x.device.index or 0))
     bufs = (torch.empty_like(x), torch.empty_like(x))
     src = x
-    with torch.cuda.device(x.device):
-        max_rows = lib.tcn_max_window_rows(torch.cuda.current_device())
-        if 2 * (tile + (k - 1) * max(dilations)) + 1 > max_rows:
-            raise ValueError(f"two windows of {tile} + {(k - 1) * max(dilations)} "
-                             f"rows do not fit one CTA ({max_rows} rows)")
-        stream = torch.cuda.current_stream().cuda_stream
+    with launch_context(x.device):
+        stream = raw_stream(x.device)
         for g, d in enumerate(dilations):
             dst = bufs[g % 2]
             _raise_on(lib, lib.tcn_block_forward_pack2(
@@ -373,7 +380,7 @@ def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
     G = len(dilations)
     out = torch.empty_like(x)
     dil = (ctypes.c_int * G)(*dilations)
-    with torch.cuda.device(x.device):
+    with launch_context(x.device):
         max_rows = lib.tcn_max_window_rows(torch.cuda.current_device())
         if tile_t + halo > max_rows:
             raise ValueError(f"window of tile_t {tile_t} + halo {halo} rows "
@@ -381,7 +388,7 @@ def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
                              "the group size or the tile")
         _raise_on(lib, lib.tcn_group_forward(
             x.data_ptr(), out.data_ptr(), packed.data_ptr(), dil, G, B, T,
-            tile_t, halo, torch.cuda.current_stream().cuda_stream),
+            tile_t, halo, raw_stream(x.device)),
             "tcn_group_forward")
         fused_block_group.launches += 1
     return out
@@ -405,29 +412,30 @@ def resnetv2_apply_fused(params: Dict[str, torch.Tensor], x: torch.Tensor,
     """ResNetV2 forward (causal, ReLU->LN->W+b) with the block stack run by
     the fused group kernels; `params` is the flat dict of
     `models.tcn.ResNetV2.state_dict()`. Sequences of at most `whole_max_t`
-    frames take the per-block kernel (with `pack2`, its two-rows-per-CTA
-    form and the segmented LayerNorm `pack2_ln`), longer ones the halo-tiled
-    kernel with `group` blocks per launch, whatever `pack2` says. `ff_conv`
+    frames take the per-block kernel, all blocks in one call (with `pack2`,
+    its two-rows-per-CTA form and the segmented LayerNorm `pack2_ln`),
+    longer ones the halo-tiled kernel with `group` blocks per launch,
+    whatever `pack2` says. `ff_conv`
     and `out_conv` stay matmuls. Forward only: raises under autograd when
     `x` or a parameter requires grad.
 
     `pack2` is kept for parity with the JAX kernel and its numerics (the
-    "matmul" LayerNorm); it has no speed case on an H100: no faster than the
-    unpacked kernel at B=1, slower at B=96 (PERF.md, row 3)."""
+    "matmul" LayerNorm); it has no speed case on an H100: the unpacked
+    kernel already feeds each weight fragment to 32 rows, and pack2 is
+    slower at B=1 and B=96 (PERF.md, row 3)."""
     _refuse_autograd([x, *params.values()], "resnetv2_apply_fused")
     whole = x.shape[1] <= whole_max_t
     h = x @ params["ff_conv.kernel"][0] + params["ff_conv.bias"]
     h = torch.relu(layer_norm(h) * params["ff_ln.scale"])
     dil = [cyclic_dilation(i, max_d_rate) for i in range(n_blocks)]
-    for g0 in range(0, n_blocks, group):
-        idx = range(g0, min(g0 + group, n_blocks))
-        weights = [block_weights(params, i) for i in idx]
-        if whole and pack2:
-            h = fused_block_group_whole_pack2(h, weights, [dil[i] for i in idx],
-                                              k, pack2_ln)
-        elif whole:
-            h = fused_block_group_whole(h, weights, [dil[i] for i in idx], k)
-        else:
-            h = fused_block_group(h, weights, [dil[i] for i in idx], k, tile_t)
+    weights = [block_weights(params, i) for i in range(n_blocks)]
+    if whole and pack2:
+        h = fused_block_group_whole_pack2(h, weights, dil, k, pack2_ln)
+    elif whole:
+        h = fused_block_group_whole(h, weights, dil, k)
+    else:
+        for g0 in range(0, n_blocks, group):
+            h = fused_block_group(h, weights[g0:g0 + group], dil[g0:g0 + group],
+                                  k, tile_t)
     out = h @ params["out_conv.kernel"][0] + params["out_conv.bias"]
     return output_activation(out, outp_act)

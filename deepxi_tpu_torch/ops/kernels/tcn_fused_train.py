@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
-from deepxi_tpu_torch.ops.kernels import tcn_fused
+from deepxi_tpu_torch.ops.kernels import launch_context, raw_stream, tcn_fused
 from deepxi_tpu_torch.ops.kernels.tcn_fused import BlockWeights, block_weights
 
 _EPS = 1e-6
@@ -214,8 +214,8 @@ def _saved_forward(x: torch.Tensor, packed: torch.Tensor,
     buf = torch.empty((G,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     buf[0].copy_(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with launch_context(x.device):
+        stream = raw_stream(x.device)
         for g, d in enumerate(dilations):
             dst = buf[g + 1] if g + 1 < G else out
             tcn_fused._raise_on(lib, lib.tcn_block_forward(

@@ -28,40 +28,53 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(1, 1), (2, 37), (3, 250), (2, 1250)])
-def test_kernels_match_plain(cuda, B, T):
-    """Both kernels at full width, ragged last tiles included; the tolerance
-    is chip_smoke.py's (1e-4 of the output's scale)."""
+@pytest.mark.parametrize("B,T,d_f", [(1, 1, 64), (2, 37, 64), (3, 250, 64), (2, 1250, 64),
+                                     (1, 17, 64), (96, 625, 64), (2, 100, 128)])
+def test_kernels_match_plain(cuda, B, T, d_f):
+    """Both kernels at full width, ragged last tiles included (T = 17 and 37
+    under one 64-row tile, 625 = 9 x 64 + 49); at B <= 3 the per-block
+    kernel takes 16-row tiles, so the d = 16 conv reaches 32 rows past the
+    tile. The halo-tiled kernel runs the route's groups of TILED_GROUP
+    blocks with the smallest and the largest halo (dilations 1, 2 and 8,
+    16). At d_f 128 the weights are too wide to stage beside the window and
+    are read from global memory. The tolerance is chip_smoke.py's (1e-4 of
+    the output's scale)."""
     gen = torch.Generator().manual_seed(T)
-    w = tcn_fused.random_block_weights(5, gen, cuda)
+    w = tcn_fused.random_block_weights(5, gen, cuda, d_f=d_f)
     dil = [cyclic_dilation(i, 16) for i in range(5)]
     x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(cuda)
-    for kernel, ref, kw in (
+    G = tcn_fused.TILED_GROUP
+    for kernel, ref, ws, ds in (
             (tcn_fused.fused_block_group_whole,
-             tcn_fused.fused_block_group_whole_ref, {}),
+             tcn_fused.fused_block_group_whole_ref, w, dil),
             (tcn_fused.fused_block_group, tcn_fused.fused_block_group_ref,
-             {"tile_t": tcn_fused.TILED_TILE_T})):
-        y, y_ref = kernel(x, w, dil, **kw), ref(x, w, dil, **kw)
+             w[:G], dil[:G]),
+            (tcn_fused.fused_block_group, tcn_fused.fused_block_group_ref,
+             w[-G:], dil[-G:])):
+        y, y_ref = kernel(x, ws, ds), ref(x, ws, ds)
         torch.cuda.synchronize()
         assert (y - y_ref).abs().max().item() <= 1e-4 * y_ref.abs().max().item()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,tile", [(1, 1, None), (3, 37, None), (4, 250, None),
-                                      (5, 130, None), (3, 101, 32)])
+                                      (5, 130, None), (3, 101, 8), (3, 101, 32),
+                                      (7, 75, None)])
 @pytest.mark.parametrize("ln_mode", ["slice", "matmul"])
 def test_pack2_kernel_matches_plain(cuda, monkeypatch, B, T, tile, ln_mode):
     """The two-rows-per-CTA kernel at full width, odd B (a zero second row)
     and ragged tiles included, both LayerNorm modes, against its plain
     version and, for "slice", against the unpacked kernel: 1e-4 of the
     output's scale. The rows differ, so rows of a pair swapped would fail.
-    These shapes take 16-row tiles; `tile` forces the 32-row one, otherwise
-    taken only from 132 row-pair CTAs on."""
+    These shapes take 16-row tiles; `tile` forces the 8-row one (taken
+    where 16 does not fit) or the 32-row one (taken from 132 row-pair CTAs
+    on, where two windows of 32 rows and the reach fit: four blocks, d <= 8)."""
     if tile is not None:
-        monkeypatch.setattr(tcn_fused, "_pack2_tile", lambda x: tile)
+        monkeypatch.setattr(tcn_fused, "_pack2_tile", lambda *a: tile)
     gen = torch.Generator().manual_seed(T + B)
-    w = tcn_fused.random_block_weights(5, gen, cuda)
-    dil = [cyclic_dilation(i, 16) for i in range(5)]
+    G = 4 if tile == 32 else 5
+    w = tcn_fused.random_block_weights(G, gen, cuda)
+    dil = [cyclic_dilation(i, 16) for i in range(G)]
     x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(cuda)
     y = tcn_fused.fused_block_group_whole_pack2(x, w, dil, ln_mode=ln_mode)
     y_ref = tcn_fused.fused_block_group_whole_pack2_ref(x, w, dil, ln_mode=ln_mode)
@@ -100,12 +113,15 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     x = torch.zeros(1, 100, 256, device=cuda)
     n_whole, n_tiled = (tcn_fused.fused_block_group_whole.launches,
                         tcn_fused.fused_block_group.launches)
+    G = tcn_fused.TILED_GROUP
     tcn_fused.fused_block_group_whole(x, w, dil)
-    tcn_fused.fused_block_group(x, w, dil)
+    tcn_fused.fused_block_group(x, w[:G], dil[:G])
     assert tcn_fused.fused_block_group_whole.launches == n_whole + 5
     assert tcn_fused.fused_block_group.launches == n_tiled + 1
-    with pytest.raises(ValueError):  # window of 320 + 64 rows > one CTA
-        tcn_fused.fused_block_group(x, w, dil, tile_t=320)
+    with pytest.raises(ValueError):  # window of 320 + 8 rows > one CTA
+        tcn_fused.fused_block_group(x, w[:G], dil[:G], tile_t=320)
+    with pytest.raises(ValueError):  # the five blocks' halo of 64 > the tile
+        tcn_fused.fused_block_group(x, w, dil)
     with pytest.raises(ValueError):
         tcn_fused.fused_block_group_whole(x.double(), w, dil)
     with pytest.raises(ValueError):
@@ -344,16 +360,24 @@ def _heads(B, T, lengths, gen, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,lengths", [(2, 37, [37, 20]), (3, 250, [250, 190, 64]),
-                                         (1, 700, [650])])
+                                         (1, 700, [650]), (1, 1, [1]), (1, 17, [17]),
+                                         (2, 17, [0, 0]), (2, 250, [250, 83]),
+                                         (2, 2250, [2250, 750])])
 def test_attention_kernels_match_plain(cuda, B, T, lengths):
-    """flash_attention and flash_attention_streaming (JAX tiles 256/512 and
-    small 32/16 tiles, causal and not) against their plain versions on
-    every row, padded rows included: 1e-4 of the output's scale."""
+    """flash_attention and flash_attention_streaming (JAX tiles 256/512,
+    64/128 and small 32/16 tiles, causal and not) against their plain
+    versions on every row, padded rows included: 1e-4 of the output's
+    scale. T = 1 and 17 fill part of one 16-row slab; lengths [0, 0] leave
+    every row invalid; the short sequences split a slab's keys over a CTA's
+    warps, T = 2250 at B = 2 does not."""
     from deepxi_tpu_torch.ops.kernels import mha_flash_stream, mha_fused
-    q, k, v, valid = _heads(B, T, lengths, torch.Generator().manual_seed(T), cuda)
+    gen = torch.Generator().manual_seed(T)
+    q, k, v, valid = _heads(B, T, lengths, gen, cuda)
+    if not any(lengths):  # invalid rows that still hold values: their means
+        q, k, v = (torch.randn(q.shape, generator=gen).to(cuda) for _ in range(3))
     for causal in (True, False):
         cases = [(mha_fused.flash_attention, mha_fused.flash_attention_ref, {})]
-        for bq, bk in ((256, 512), (32, 16)):
+        for bq, bk in ((256, 512), (64, 128), (32, 16)):
             cases.append((mha_flash_stream.flash_attention_streaming,
                           mha_flash_stream.flash_attention_streaming_ref,
                           {"block_q": bq, "block_k": bk}))
@@ -364,7 +388,8 @@ def test_attention_kernels_match_plain(cuda, B, T, lengths):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,lengths", [(2, 100, [100, 61]), (3, 256, [250, 256, 130])])
+@pytest.mark.parametrize("B,T,lengths", [(2, 100, [100, 61]), (3, 256, [250, 256, 130]),
+                                         (1, 1, [1]), (2, 17, [17, 0])])
 def test_transformer_block_kernel_matches_plain(cuda, B, T, lengths):
     """fused_transformer_block at full width (d_model 256, 8 heads, d_ff
     1024) on a hidden state whose padded rows are invalid, causal and not;

@@ -4,6 +4,7 @@
     python3 tools/torch_profile.py enhance [--ver resnet-1.1c|mhanet-1.1c] [--batch 96|64] [--seconds 10] [--iters 5] [--timed 30] [--plain]
     python3 tools/torch_profile.py train [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
     python3 tools/torch_profile.py stream [--ver mhanet-1.1c|resnet-1.1c] [--batch 1] [--cache f32|bf16] [--iters 5] [--timed 30] [--plain]
+    python3 tools/torch_profile.py kernels [--iters 20]
 
 `enhance` runs offline enhancement of `--batch` copies of the checked-in
 trained artifact's noisy utterance (resnet-1.1c, or mhanet-1.1c), tiled or
@@ -22,6 +23,14 @@ each call synchronised: min, median, max), then runs `--iters` calls under
 `torch.profiler` and prints the device time by kernel (grouped into layers),
 the profiled window's wall time and idle share, and the unprofiled median's
 idle share given the traced device time per call. Needs one NVIDIA card.
+
+`kernels` times the redesigned kernels (the TCN forward's four routes, the
+fused transformer block and both attentions) and their library yardsticks at
+chip_smoke.py phase 4's shapes, each two ways: CUDA events around `--iters`
+back-to-back calls (chip_smoke.py's `cuda_ms`: what the host adds between
+launches included), and the device-only time, the summed device durations
+of the operations a call launches under torch.profiler (`device_ms`), with
+their count per call.
 """
 
 import argparse
@@ -38,6 +47,117 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 MATMUL = ("gemm", "gemv", "xmma", "cutlass", "sm90")
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """(ms, operations) per call on the device alone: the summed device
+    durations of the kernels and copies `fn` launches over `iters` calls
+    under torch.profiler, after warm-up, and their count, per call. Host
+    time between launches is left out; raises when the trace holds no
+    device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        raise RuntimeError("the trace holds no device time")
+    return sum(ops) / 1e3 / iters, len(ops) / iters
+
+
+def kernel_calls():
+    """(row, shape, kernel call, library call or None) of PERF.md rows 1-4
+    and 8-10 at chip_smoke.py phase 4's shapes, seeded."""
+    from deepxi_tpu_torch.models.attention import NEG_INF_V2
+    from deepxi_tpu_torch.models.tcn import cyclic_dilation
+    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_flash_stream,
+                                              mha_fused, tcn_fused, tcn_fused_train)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    dil = [cyclic_dilation(i, 16) for i in range(10)]
+    w5 = tcn_fused.random_block_weights(5, gen, dev)
+    w10 = tcn_fused.random_block_weights(10, gen, dev)
+    calls = []
+    for B, T in ((1, 250), (96, 625)):
+        x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
+        calls += [
+            ("1 fused_block_group_whole", f"B={B} T={T} G=5",
+             lambda x=x: tcn_fused.fused_block_group_whole(x, w5, dil[:5]), None),
+            ("3 fused_block_group_whole_pack2", f"B={B} T={T} G=5",
+             lambda x=x: tcn_fused.fused_block_group_whole_pack2(x, w5, dil[:5]), None)]
+    G = tcn_fused.TILED_GROUP
+
+    def tiled(x):  # the five blocks as the route runs them, G a launch
+        for g0 in range(0, 5, G):
+            x = tcn_fused.fused_block_group(x, w5[g0:g0 + G], dil[g0:min(g0 + G, 5)])
+        return x
+    for B, T in ((1, 1250), (96, 625)):
+        x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
+        calls.append(("2 fused_block_group", f"B={B} T={T} 5 blocks, G={G} a launch",
+                      lambda x=x: tiled(x), None))
+    x = torch.relu(torch.randn(8, 256, 256, generator=gen)).to(dev)
+    calls.append(("4 fused_block_group_whole_saved", "B=8 T=256 G=10",
+                  lambda x=x: tcn_fused_train.fused_block_group_whole_saved(x, w10, dil),
+                  None))
+
+    wm = mha_block_fused.random_block_weights(gen, dev)
+    layer = torch.nn.TransformerEncoderLayer(
+        256, 8, 1024, dropout=0.0, activation="relu", layer_norm_eps=1e-6,
+        batch_first=True).to(dev).eval()
+    for B, T in ((1, 250), (64, 625)):
+        Tp = -(-T // 128) * 128
+        valid = (torch.arange(Tp, device=dev) < T)[None].repeat(B, 1)
+        x = torch.randn(B, Tp, 256, generator=gen).to(dev) * valid[:, :, None]
+        vf = valid[:, None, :].float()
+        allowed = (valid[:, :, None] & valid[:, None, :]
+                   & torch.ones(Tp, Tp, dtype=torch.bool, device=dev).tril())
+        mask = (NEG_INF_V2 * (1.0 - allowed.float())).repeat_interleave(8, 0)
+        calls.append(("8 fused_transformer_block", f"B={B} T={T} (Tp {Tp}) causal",
+                      lambda x=x, vf=vf: mha_block_fused.fused_transformer_block(
+                          x, vf, wm, True),
+                      lambda x=x, mask=mask: layer(x, src_mask=mask)))
+    for T in (250, 2250):
+        valid = torch.ones(1, T, dtype=torch.bool, device=dev)
+        q, k, v = (torch.randn(1, T, 8, 32, generator=gen).to(dev) for _ in range(3))
+        q = q * 32 ** -0.5
+        mask = (NEG_INF_V2 * (1.0 - torch.ones(T, T, device=dev).tril()))[None, None]
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(qh=qh, kh=kh, vh=vh, mask=mask):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, scale=1.0)
+        calls += [
+            ("9 flash_attention", f"B=1 T={T} causal",
+             lambda q=q, k=k, v=v, valid=valid: mha_fused.flash_attention(
+                 q, k, v, valid, True), sdpa),
+            ("10 flash_attention_streaming", f"B=1 T={T} causal",
+             lambda q=q, k=k, v=v, valid=valid: mha_flash_stream.flash_attention_streaming(
+                 q, k, v, valid, True), sdpa)]
+    return sorted(calls, key=lambda c: int(c[0].split()[0]))
+
+
+def kernels_report(iters):
+    from chip_smoke import cuda_ms
+
+    """Print each kernel's and its library call's CUDA-events and device-only
+    times (`kernel_calls`)."""
+    print(f"card: {torch.cuda.get_device_name(0)}; CUDA events over {iters} calls, "
+          f"device-only over {iters} profiled calls")
+    with torch.no_grad():
+        for row, shape, call, lib in kernel_calls():
+            ev, (dev_ms, ops) = cuda_ms(call, iters), device_ms(call, iters)
+            line = (f"row {row} {shape}: events {ev:.4f} ms, device {dev_ms:.4f} ms "
+                    f"({ops:g} operations a call)")
+            if lib is not None:
+                lev, (ldev, lops) = cuda_ms(lib, iters), device_ms(lib, iters)
+                line += (f"; library events {lev:.4f} ms, device {ldev:.4f} ms "
+                         f"({lops:g} operations a call)")
+            print(line, flush=True)
 
 
 def layer_enhance(n: str) -> str:
@@ -166,10 +286,10 @@ def train_call(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("path", choices=("enhance", "train", "stream"))
+    ap.add_argument("path", choices=("enhance", "train", "stream", "kernels"))
     ap.add_argument("--batch", type=int)
     ap.add_argument("--seconds", type=float)
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, help="profiled calls (5; kernels: 20)")
     ap.add_argument("--timed", type=int, default=30)
     ap.add_argument("--ver", choices=("resnet-1.1c", "mhanet-1.1c"), default="resnet-1.1c",
                     help="enhance, stream: the checked-in artifact to run")
@@ -183,6 +303,10 @@ def main():
     args.seconds = args.seconds or (4.096 if train else 10.0)
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
+    if args.path == "kernels":
+        kernels_report(args.iters or 20)
+        return
+    args.iters = args.iters or 5
 
     call, what = {"enhance": enhance_call, "train": train_call,
                   "stream": stream_call}[args.path](args)
