@@ -13,10 +13,13 @@ Phases (any failure exits non-zero before the result line):
      inference kernels (the per-block one at B=4 T=250, B=1 T=1, B=3 T=37
      and B=96 T=625; the halo-tiled one in groups of two blocks over 10, at
      B=4 T=1250 and B=1 T=1100), the training stack's saving forward, and
-     its backward with saved block inputs and with a replayed forward; then
+     its backward with saved block inputs and with a replayed forward (the
+     two, and a second saved call, bitwise equal); then
      the MHANet kernels (d_model 256, 8 heads of 32, d_ff 1024, LN scales
      != 1, padded tails of zero frames): the fused transformer block at
-     T=250 and T=2048, flash_attention at T=250 and T=700, the streaming
+     B=4 T=250 and T=2048, the main path's B=1 T=250 and B=64 T=625, and
+     its launch shapes' edges (T=1, T=17, 111 rows, every row invalid, B=2
+     lengths [250, 83]), flash_attention at T=250 and T=700, the streaming
      attention at T=2250, causal and not, and both attentions at T=1, T=17,
      every row invalid and B=2 lengths [250, 83] (the streaming one at
      256/512 and 64/128 tiles); the KV-cache attention step of streaming
@@ -472,7 +475,13 @@ def main():
             fail(f"fused_block_group_bwd ({mode}) disagrees with its plain version")
         checks["fused_block_group_bwd"] = max(checks["fused_block_group_bwd"], err)
     same = all(torch.equal(a, b) for a, b in zip(modes["saved"], modes["replay"]))
-    print(f"[2] fused_block_group_bwd: replay and saved modes bitwise equal: {same}")
+    dh2, dw2 = tcn_fused_train.fused_block_group_bwd(x, dout, w, dil[:G], saved_h=hs)
+    again = all(torch.equal(a, b) for a, b in
+                zip(modes["saved"], [dh2] + [a for g in range(G) for a in dw2[g]]))
+    print(f"[2] fused_block_group_bwd: replay and saved modes bitwise equal: {same}; "
+          f"a second saved call bitwise equal (fixed-order split sums): {again}")
+    if not (same and again):
+        fail("fused_block_group_bwd is not bitwise the same across modes and calls")
 
     # the MHANet kernels at full width, inputs with padded tails of zero
     # frames (invalid), every row compared
@@ -501,15 +510,56 @@ def main():
             fail(f"{kname} disagrees with its plain version")
         checks[kname] = max(checks.get(kname, 0.0), err)
 
+    # the block at the main path's shapes (B=1 T=250: 16-row slabs, the post
+    # kernel a cluster of 8 CTAs a slab; B=64 T=625: 64-row CTAs) and at the
+    # edges: part of one slab (T = 1, 17), 111 rows, every row invalid
     w_mha = mha_block_fused.random_block_weights(gen, dev)
-    for T, lengths in ((250, [250, 250, 201, 128]), (2048, [2048, 1990, 1500, 700])):
-        Tp = -(-T // 128) * 128
-        valid = padded(4, Tp, lengths)
-        x = (torch.randn(4, Tp, 256, generator=gen) * valid[:, :, None]).to(dev)
+    for B, T, lengths, pad in ((4, 250, [250, 250, 201, 128], 128),
+                               (4, 2048, [2048, 1990, 1500, 700], 128),
+                               (1, 250, [250], 128), (64, 625, [625] * 64, 128),
+                               (1, 1, [1], 1), (1, 17, [17], 1), (3, 37, [37, 20, 5], 1),
+                               (2, 17, [0, 0], 1), (2, 250, [250, 83], 128)):
+        Tp = -(-T // pad) * pad
+        valid = padded(B, Tp, lengths)
+        x = (torch.randn(B, Tp, 256, generator=gen) * valid[:, :, None]).to(dev)
         vf = valid[:, None, :].float().to(dev)
-        check("fused_transformer_block", f"B=4 T={T} (Tp {Tp}, lengths {lengths}), causal",
-              mha_block_fused.fused_transformer_block(x, vf, w_mha, True),
-              mha_block_fused.fused_transformer_block_ref(x, vf, w_mha, True))
+        for causal in (True, False) if B < 64 else (True,):
+            check("fused_transformer_block", f"B={B} T={T} (Tp {Tp}, lengths "
+                  f"{lengths if B < 5 else '...'}), causal {causal}, launch shapes "
+                  f"{mha_block_fused.block_grid(B, Tp)}",
+                  mha_block_fused.fused_transformer_block(x, vf, w_mha, causal),
+                  mha_block_fused.fused_transformer_block_ref(x, vf, w_mha, causal))
+
+    def from_f64(kname, label, y, y_ref, y64, valid):
+        """The kernel's and plain f32's distance from float64 over the valid
+        rows, of float64's scale there (an invalid row's -1e10 mask is exact
+        in float64 and absorbs q.k in f32, so those rows differ by design)."""
+        torch.cuda.synchronize()
+        m = valid.to(dev)
+        scale = y64[m].abs().max().item()
+        e_k, e_p = ((t.double() - y64)[m].abs().max().item() / scale for t in (y, y_ref))
+        print(f"[2] {kname}: {label}: from float64 on the valid rows, the kernel "
+              f"{e_k:.3e} and plain f32 {e_p:.3e} of scale (tol {KERNEL_TOL_REL:.0e})")
+        if not e_k <= KERNEL_TOL_REL:
+            fail(f"{kname} is further than {KERNEL_TOL_REL:.0e} of scale from float64")
+
+    # f32 accuracy of the split products on the card: the block at B=1
+    # T=250 (Tp 256) and the attention at B=4 T=250
+    valid = padded(1, 256, [250])
+    x = (torch.randn(1, 256, 256, generator=gen) * valid[:, :, None]).to(dev)
+    vf = valid[:, None, :].float().to(dev)
+    w64 = mha_block_fused.BlockWeights(*(t.double() for t in w_mha))
+    from_f64("fused_transformer_block", "B=1 T=250 (Tp 256), causal",
+             mha_block_fused.fused_transformer_block(x, vf, w_mha, True),
+             mha_block_fused.fused_transformer_block_ref(x, vf, w_mha, True),
+             mha_block_fused.fused_transformer_block_ref(x.double(), vf.double(), w64, True),
+             valid)
+    q, k, v, valid = heads(4, 250, [250, 230, 128, 61])
+    from_f64("flash_attention", "B=4 T=250 (lengths [250, 230, 128, 61]), causal",
+             mha_fused.flash_attention(q, k, v, valid, True),
+             mha_fused.flash_attention_ref(q, k, v, valid, True),
+             mha_fused.flash_attention_ref(q.double(), k.double(), v.double(), valid, True),
+             valid.cpu())
     attention_cases = (
         ("flash_attention", mha_fused.flash_attention, mha_fused.flash_attention_ref,
          {}, 4, ((250, [250, 230, 128, 61]), (700, [700, 650, 333, 64]))),
@@ -1253,20 +1303,25 @@ def main():
             lambda: tcn_fused_train.fused_block_group_bwd_ref(x, dout, w, dil[:G]),
             train_bound_ms(B, T, G, BLOCK_FLOPS_PER_ROW + BWD_FLOPS_PER_ROW, 3, True)),
     }
+    # both run every product on the tensor cores: their TC bounds put the
+    # FLOPs at the split-TF32 rate
+    tc_flops = {"fused_block_group_whole_saved": (BLOCK_FLOPS_PER_ROW, 2 + G, False),
+                "fused_block_group_bwd": (BWD_FLOPS_PER_ROW, 2 + G, True),
+                "replay": (BLOCK_FLOPS_PER_ROW + BWD_FLOPS_PER_ROW, 3, True)}
     times = {}
     for kname, (kernel, ref, (bound, by)) in timed.items():
         ms, plain = cuda_ms(kernel), cuda_ms(ref)
-        dev_ms, ops = device_ms(kernel)
+        dev_ms, ops, split = device_ms(kernel, by_name=True)
+        tc = train_bound_ms(B, T, G, *tc_flops[kname], PEAK_TF32X3_FLOPS)[0]
         times[kname] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
-                            bound_by=by)
-        if kname == "fused_block_group_whole_saved":  # the tensor-core forward
-            times[kname]["tc_bound_ms"] = train_bound_ms(
-                B, T, G, BLOCK_FLOPS_PER_ROW, 2 + G, False, PEAK_TF32X3_FLOPS)[0]
+                            bound_by=by, tc_bound_ms=tc)
         print(f"[4] {kname if kname != 'replay' else 'fused_block_group_bwd (replay)'}: "
               f"one call of G={G} blocks at B={B} T={T}: {ms:.4f} ms (device only "
-              f"{dev_ms:.4f} ms, {ops:g} operations); plain "
-              f"{plain:.4f} ms; bound {bound:.4f} ms ({by}); {bound / ms:.1%} of "
-              f"the bound")
+              f"{dev_ms:.4f} ms, {ops:g} operations: "
+              + ", ".join(f"{n[:40]} {t:.4f} ms ({c:g})" for n, (t, c) in sorted(
+                  split.items(), key=lambda kv: -kv[1][0])[:5])
+              + f"); plain {plain:.4f} ms; bound {bound:.4f} ms ({by}), TC bound "
+              f"{tc:.4f} ms; {bound / ms:.1%} of the bound, {tc / ms:.1%} of the TC bound")
     for kname, src, line in (
             ("fused_block_group_whole_saved", "tcn_fused.cu", 81),
             ("fused_block_group_bwd", "tcn_fused_train.cu", 136)):
@@ -1321,25 +1376,26 @@ def main():
             plain = cuda_ms(lambda: mha_block_fused.fused_transformer_block_ref(
                 x, vf, w_mha, True))
             lib = cuda_ms(lambda: layer(x, src_mask=mask))
-            dev_ms, ops = device_ms(lambda: mha_block_fused.fused_transformer_block(
-                x, vf, w_mha, True))
+            dev_ms, ops, split = device_ms(lambda: mha_block_fused.fused_transformer_block(
+                x, vf, w_mha, True), by_name=True)
             lib_dev, lib_ops = device_ms(lambda: layer(x, src_mask=mask))
             bound, by = mha_block_bound_ms(B, T, True)
-            # its row kernels' products on CUDA cores, its attention's on the
-            # tensor cores
-            tc = max(bound - attention_bound_ms(B, T, True)[0]
-                     + attention_bound_ms(B, T, True, PEAK_TF32X3_FLOPS)[0],
-                     4 * 2 * B * T * 256 / PEAK_BYTES * 1e3)
+            # every product (row kernels and attention) on the tensor cores
+            tc = mha_block_bound_ms(B, T, True, PEAK_TF32X3_FLOPS)[0]
+            grid = mha_block_fused.block_grid(B, Tp)
+            print(f"[4] fused_transformer_block: launch shapes at B={B} Tp={Tp}: {grid}")
             print(f"[4] fused_transformer_block: one block at B={B} T={T} (Tp {Tp}): "
-                  f"{ms:.4f} ms (device only {dev_ms:.4f} ms, {ops:g} operations); "
+                  f"{ms:.4f} ms (device only {dev_ms:.4f} ms, {ops:g} operations: "
+                  + ", ".join(f"{n} {t:.4f} ms" for n, (t, _) in split.items())
+                  + "); "
                   f"plain {plain:.4f} ms; nn.TransformerEncoderLayer {lib:.4f} ms "
                   f"(device only {lib_dev:.4f} ms, {lib_ops:g} operations; valid rows "
                   f"within {lib_rel:.1e} rel); bound {bound:.4f} ms ({by}); "
-                  f"{bound / ms:.1%} of the bound; with the attention at the "
-                  f"tensor-core rate {tc:.4f} ms, {tc / ms:.1%} of it")
+                  f"{bound / ms:.1%} of the bound; TC bound {tc:.4f} ms, "
+                  f"{tc / ms:.1%} of it")
             times = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
                          bound_by=by, tc_bound_ms=tc, library_ms=lib,
-                         library_device_ms=lib_dev,
+                         library_device_ms=lib_dev, grid=grid,
                          shape={"B": B, "T": T, "causal": True})
             row.update(times if i == 0 else {"at_b64_t625": times})
         kernels.append(row)

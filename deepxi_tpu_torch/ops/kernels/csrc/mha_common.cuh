@@ -342,6 +342,18 @@ __global__ void __launch_bounds__(AT) mha_attention_kernel(AttnArgs a) {
   }
 }
 
+// The card's SM count (0 when it cannot be read), read once a process.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
 template <int QW, typename VT>
 cudaError_t launch_attention_qw(const AttnArgs& a, int B, cudaStream_t stream) {
   static bool ready = false;  // the shared-memory opt-in, once a process
@@ -368,14 +380,8 @@ cudaError_t launch_attention(const AttnArgs& a, int B, cudaStream_t stream) {
   if (B < 1 || a.T < 1 || a.n_keys < a.T || B > 65535 ||
       (a.skip_bq > 0 && (a.skip_bk < 1 || a.n_keys % a.skip_bk != 0)))
     return cudaErrorInvalidValue;
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
+  const int n_sm = sm_count();
+  if (n_sm == 0) return cudaErrorUnknown;
   const long rows_ctas = (long)NH * B;
   auto ctas = [&](int qw) { return (a.T + qw * SLAB - 1) / (qw * SLAB) * rows_ctas; };
   if (ctas(4) >= 8L * n_sm) return launch_attention_qw<4, VT>(a, B, stream);

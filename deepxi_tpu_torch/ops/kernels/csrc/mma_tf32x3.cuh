@@ -5,11 +5,12 @@
 // A warp-level mma.sync.aligned.m16n8k8 TF32 product keeps 10 mantissa bits
 // of each operand (unit round-off 4.9e-4), which through 5 to 40 LayerNorm'd
 // blocks lands near the 1e-4-of-scale gate the kernels are held to. So each
-// f32 operand x is split as hi = tf32(x) (cvt.rna, round to nearest, ties
-// away) and lo = tf32(x - hi), and a product takes
+// f32 operand x is split into hi + lo, and a product takes
 //   a.b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi
 // summed in f32 (the small terms first); a_lo b_lo, below f32's round-off,
-// is left out. That is three TF32 products for one f32 product:
+// is left out. hi = tf32(x), rounded to nearest, ties away, as cvt.rna,
+// and lo = tf32(x - hi): four integer instructions and a subtraction
+// (`split_tf32`). That is three TF32 products for one f32 product:
 // 495 / 3 = 165 TFLOP/s of dense f32-accurate work on an H100 SXM, against
 // 67 TFLOP/s of f32 FMA outside the tensor cores.
 //
@@ -31,14 +32,14 @@
 
 namespace {
 
-// x rounded to TF32 (the low 13 mantissa bits zero), as f32 bits.
+// x rounded to TF32 (the low 13 mantissa bits zero), as f32 bits: round to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds a finite x, in
+// two integer instructions, which issue at a higher rate than a cvt.
 __device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = hi + lo + (x's bits below both).
+// x = hi + lo + (x's bits below both), as the header comment says.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(x - __uint_as_float(hi));

@@ -1,8 +1,9 @@
 // Shared pieces of the fused ResNetV2 kernels (tcn_fused.cu, the inference
 // forward, and tcn_fused_train.cu, the training backward): widths, the packed
-// weight layout, warp reductions, LayerNorm moments, the forward's
-// tensor-core product with its weights staged in shared memory, and the
-// backward's register-tiled FMA product. float32 values throughout.
+// weight layout, warp reductions, LayerNorm moments, and the tensor-core
+// product with its weights staged in shared memory (the forward's units,
+// and the backward's recompute and input gradients). float32 values
+// throughout.
 //
 // A block is  h += W3 LN(relu(conv_d(LN(relu(W1 LN(relu(h)) + b1))) + b2)) + b3
 // with W1 [C, DF], a causal dilated conv of KS taps [KS, DF, DF] and
@@ -12,10 +13,9 @@
 // The widths are compile-time constants given as defines (TCN_C = d_model,
 // TCN_DF = d_f, TCN_KS = k); the wrappers build one library per set of
 // widths (_build.py). They take C and DF multiples of 4 up to 1024 (16-byte
-// staging; the FMA product's thread owns 4 output columns, and N / 4 of
-// them span a row) and KS >= 1; rows are any width, a warp lane taking
-// elements lane + 32 e. The tensor-core product pads K and N to multiples
-// of 8 (the m16n8k8 tile) with zeros in shared memory.
+// staging) and KS >= 1; rows are any width, a warp lane taking elements
+// lane + 32 e. The tensor-core product pads K and N to multiples of 8 (the
+// m16n8k8 tile) with zeros in shared memory.
 
 #pragma once
 
@@ -33,7 +33,6 @@ constexpr int C = TCN_C;     // d_model
 constexpr int DF = TCN_DF;   // d_f
 constexpr int KS = TCN_KS;   // taps of the dilated conv
 constexpr int NT = 256;      // threads per CTA
-constexpr int RM = 4;        // rows per thread in a product
 constexpr int LDH = C + 4;   // padded shared-memory row strides: rows that
 constexpr int LDF = DF + 4;  // one warp reads at once fall in other banks
 constexpr float EPS = 1e-6f;
@@ -126,80 +125,6 @@ __device__ void relu_ln_inplace(float* x, int r0, int r1, int zero_below) {
   }
 }
 
-// The backward's product, on CUDA cores. For rows r in [r0, r1):
-//   out[r] (= or +=) [bias] + sum_j A'[r - (TAPS-1-j) d] @ W[j]
-// with W[j] a [KD, N] row-major slice in global memory and A' the
-// shared-memory rows of A, or LN(relu(A)) from the moments st when LN_IN.
-// A negative d reads rows after r (the input gradient of a causal conv).
-// Thread (tr, tc) owns columns 4tc..4tc+3 of rows base+tr+i*TR, i < RM;
-// when N / 4 does not divide NT, the threads past TR * TN rows idle.
-template <int KD, int N, int TAPS, bool LN_IN, bool ACCUM, bool BIAS = true>
-__device__ void unit_product(const float* A, int lda, const float* st,
-                             const float* __restrict__ W,
-                             const float* __restrict__ bias, int d,
-                             float* out, int ldo, int r0, int r1) {
-  constexpr int TN = N / 4;
-  constexpr int TR = NT / TN;
-  constexpr int ROWS = TR * RM;
-  const int tc = threadIdx.x % TN, tr = threadIdx.x / TN;
-  if (NT % TN != 0 && tr >= TR) return;
-  const float4 b = BIAS ? __ldg(reinterpret_cast<const float4*>(bias) + tc)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int base = r0; base < r1; base += ROWS) {
-    float acc[RM][4];
-    int rows[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      // rows past r1 repeat the last row and are not stored
-      rows[i] = min(base + tr + i * TR, r1 - 1);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < TAPS; ++j) {
-      const int shift = (j - (TAPS - 1)) * d;
-      const float* Ar[RM];
-      float sh[RM], sc[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int r = rows[i] + shift;
-        Ar[i] = A + r * lda;
-        if (LN_IN) {
-          sh[i] = st[2 * r];
-          sc[i] = st[2 * r + 1];
-        }
-      }
-      const float4* Wj = reinterpret_cast<const float4*>(W + j * KD * N) + tc;
-#pragma unroll 4
-      for (int q = 0; q < KD; ++q) {
-        const float4 w = __ldg(Wj + q * TN);
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          float a = Ar[i][q];
-          if (LN_IN) a = fmaf(fmaxf(a, 0.f), sc[i], sh[i]);
-          acc[i][0] = fmaf(a, w.x, acc[i][0]);
-          acc[i][1] = fmaf(a, w.y, acc[i][1]);
-          acc[i][2] = fmaf(a, w.z, acc[i][2]);
-          acc[i][3] = fmaf(a, w.w, acc[i][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = base + tr + i * TR;
-      if (r < r1) {
-        float4* o = reinterpret_cast<float4*>(out + r * ldo) + tc;
-        float4 v = ACCUM ? *o : make_float4(0.f, 0.f, 0.f, 0.f);
-        v.x += acc[i][0] + b.x;
-        v.y += acc[i][1] + b.y;
-        v.z += acc[i][2] + b.z;
-        v.w += acc[i][3] + b.w;
-        *o = v;
-      }
-    }
-  }
-}
-
 // -- the forward's tensor-core product -----------------------------------
 //
 // K and N padded to the m16n8k8 tile; a unit's weights in shared memory as
@@ -234,12 +159,23 @@ __device__ void stage_weights(float* wbuf, const float* __restrict__ W) {
   cp_async_commit();
 }
 
+// Stage a unit's weights when the kernel keeps them in shared memory
+// (W_SMEM), else commit an empty group, so the waits count the same.
+template <bool W_SMEM, int KD, int N, int TAPS>
+__device__ __forceinline__ void stage_unit(float* wbuf, const float* W) {
+  if constexpr (W_SMEM)
+    stage_weights<KD, N, TAPS>(wbuf, W);
+  else
+    cp_async_commit();
+}
+
 // For rows r in [r0, r1) of NB windows (bs floats apart in A, st and out):
-//   out[r] (= or +=) bias + sum_j A'[r - (TAPS-1-j) d] @ W[j]
+//   out[r] (= or +=) [bias] + sum_j A'[r - (TAPS-1-j) d] @ W[j]
 // with W staged in shared memory by stage_weights<KD, N, TAPS> (W_SMEM),
 // or W [TAPS, KD, N] in global memory, read through L1/L2 (weights too wide
 // to stage beside a window), and A' the shared-memory rows of A, or
-// LN(relu(A)) from the moments st when LN_IN.
+// LN(relu(A)) from the moments st when LN_IN. A negative d reads rows
+// after r (the input gradient of a causal conv).
 // The work is cut into items of MS slabs of 16 rows by NCB n-blocks of 8
 // columns, dealt to the warps in turn; a warp's lane (g, t) holds rows g
 // and g + 8 of each slab. Each B fragment, split once, feeds the MS slabs
@@ -247,7 +183,7 @@ __device__ void stage_weights(float* wbuf, const float* __restrict__ W) {
 // k-steps are summed on the tensor cores, then added to the running sum in
 // f32. Rows of the last slab past r1 repeat row r1 - 1 and are not stored.
 template <int KD, int N, int TAPS, bool LN_IN, bool ACCUM, int NB, int MS,
-          bool W_SMEM>
+          bool W_SMEM, bool BIAS = true>
 __device__ void mma_product(const float* A, int lda, const float* st,
                             const float* W, const float* __restrict__ bias,
                             int d, float* out, int ldo, int r0, int r1,
@@ -345,7 +281,8 @@ __device__ void mma_product(const float* A, int lda, const float* st,
     for (int nb = 0; nb < NCB; ++nb) {
       const int col = (ch * NCB + nb) * 8 + 2 * t;
       if (col >= N) continue;  // N % 4 == 0: col + 1 < N too
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+      const float2 bb = BIAS ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                             : make_float2(0.f, 0.f);
 #pragma unroll
       for (int n = 0; n < NB; ++n)
 #pragma unroll

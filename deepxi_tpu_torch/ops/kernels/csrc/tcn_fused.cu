@@ -61,15 +61,6 @@ constexpr bool W_SMEM =
     ((size_t)WBUF_FLOATS + 64 * (size_t)ROW_FLOATS) * sizeof(float) <= 232448;
 constexpr int SMEM_W_FLOATS = W_SMEM ? WBUF_FLOATS : 0;
 
-// Stage a unit's weights when they live in shared memory.
-template <int KD, int N, int TAPS>
-__device__ __forceinline__ void stage_unit(float* wbuf, const float* W) {
-  if constexpr (W_SMEM)
-    stage_weights<KD, N, TAPS>(wbuf, W);
-  else
-    cp_async_commit();  // an empty group: the waits count the same
-}
-
 struct Dilations {
   int d[MAX_G];
 };
@@ -123,7 +114,7 @@ tcn_window_kernel(const float* __restrict__ x, float* __restrict__ y,
     }
   }
   cp_async_commit();
-  stage_unit<C, DF, 1>(wbuf, wpack + OFF_W1);
+  stage_unit<W_SMEM, C, DF, 1>(wbuf, wpack + OFF_W1);
 
   int s = 0;  // first window row still needed
   for (int g = 0; g < G; ++g) {
@@ -140,7 +131,7 @@ tcn_window_kernel(const float* __restrict__ x, float* __restrict__ y,
         h, LDH, st, W_SMEM ? wbuf : Wb + OFF_W1, Wb + OFF_B1, 0, a2, LDF, s,
         nrows, bs);
     __syncthreads();
-    stage_unit<DF, DF, KS>(wbuf, Wb + OFF_W2);
+    stage_unit<W_SMEM, DF, DF, KS>(wbuf, Wb + OFF_W2);
     for (int n = 0; n < NB; ++n)
       relu_ln_inplace<ONE_PASS>(a2 + n * bs, s, nrows, pre_rows);
     cp_async_wait<0>();
@@ -149,7 +140,7 @@ tcn_window_kernel(const float* __restrict__ x, float* __restrict__ y,
         a2, LDF, nullptr, W_SMEM ? wbuf : Wb + OFF_W2, Wb + OFF_B2, d, yb, LDF,
         s + reach, nrows, bs);
     __syncthreads();
-    stage_unit<DF, C, 1>(wbuf, Wb + OFF_W3);
+    stage_unit<W_SMEM, DF, C, 1>(wbuf, Wb + OFF_W3);
     for (int n = 0; n < NB; ++n)
       relu_ln_inplace<ONE_PASS>(yb + n * bs, s + reach, nrows, 0);
     cp_async_wait<0>();
@@ -158,7 +149,7 @@ tcn_window_kernel(const float* __restrict__ x, float* __restrict__ y,
         yb, LDF, nullptr, W_SMEM ? wbuf : Wb + OFF_W3, Wb + OFF_B3, 0, h, LDH,
         s + reach, nrows, bs);
     __syncthreads();
-    if (g + 1 < G) stage_unit<C, DF, 1>(wbuf, Wb + BLOCK_FLOATS + OFF_W1);
+    if (g + 1 < G) stage_unit<W_SMEM, C, DF, 1>(wbuf, Wb + BLOCK_FLOATS + OFF_W1);
     s += reach;
   }
 

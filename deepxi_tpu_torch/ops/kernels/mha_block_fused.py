@@ -4,7 +4,8 @@ deepxi_tpu/ops/kernels/mha_block_fused.py).
 `fused_transformer_block` runs one whole block (QKV projections, masked
 attention, output projection, residual, LN1, the 4x FFN, residual, LN2) as
 one call of `csrc/mha_block_fused.cu` (three launches: projections,
-attention, the per-row rest) for a CUDA tensor, and its plain version
+attention, the per-row rest, the last as thread block clusters when rows
+are few; `block_grid` gives the launch shapes) for a CUDA tensor, and its plain version
 `fused_transformer_block_ref` for a CPU tensor. Its `launches` counter counts
 calls, one per block. The widths (heads, d_model, the FFN's) are read from
 the weights; the wrapper builds one library per set of widths that
@@ -112,6 +113,8 @@ def _check(x: torch.Tensor, validf: torch.Tensor, weights: BlockWeights):
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous float32 [B, T, C] tensor, "
                          f"not {tuple(x.shape)} {x.dtype}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
     B, T, C = x.shape
     if validf.shape != (B, 1, T) or validf.device != x.device:
         raise ValueError(f"validf must be [B, 1, T] = {(B, 1, T)} on {x.device}")
@@ -146,7 +149,25 @@ def _lib(n_heads: int, head_dim: int, d_ff: int) -> ctypes.CDLL:
     lib.mha_block_error_string.restype = ctypes.c_char_p
     lib.mha_block_forward.argtypes = [p] * 19 + [i, i, i, ctypes.c_float, p]
     lib.mha_block_forward.restype = i
+    lib.mha_block_grid.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.mha_block_grid.restype = i
     return lib
+
+
+def block_grid(B: int, T: int, n_heads: int = KERNEL_HEADS,
+               head_dim: int = KERNEL_D_MODEL // KERNEL_HEADS,
+               d_ff: int = KERNEL_D_FF) -> Dict[str, int]:
+    """The launch shapes of `fused_transformer_block` at [B, T] rows on the
+    current card: rows a CTA and CTAs of the projection kernel, rows a slab,
+    cluster size and CTAs of the post kernel (output projection, LN1, FFN,
+    LN2)."""
+    lib = _lib(n_heads, head_dim, d_ff)
+    out = (ctypes.c_int * 5)()
+    rc = lib.mha_block_grid(B, T, out)
+    if rc != 0:
+        raise ValueError(f"no launch shape for B={B} T={T}")
+    return dict(zip(("qkv_rows", "qkv_ctas", "post_rows", "post_cluster",
+                     "post_ctas"), out))
 
 
 def fused_transformer_block(x: torch.Tensor, validf: torch.Tensor,

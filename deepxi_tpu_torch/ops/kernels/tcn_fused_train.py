@@ -9,9 +9,11 @@ Two wrappers stand for the two Pallas kernels of the training path:
     writing the next block's input into a [G, B, T, C] save buffer.
   * `fused_block_group_bwd`: the group backward, dh and the block weight
     gradients summed over the batch, from the saved inputs or by replaying
-    the forward first. On the card it calls `tcn_block_backward`
-    (`csrc/tcn_fused_train.cu`) once per block in reverse, four kernel
-    launches each; the weight gradients are summed in a fixed order, so they
+    the forward first. On the card it makes one call of `tcn_group_backward`
+    (`csrc/tcn_fused_train.cu`) a group, which walks the blocks in reverse,
+    three kernel launches each, every product on the tensor cores (the
+    recompute through the forward's own product, so its ReLU masks are the
+    forward's); the weight gradients are summed in a fixed order, so they
     are bitwise the same from run to run.
 
 Each wrapper takes its plain version (`*_ref`, the same arithmetic in
@@ -190,11 +192,14 @@ def _lib(d_model: int, d_f: int, k: int) -> ctypes.CDLL:
     lib.tcn_train_block_t_floats.restype = i
     lib.tcn_train_max_window_rows.argtypes = [i]
     lib.tcn_train_max_window_rows.restype = i
+    lib.tcn_train_wgrad_tiles.argtypes, lib.tcn_train_wgrad_tiles.restype = [], i
     lib.tcn_train_error_string.argtypes = [i]
     lib.tcn_train_error_string.restype = ctypes.c_char_p
-    lib.tcn_block_backward.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                       p, p, p, p, p, p, p, p, p]
-    lib.tcn_block_backward.restype = i
+    lib.tcn_group_backward.argtypes = [ctypes.POINTER(p), p, p, p, p, p,
+                                       ctypes.POINTER(i), i, i, i, i, i,
+                                       p, p, p, p, p, p, p, p, p, p,
+                                       ctypes.POINTER(i)]
+    lib.tcn_group_backward.restype = i
     C, F_, K = d_model, d_f, k
     if (lib.tcn_train_block_floats() != C * F_ + F_ + K * F_ * F_ + F_ + F_ * C + C
             or lib.tcn_train_block_t_floats() != 2 * C * F_ + K * F_ * F_):
@@ -246,10 +251,16 @@ fused_block_group_whole_saved.launches = 0
 
 def _transposed(weights: Sequence[BlockWeights]) -> torch.Tensor:
     """[G, block_t_floats]: W1^T [d_f, d_model], W2[j]^T, W3^T [d_model, d_f]
-    per block, the operands of the input-gradient products."""
-    return torch.stack([torch.cat([bw.w1[0].T.reshape(-1),
-                                   bw.w2.transpose(1, 2).reshape(-1),
-                                   bw.w3[0].T.reshape(-1)]) for bw in weights])
+    per block, the operands of the input-gradient products (a stack and a
+    transposing copy for each of the three, whatever G)."""
+    G, (_, C, F), k = len(weights), weights[0].w1.shape, weights[0].w2.shape[0]
+    w1 = weights[0].w1
+    wt = torch.empty(G, 2 * C * F + k * F * F, dtype=w1.dtype, device=w1.device)
+    o2, o3 = F * C, F * C + k * F * F
+    wt[:, :o2].view(G, F, C).copy_(torch.stack([bw.w1[0] for bw in weights]).transpose(1, 2))
+    wt[:, o2:o3].view(G, k, F, F).copy_(torch.stack([bw.w2 for bw in weights]).transpose(2, 3))
+    wt[:, o3:].view(G, C, F).copy_(torch.stack([bw.w3[0] for bw in weights]).transpose(1, 2))
+    return wt
 
 
 def fused_block_group_bwd(h0: torch.Tensor, dout: torch.Tensor,
@@ -278,6 +289,8 @@ def fused_block_group_bwd(h0: torch.Tensor, dout: torch.Tensor,
     if dout.shape != h0.shape or dout.dtype != h0.dtype or dout.device != h0.device:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} on {dout.device}; "
                          f"expected {tuple(h0.shape)} {h0.dtype} on {h0.device}")
+    if any(t.data_ptr() % 16 for t in (h0, dout) + (() if saved_h is None else (saved_h,))):
+        raise ValueError("h0, dout and saved_h must start on 16-byte boundaries")
     lib = _lib(*widths)
     if saved_h is None:
         _, buf = _saved_forward(h0, packed, dilations, widths)
@@ -295,26 +308,27 @@ def fused_block_group_bwd(h0: torch.Tensor, dout: torch.Tensor,
     new = functools.partial(torch.empty, device=h0.device, dtype=torch.float32)
     u1s, a2s, a3s, dys, du1s = (new(N, widths[1]) for _ in range(5))
     hst, part = new(N, 2), new(splits, packed.shape[1])
+    counters = torch.zeros(lib.tcn_train_wgrad_tiles(), dtype=torch.int32,
+                           device=h0.device)
     dpacked = torch.empty_like(packed)
     bufs = (torch.empty_like(h0), torch.empty_like(h0))
     tile = tcn_fused._whole_tile(h0, (k - 1) * max(dilations),
                                  lib.tcn_train_max_window_rows(h0.device.index or 0))
-    d = dout
-    with torch.cuda.device(h0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for g in range(G - 1, -1, -1):
-            dst = bufs[g % 2]
-            rc = lib.tcn_block_backward(
-                inputs[g].data_ptr(), d.data_ptr(), dst.data_ptr(),
-                packed[g].data_ptr(), wt[g].data_ptr(), dilations[g], B, T,
-                tile, splits, u1s.data_ptr(), a2s.data_ptr(), a3s.data_ptr(),
-                dys.data_ptr(), du1s.data_ptr(), hst.data_ptr(),
-                part.data_ptr(), dpacked[g].data_ptr(), stream)
-            if rc != 0:
-                raise RuntimeError(f"tcn_block_backward failed: CUDA error {rc} "
-                                   f"({lib.tcn_train_error_string(rc).decode()})")
-            fused_block_group_bwd.launches += 4
-            d = dst
+    hs = (ctypes.c_void_p * G)(*(t.data_ptr() for t in inputs))
+    dil = (ctypes.c_int * G)(*dilations)
+    launched = ctypes.c_int(0)
+    with launch_context(h0.device):
+        rc = lib.tcn_group_backward(
+            hs, dout.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+            packed.data_ptr(), wt.data_ptr(), dil, G, B, T, tile, splits,
+            u1s.data_ptr(), a2s.data_ptr(), a3s.data_ptr(), dys.data_ptr(),
+            du1s.data_ptr(), hst.data_ptr(), part.data_ptr(), counters.data_ptr(),
+            dpacked.data_ptr(), raw_stream(h0.device), ctypes.byref(launched))
+    fused_block_group_bwd.launches += launched.value
+    if rc != 0:
+        raise RuntimeError(f"tcn_group_backward failed: CUDA error {rc} "
+                           f"({lib.tcn_train_error_string(rc).decode()})")
+    d = bufs[0]
     dws = []
     for g, bw in enumerate(weights):
         parts = torch.split(dpacked[g], [w.numel() for w in bw])

@@ -139,13 +139,16 @@ def _close(a, ref, rel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(1, 37), (2, 128), (4, 256), (8, 256)])
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 37), (2, 40), (2, 128), (4, 256),
+                                 (8, 256)])
 def test_train_kernels_match_plain(cuda, B, T):
     """The saving forward (out and every block input, 1e-4 of scale) and the
     backward in saved and replay mode (dh and every weight gradient, 2e-4 of
     each leaf's scale) at full width, G 10, dilations 1..16. (8, 256) is the
     train step's shape: 12 weight-gradient row splits of 170 or 171 rows,
-    whose edges fall inside utterances and 32-row chunks."""
+    whose edges fall inside utterances and 32-row stages. T = 1 is one row;
+    at (2, 40) the 16-row tiles' edges fall inside the d = 16 conv's 32-row
+    reach, back (the recompute) and forward (the input gradient)."""
     gen = torch.Generator().manual_seed(T)
     G = 10
     w = tcn_fused.random_block_weights(G, gen, cuda)
@@ -202,6 +205,22 @@ def test_tie_check_takes_the_kernels_side_and_no_more():
     assert err > 2e-4
 
 
+@pytest.mark.parametrize("d_model,d_f,k", [(32, 16, 3), (48, 12, 2)])
+def test_transposed_weights_are_each_blocks_transposes(d_model, d_f, k):
+    """The input-gradient kernels' operands, packed for a group on the CPU:
+    block g's row of `_transposed` is W1^T, then W2[j]^T for each tap, then
+    W3^T."""
+    gen = torch.Generator().manual_seed(d_model)
+    w = tcn_fused.random_block_weights(3, gen, "cpu", d_model=d_model, d_f=d_f, k=k)
+    wt = tcn_fused_train._transposed(w)
+    assert wt.shape == (3, 2 * d_model * d_f + k * d_f * d_f)
+    for g, bw in enumerate(w):
+        w1t, w2t, w3t = torch.split(wt[g], [d_f * d_model, k * d_f * d_f, d_model * d_f])
+        assert torch.equal(w1t.view(d_f, d_model), bw.w1[0].T)
+        assert torch.equal(w2t.view(k, d_f, d_f), bw.w2.transpose(1, 2))
+        assert torch.equal(w3t.view(d_model, d_f), bw.w3[0].T)
+
+
 @pytest.mark.cuda
 def test_weight_gradients_are_deterministic(cuda):
     """Two calls give bitwise equal gradients: the splits of the batch rows
@@ -250,7 +269,9 @@ def test_apply_fused_train_matches_plain_autograd(cuda, save_acts):
     torch.cuda.synchronize()
     assert n[0] + (10 if save_acts else 0) == \
         tcn_fused_train.fused_block_group_whole_saved.launches
-    assert tcn_fused_train.fused_block_group_bwd.launches > n[1]
+    # three launches a block, and the replayed forward's one a block
+    assert tcn_fused_train.fused_block_group_bwd.launches == \
+        n[1] + 3 * 10 + (0 if save_acts else 10)
     for name, a, b in zip(params, g_fused, g_plain):
         assert _close(a, b, 2e-4), (name, _rel_err(a, b))
 
@@ -389,11 +410,19 @@ def test_attention_kernels_match_plain(cuda, B, T, lengths):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,lengths", [(2, 100, [100, 61]), (3, 256, [250, 256, 130]),
-                                         (1, 1, [1]), (2, 17, [17, 0])])
+                                         (1, 1, [1]), (2, 17, [17, 0]), (1, 17, [17]),
+                                         (1, 250, [250]), (1, 256, [250]),
+                                         (3, 37, [37, 20, 5]), (2, 17, [0, 0]),
+                                         (36, 256, [256] * 18 + [200] * 18)])
 def test_transformer_block_kernel_matches_plain(cuda, B, T, lengths):
     """fused_transformer_block at full width (d_model 256, 8 heads, d_ff
-    1024) on a hidden state whose padded rows are invalid, causal and not;
-    T = 100 leaves a ragged 32-row tile. 1e-4 of the output's scale."""
+    1024) on a hidden state whose padded rows are invalid, causal and not,
+    every row compared: 1e-4 of the output's scale. The row kernels take
+    16-row slabs (a cluster of 8 CTAs each after the attention) while the
+    rows are few: T = 1 and 17 fill part of one slab, B=3 T=37 leaves 111
+    rows (no multiple of the slab), lengths [0, 0] leave every row invalid;
+    B=36 T=256 (9,216 rows) takes the many-row shapes, 64-row CTAs without
+    clusters."""
     from deepxi_tpu_torch.ops.kernels import mha_block_fused as mb
     gen = torch.Generator().manual_seed(T)
     w = mb.random_block_weights(gen, cuda)
@@ -406,6 +435,58 @@ def test_transformer_block_kernel_matches_plain(cuda, B, T, lengths):
         torch.cuda.synchronize()
         assert torch.isfinite(y).all()
         assert _close(y, y_ref, 1e-4), (causal, _rel_err(y, y_ref))
+
+
+@pytest.mark.cuda
+def test_transformer_block_kernel_is_deterministic_and_ignores_allow_tf32(cuda, monkeypatch):
+    """Two calls give bitwise equal outputs (the cluster sums the FFN's
+    partials in rank order, no atomics); with
+    torch.backends.cuda.matmul.allow_tf32 pinned False the reference runs in
+    full f32 and the kernel, whose products are its own split-TF32 ones,
+    stays within 1e-4 of it."""
+    from deepxi_tpu_torch.ops.kernels import mha_block_fused as mb
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(4)
+    w = mb.random_block_weights(gen, cuda)
+    x = torch.randn(1, 256, 256, generator=gen).to(cuda)
+    vf = (torch.arange(256) < 250).float()[None, None].to(cuda)
+    y = [mb.fused_transformer_block(x, vf, w, True) for _ in range(2)]
+    y_ref = mb.fused_transformer_block_ref(x, vf, w, True)
+    torch.cuda.synchronize()
+    assert torch.equal(y[0], y[1])
+    assert _close(y[0], y_ref, 1e-4), _rel_err(y[0], y_ref)
+
+
+@pytest.mark.cuda
+def test_transformer_block_launch_shapes(cuda):
+    """B=1 T=256 spreads both row kernels over more than 8 CTAs (16-row
+    slabs; the post kernel a cluster a slab); B=64 T=640 takes the
+    many-row shapes."""
+    from deepxi_tpu_torch.ops.kernels import mha_block_fused as mb
+    few, many = mb.block_grid(1, 256), mb.block_grid(64, 640)
+    assert few["qkv_ctas"] > 8 and few["post_ctas"] > 8, few
+    assert few["qkv_rows"] == 16 and few["post_rows"] == 16 and few["post_cluster"] > 1
+    assert many["post_cluster"] == 1 and many["post_rows"] > 16, many
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_heads,head_dim,d_ff", [(1, 4, 4), (5, 4, 40), (16, 64, 1024)])
+def test_transformer_block_kernel_at_domain_edges(cuda, n_heads, head_dim, d_ff):
+    """Widths at the edges of `kernel_takes`: one head of 4 (C = 4), C = 20
+    (no multiple of the m16n8k8 tile's 8), and 1024 columns; few rows and
+    many. 1e-4 of the output's scale."""
+    from deepxi_tpu_torch.ops.kernels import mha_block_fused as mb
+    gen = torch.Generator().manual_seed(n_heads)
+    C = n_heads * head_dim
+    w = mb.random_block_weights(gen, cuda, d_model=C, n_heads=n_heads, d_ff=d_ff)
+    for B, T, lengths in ((2, 40, [40, 23]), (40, 128, [128] * 40)):
+        x = torch.randn(B, T, C, generator=gen).to(cuda)
+        vf = (torch.arange(T)[None] < torch.as_tensor(lengths)[:, None]).float()
+        vf = vf[:, None, :].to(cuda)
+        y, y_ref = mb.fused_transformer_block(x, vf, w, True), mb.fused_transformer_block_ref(
+            x, vf, w, True)
+        torch.cuda.synchronize()
+        assert _close(y, y_ref, 1e-4), (B, T, _rel_err(y, y_ref))
 
 
 @pytest.mark.cuda

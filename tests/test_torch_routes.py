@@ -51,6 +51,17 @@ SMALL_MHANET = dict(d_model=32, n_blocks=2, n_heads=4)
     (mha_block_fused.kernel_takes, (32, 5, 128), False),
     (mha_block_fused.kernel_takes, (256, 2, 1024), False),
     (mha_block_fused.kernel_takes, (32, 4, 80), False),
+    # the edges of the block kernels' domain: one head of 4 (C = 4), heads
+    # whose width sum 8 does not divide (C = 20), 1024 columns, 32 heads
+    (mha_block_fused.kernel_takes, (4, 1, 4), True),
+    (mha_block_fused.kernel_takes, (20, 5, 40), True),
+    (mha_block_fused.kernel_takes, (1024, 16, 4096), True),
+    (mha_block_fused.kernel_takes, (1024, 32, 1024), True),
+    (mha_block_fused.kernel_takes, (1056, 33, 1056), False),
+    (mha_block_fused.kernel_takes, (20, 5, 30), False),
+    (tcn_fused.kernel_takes, (4, 4, 1), True),
+    (tcn_fused.kernel_takes, (1024, 1024, 2), True),
+    (tcn_fused.kernel_takes, (1028, 64, 3), False),
     (mha_fused.kernel_takes, (8, 32), True),
     (mha_fused.kernel_takes, (4, 8), True),
     (mha_fused.kernel_takes, (16, 64), True),

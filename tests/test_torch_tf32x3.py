@@ -1,14 +1,22 @@
 """The numerics of the split-TF32 tensor-core product (`csrc/mma_tf32x3.cuh`),
 emulated on the CPU.
 
-The redesigned TCN forward and attention kernels take every product on the
+The redesigned kernels (the TCN forward and backward, the attention, the
+fused transformer block's row kernels) take every product on the
 tensor cores as three TF32 products: each f32 operand x is split as
-hi = tf32(x) (cvt.rna: round to nearest, ties away from zero, 10 mantissa
-bits) and lo = tf32(x - hi), and a.b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi in
-f32. Here numpy emulates that product, runs the plain ResNetV2 block stack
-(flagship widths, 5 and 40 blocks) and the masked attention (B=1, T=250,
-8 heads of 32) through it, and holds each against float64 with the kernels'
-card gate: 1e-4 of the output's scale, every row compared. Plain TF32 (one
+hi = tf32(x) (round to nearest, ties away from zero, 10 mantissa bits, as
+cvt.rna rounds; the kernels round with integer instructions) and
+lo = tf32(x - hi), and a.b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi in f32;
+two k-steps (16 terms) are summed on the tensor cores and then added to
+the running sum in f32. Here numpy emulates that product, runs the plain
+ResNetV2 block stack (flagship widths, 5 and 40 blocks), the masked
+attention (B=1, T=250, 8 heads of 32) and the whole fused transformer block
+(its row kernels' column and FFN partition over a cluster of 8 CTAs, the
+partials summed in rank order) through it, and holds each against float64
+with the kernels' card gate: 1e-4 of the output's scale, every row
+compared; and the TCN backward's input- and weight-gradient products (the
+weight gradients over 12 row splits summed in order) at 2e-4 of each
+leaf's scale. Plain TF32 (one
 product of the rounded operands) is measured beside it and reported in the
 assertion message; it is no gate. These are the design's numerics on a
 machine without a card; the kernels themselves are held to their plain
@@ -20,9 +28,12 @@ import pytest
 import torch
 
 from deepxi_tpu_torch.models.tcn import cyclic_dilation
-from deepxi_tpu_torch.ops.kernels import mha_fused, tcn_fused
+from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_fused, tcn_fused,
+                                          tcn_fused_train)
 
 GATE = 1e-4  # the forward kernels' card gate, of the output's max abs
+GRAD_GATE = 2e-4  # the backward's card gate, of each leaf's max abs
+KG_TERMS = 16  # terms summed on the tensor cores before an f32 add (2 k-steps)
 
 
 def tf32(x):
@@ -163,3 +174,139 @@ def test_split_product_keeps_the_attention_inside_the_gate():
     assert np.isfinite(x3).all()
     assert err <= GATE, f"split TF32 {err:.3e}, plain TF32 {err_tf32:.3e} of scale"
     assert err < err_tf32, (err, err_tf32)
+
+
+def mm_grouped(a, b, mm=mm_tf32x3, group=KG_TERMS):
+    """a @ b as a kernel sums it: `group` terms of the contraction at a
+    time through `mm` (on the tensor cores), each group added to the
+    running f32 sum in order."""
+    dt = np.float64 if mm is mm_f64 else np.float32
+    acc = np.zeros((a.shape[0], b.shape[1]), dt)
+    for k0 in range(0, a.shape[1], group):
+        acc = acc + mm(a[:, k0:k0 + group], b[k0:k0 + group]).astype(dt)
+    return acc
+
+
+def _ln_affine(x, scale, bias):
+    return (_layer_norm(x) * scale + bias).astype(x.dtype)
+
+
+def _block_emulated(x, valid, w, mm, cluster=8, chunk=128):
+    """One causal transformer block on x [T, C] (one batch row) as the
+    kernels compute it: q, k, v, o Wo and both FFN products through `mm`
+    in KG_TERMS groups; the FFN's intermediate columns cut into `cluster`
+    ranges (`chunk` at a time, the chunks' W2 products added in order), the
+    ranks' partials summed in rank order, then x1 and b2 added. With
+    mm = mm_f64 and float64 inputs it is the block's function."""
+    f = x.dtype.type
+    H, C, dk = w.qk.shape
+    cat = lambda t: t.transpose(1, 0, 2).reshape(C, H * dk)  # noqa: E731
+    mmg = lambda a, b: mm_grouped(a, b, mm).astype(x.dtype) if mm is not mm_f64 \
+        else mm_f64(a, b)  # noqa: E731
+    q = mmg(x, cat(w.qk)) * f(dk ** -0.5)
+    k, v = mmg(x, cat(w.kk)), mmg(x, cat(w.vk))
+    split = lambda t: t.reshape(1, -1, H, dk)  # noqa: E731
+    o = _attention(split(q), split(k), split(v), valid[None], mm)[0].reshape(-1, C)
+    x1 = _ln_affine(x + mmg(o, w.ok.reshape(C, C)), w.ln1_s, w.ln1_b)
+    F = w.ff1_w.shape[1]
+    partials = []
+    for r in range(cluster):
+        f0, f1 = r * F // cluster, (r + 1) * F // cluster
+        z = np.zeros_like(x1)
+        for c0 in range(f0, f1, chunk):
+            c1 = min(c0 + chunk, f1)
+            u = np.maximum(mmg(x1, w.ff1_w[:, c0:c1]) + w.ff1_b[c0:c1], 0)
+            z = z + mmg(u, w.ff2_w[c0:c1])
+        partials.append(z)
+    s = partials[0]
+    for z in partials[1:]:
+        s = s + z
+    return _ln_affine(x1 + s + w.ff2_b, w.ln2_s, w.ln2_b)
+
+
+def test_split_product_keeps_the_transformer_block_inside_the_gate():
+    """mhanet-1.1c's widths (d_model 256, 8 heads of 32, d_ff 1024), B=1,
+    T=250 padded to Tp=256 (six zero, invalid rows): the block with the
+    row kernels' products (split TF32, 16-term groups) and the cluster's
+    partition and rank-order sum within 1e-4 of float64's scale on every
+    row, padded rows included; the float64 emulation is first held to the
+    port's plain `fused_transformer_block_ref`."""
+    gen = torch.Generator().manual_seed(8)
+    w = mha_block_fused.random_block_weights(gen, "cpu")
+    valid = torch.arange(256)[None] < 250
+    x = torch.randn(1, 256, 256, generator=gen) * valid[:, :, None]
+    vf = valid[:, None, :].float()
+    plain = mha_block_fused.fused_transformer_block_ref(
+        x.double(), vf.double(), mha_block_fused.BlockWeights(*(t.double() for t in w)),
+        True).numpy()[0]
+    wn = mha_block_fused.BlockWeights(*(t.numpy() for t in w))
+    w64 = mha_block_fused.BlockWeights(*(t.astype(np.float64) for t in wn))
+    xn, vn = x.numpy()[0], valid.numpy()[0]
+    ref64 = _block_emulated(xn.astype(np.float64), vn, w64, mm_f64)
+    assert _rel(ref64, plain) < 1e-12  # the emulated block is the port's function
+    x3 = _block_emulated(xn, vn, wn, mm_tf32x3)
+    t1 = _block_emulated(xn, vn, wn, mm_tf32)
+    err, err_tf32 = _rel(x3, ref64), _rel(t1, ref64)
+    assert np.isfinite(x3).all()
+    assert err <= GATE, f"split TF32 {err:.3e}, plain TF32 {err_tf32:.3e} of scale"
+    assert err < err_tf32, (err, err_tf32)
+
+
+def _wgrad_emulated(act, grad, mm, splits=12, stage=64):
+    """act^T grad over the N rows as the weight-gradient kernel sums it:
+    `splits` fixed row slices, each in stages of `stage` rows taken
+    KG_TERMS rows at a time through `mm`, the slices' partials added in
+    order."""
+    N = act.shape[0]
+    dt = np.float64 if mm is mm_f64 else np.float32
+    total = np.zeros((act.shape[1], grad.shape[1]), dt)
+    for s in range(splits):
+        r0, r1 = N * s // splits, N * (s + 1) // splits
+        part = np.zeros_like(total)
+        for c0 in range(r0, r1, stage):
+            for k0 in range(c0, min(c0 + stage, r1), KG_TERMS):
+                k1 = min(k0 + KG_TERMS, r1)
+                part = part + mm(act[k0:k1].T, grad[k0:k1]).astype(dt)
+        total = total + part
+    return total
+
+
+def test_split_product_keeps_the_tcn_backward_products_inside_the_gate():
+    """The TCN backward's products at full width (d_model 256, d_f 64, k 3,
+    dilation 16) over N = 2048 rows (B=8, T=256), on one block's real
+    activations and gradients from the port's plain backward: the input
+    gradients da3 = dout W3^T, da2 = sum_j dy(shifted) W2[j]^T, da = du1
+    W1^T (16-term groups, taps in turn) and the weight gradients dW1 =
+    a^T du1, dW2[j] = a2(shifted)^T dy, dW3 = a3^T dout (12 row splits
+    summed in order), each within 2e-4 of its float64 value's scale."""
+    gen = torch.Generator().manual_seed(6)
+    (bw,) = tcn_fused.random_block_weights(1, gen, "cpu")
+    d, k, T = 16, 3, 256
+    h = torch.relu(torch.randn(8, T, 256, generator=gen))
+    dout = torch.randn(8, T, 256, generator=gen)
+    a, u1, a2p, y = tcn_fused_train._block_preacts(h, bw, d, k)
+    a3 = tcn_fused.layer_norm(torch.relu(y))
+    dy = tcn_fused_train._ln_bwd(dout @ bw.w3[0].T, torch.relu(y)) * (y > 0)
+    dyp = torch.nn.functional.pad(dy, (0, 0, 0, (k - 1) * d))
+    da2 = sum(dyp[:, (k - 1 - j) * d:(k - 1 - j) * d + T] @ bw.w2[j].T for j in range(k))
+    du1 = tcn_fused_train._ln_bwd(da2, torch.relu(u1)) * (u1 > 0)
+    rows = lambda t: t.reshape(-1, t.shape[-1]).numpy()  # noqa: E731
+    shifted = [rows(a2p[:, j * d:j * d + T]) for j in range(k)]
+    ahead = [rows(dyp[:, (k - 1 - j) * d:(k - 1 - j) * d + T]) for j in range(k)]
+    w1, w2, w3 = bw.w1[0].numpy(), bw.w2.numpy(), bw.w3[0].numpy()
+    products = {
+        "da3": lambda mm: mm_grouped(rows(dout), w3.T, mm),
+        "da2": lambda mm: sum(mm_grouped(ahead[j], w2[j].T, mm) for j in range(k)),
+        "da": lambda mm: mm_grouped(rows(du1), w1.T, mm),
+        "dW1": lambda mm: _wgrad_emulated(rows(a), rows(du1), mm),
+        "dW3": lambda mm: _wgrad_emulated(rows(a3), rows(dout), mm),
+        **{f"dW2[{j}]": (lambda mm, j=j: _wgrad_emulated(shifted[j], rows(dy), mm))
+           for j in range(k)},
+    }
+    for name, fn in products.items():
+        ref64 = fn(mm_f64)
+        x3, t1 = fn(mm_tf32x3), fn(mm_tf32)
+        err, err_tf32 = _rel(x3, ref64), _rel(t1, ref64)
+        assert np.isfinite(x3).all()
+        assert err <= GRAD_GATE, f"{name}: split TF32 {err:.3e}, plain TF32 {err_tf32:.3e}"
+        assert err < err_tf32, (name, err, err_tf32)

@@ -25,16 +25,19 @@ the profiled window's wall time and idle share, and the unprofiled median's
 idle share given the traced device time per call. Needs one NVIDIA card.
 
 `kernels` times the redesigned kernels (the TCN forward's four routes, the
-fused transformer block and both attentions) and their library yardsticks at
+TCN backward in saved and replay mode, the fused transformer block and both
+attentions) and their library yardsticks at
 chip_smoke.py phase 4's shapes, each two ways: CUDA events around `--iters`
 back-to-back calls (chip_smoke.py's `cuda_ms`: what the host adds between
 launches included), and the device-only time, the summed device durations
 of the operations a call launches under torch.profiler (`device_ms`), with
-their count per call.
+their count per call; for the TCN backward and the transformer block, the
+device time of each kernel they launch.
 """
 
 import argparse
 import os
+import re
 import sys
 import time
 
@@ -49,12 +52,26 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 MATMUL = ("gemm", "gemv", "xmma", "cutlass", "sm90")
 
 
-def device_ms(fn, iters=20, warmup=3):
+def short_name(name: str) -> str:
+    """A device operation's name without its return type, namespace and
+    parameter list: `mha_attention_kernel<1, float>`."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = re.sub(r"^void ", "", name).strip()
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0 and i > 0:
+            return name[:i]
+    return name
+
+
+def device_ms(fn, iters=20, warmup=3, by_name=False):
     """(ms, operations) per call on the device alone: the summed device
     durations of the kernels and copies `fn` launches over `iters` calls
     under torch.profiler, after warm-up, and their count, per call. Host
     time between launches is left out; raises when the trace holds no
-    device time."""
+    device time. With `by_name`, a third item: {short name: (ms, launches)
+    per call}."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -62,15 +79,22 @@ def device_ms(fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ops = [e.time_range.elapsed_us() for e in prof.events()
+    ops = [(short_name(e.name), e.time_range.elapsed_us()) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ops:
         raise RuntimeError("the trace holds no device time")
-    return sum(ops) / 1e3 / iters, len(ops) / iters
+    total = (sum(t for _, t in ops) / 1e3 / iters, len(ops) / iters)
+    if not by_name:
+        return total
+    split = {}
+    for name, t in ops:
+        ms, n = split.get(name, (0.0, 0))
+        split[name] = (ms + t / 1e3 / iters, n + 1 / iters)
+    return (*total, split)
 
 
 def kernel_calls():
-    """(row, shape, kernel call, library call or None) of PERF.md rows 1-4
+    """(row, shape, kernel call, library call or None) of PERF.md rows 1-5
     and 8-10 at chip_smoke.py phase 4's shapes, seeded."""
     from deepxi_tpu_torch.models.attention import NEG_INF_V2
     from deepxi_tpu_torch.models.tcn import cyclic_dilation
@@ -104,6 +128,15 @@ def kernel_calls():
     calls.append(("4 fused_block_group_whole_saved", "B=8 T=256 G=10",
                   lambda x=x: tcn_fused_train.fused_block_group_whole_saved(x, w10, dil),
                   None))
+    dout = torch.randn(8, 256, 256, generator=gen).to(dev)
+    _, hs = tcn_fused_train.fused_block_group_whole_saved(x, w10, dil)
+    calls += [
+        ("5 fused_block_group_bwd", "B=8 T=256 G=10 saved",
+         lambda x=x, dout=dout, hs=hs: tcn_fused_train.fused_block_group_bwd(
+             x, dout, w10, dil, saved_h=hs), None),
+        ("5 fused_block_group_bwd", "B=8 T=256 G=10 replay",
+         lambda x=x, dout=dout: tcn_fused_train.fused_block_group_bwd(x, dout, w10, dil),
+         None)]
 
     wm = mha_block_fused.random_block_weights(gen, dev)
     layer = torch.nn.TransformerEncoderLayer(
@@ -145,14 +178,21 @@ def kernels_report(iters):
     from chip_smoke import cuda_ms
 
     """Print each kernel's and its library call's CUDA-events and device-only
-    times (`kernel_calls`)."""
+    times (`kernel_calls`); for the rows whose call launches several
+    kernels (5, the TCN backward, and 8, the transformer block), the device
+    time of each kernel."""
     print(f"card: {torch.cuda.get_device_name(0)}; CUDA events over {iters} calls, "
           f"device-only over {iters} profiled calls")
     with torch.no_grad():
         for row, shape, call, lib in kernel_calls():
-            ev, (dev_ms, ops) = cuda_ms(call, iters), device_ms(call, iters)
+            ev, (dev_ms, ops, split) = cuda_ms(call, iters), device_ms(call, iters,
+                                                                       by_name=True)
             line = (f"row {row} {shape}: events {ev:.4f} ms, device {dev_ms:.4f} ms "
                     f"({ops:g} operations a call)")
+            if row.split()[0] in ("5", "8"):
+                line += "; by kernel: " + ", ".join(
+                    f"{name} {ms:.4f} ms ({n:g} a call)"
+                    for name, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]))
             if lib is not None:
                 lev, (ldev, lops) = cuda_ms(lib, iters), device_ms(lib, iters)
                 line += (f"; library events {lev:.4f} ms, device {ldev:.4f} ms "
