@@ -23,8 +23,14 @@ Phases (any failure exits non-zero before the result line):
      attention at T=2250, causal and not, and both attentions at T=1, T=17,
      every row invalid and B=2 lengths [250, 83] (the streaming one at
      256/512 and 64/128 tiles); the KV-cache attention step of streaming
-     MHANet at B=3, L=2048 with f32 and bf16 caches, the clock at 0, 700,
-     2047 and 2500 (past the cap), every cache row nonzero; the pack2 TCN
+     MHANet at B=1, 3 and 256, L=2048 with f32 and bf16 caches, the clock at
+     0, 31, 32, 700, 2047 and 2500 (past the cap), given as an int and as a
+     device int32 tensor, every cache row nonzero, each batch row within the
+     gate and a second call bitwise equal, and one call captured in a CUDA
+     graph at t=5 and replayed with the device clock at 700 and 2500
+     (against the plain version at the new clock), and at B=1 graph
+     replays on one stream while eager calls of the same shape run on
+     another, each output against the plain version; the pack2 TCN
      kernel (two batch rows a CTA) at B=3 (odd) and 4, T=250 and 1024, and
      at B=96 T=625, G=20, both LayerNorm modes; the
      spectral kernels (an FFT a frame: |X| of hop rows, and gain times
@@ -58,7 +64,11 @@ Phases (any failure exits non-zero before the result line):
      once a block and hop and give the port's offline enhancer's waveform
      (plain MHANetV3) and an SNR above the noisy one; then with bf16 caches
      (against the f32 stream, the JAX test's limits), through `step_block`
-     of 8 hops and with fused=False (against the steps); the trained
+     of 8 hops and with fused=False (against the steps); one eager fused hop
+     under torch.cuda.set_sync_debug_mode("error") (it must not
+     synchronise with the host); the utterance again through one captured
+     hop replayed as a CUDA graph, f32 and bf16 caches, against the eager
+     stream (to 1e-6 of its scale) and the offline enhancer; the trained
      resnet-1.1c through `StreamingEnhancer.step`, against the offline
      enhancer and the noisy SNR;
   3e. the last three kernels' paths: resnet-1.1c enhancement of the 4 s
@@ -89,10 +99,12 @@ Phases (any failure exits non-zero before the result line):
      versions and a library yardstick (nn.TransformerEncoderLayer, or
      scaled_dot_product_attention with the same float mask; checked first
      on valid rows) and mhanet-1.1c enhancement, fused against plain; the
-     KV-cache kernel at B=1 and B=256, t=1023, f32 and bf16 caches, against
-     its plain version and scaled_dot_product_attention; streaming hops on
-     the host clock against the 16 ms hop: MHANet `step` at B=1 (f32) and
-     B=256 (bf16 caches, t=1023), `step_block` of 8 hops at B=256 against
+     KV-cache kernel at B=1 and B=256, t=1023 on the device, f32 and bf16
+     caches, against its plain version and scaled_dot_product_attention,
+     with the device-only times; streaming hops on the host clock against
+     the 16 ms hop: MHANet `step` at B=1 (f32) and B=256 (bf16 caches,
+     t=1023), eager and one captured hop replayed as a CUDA graph,
+     `step_block` of 8 hops at B=256 against
      its 128 ms, and the ResNet `step` at B=1 and B=4096; the pack2 kernel
      (both modes) beside the unpacked kernel and its plain version, and the
      spectral kernels (in turns with cuFFT) beside their plain versions and
@@ -367,7 +379,7 @@ def main():
     # every kernel at the flagship widths, and at phase 3f's small widths
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import torch_small_widths
-    from torch_profile import device_ms
+    from torch_profile import WARMUPS, captured, device_ms, stream_replayed
     flagship = [tcn_fused.build_spec("tcn_fused", 256, 64, 3),
                 tcn_fused.build_spec("tcn_fused", 256, 128, 3),  # weights read from memory
                 tcn_fused.build_spec("tcn_fused_train", 256, 64, 3), "spectral",
@@ -590,16 +602,65 @@ def main():
                           ref(q, k, v, valid, causal, **kw_))
 
     # the KV-cache step: rows past the clock hold values, so only the mask
-    # (or, in the kernel, the n_valid limit) leaves them out
-    q = (torch.randn(3, 8, 32, generator=gen) * 32 ** -0.5).to(dev)
-    kv = [torch.randn(3, 2048, 8, 32, generator=gen).to(dev) for _ in range(2)]
-    for dtype in (torch.float32, torch.bfloat16):
-        kc, vc = (c.to(dtype) for c in kv)
-        for t in (0, 700, 2047, 2500):
-            check("mha_cache_step", f"B=3 L=2048 {dtype} caches, t={t}",
-                  mha_cache.mha_cache_step(q, kc, vc, t),
-                  mha_cache.mha_cache_step_ref(q, kc, vc, t))
-    del kv, kc, vc
+    # (or, in the kernel, the n_valid limit) leaves them out. The clock as an
+    # int and as a device int32 tensor, each batch row within the gate, a
+    # second call bitwise the same; then one call captured in a CUDA graph
+    # at t = 5 and replayed after the device clock moved (the kernel reads
+    # the clock when it runs)
+    for B in (1, 3, 256):
+        q = (torch.randn(B, 8, 32, generator=gen) * 32 ** -0.5).to(dev)
+        kv = [torch.randn(B, 2048, 8, 32, generator=gen).to(dev) for _ in range(2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            kc, vc = (c.to(dtype) for c in kv)
+            for t in (0, 31, 32, 700, 2047, 2500):
+                y_ref = mha_cache.mha_cache_step_ref(q, kc, vc, t)
+                for clock in (t, torch.tensor(t, dtype=torch.int32, device=dev)):
+                    y = mha_cache.mha_cache_step(q, kc, vc, clock)
+                    check("mha_cache_step", f"B={B} L=2048 {dtype} caches, t={t} "
+                          f"({type(clock).__name__} clock)", y.flatten(1),
+                          y_ref.flatten(1), per_row=True)
+                    if not torch.equal(mha_cache.mha_cache_step(q, kc, vc, clock), y):
+                        fail(f"mha_cache_step is not bitwise repeatable (B={B} t={t})")
+            clock = torch.tensor(5, dtype=torch.int32, device=dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y = mha_cache.mha_cache_step(q, kc, vc, clock)
+            for t in (700, 2500):
+                clock.fill_(t)
+                graph.replay()
+                check("mha_cache_step", f"B={B} {dtype} caches, a graph captured at t=5 "
+                      f"replayed at t={t}", y.flatten(1),
+                      mha_cache.mha_cache_step_ref(q, kc, vc, t).flatten(1), per_row=True)
+            del graph
+    print("[2] mha_cache_step: two calls bitwise equal at every case above")
+    # two streams at once with one shape (B=1: 64 splits, so the merge's
+    # scratch and counters are in use): one replays a graph captured at its
+    # clock, the other calls the kernel eagerly at another, 20 times each
+    # without a synchronisation; every output against the plain version
+    q2 = (torch.randn(2, 1, 8, 32, generator=gen) * 32 ** -0.5).to(dev)
+    kv2 = [torch.randn(1, 2048, 8, 32, generator=gen).to(dev) for _ in range(4)]
+    clocks = [torch.tensor(t, dtype=torch.int32, device=dev) for t in (700, 2047)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = mha_cache.mha_cache_step(q2[0], kv2[0], kv2[1], clocks[0])
+    sides = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for side in sides:
+        side.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        with torch.cuda.stream(sides[0]):
+            graph.replay()
+            outs[0].append(y_graph.clone())
+        with torch.cuda.stream(sides[1]):
+            outs[1].append(mha_cache.mha_cache_step(q2[1], kv2[2], kv2[3], clocks[1]))
+    torch.cuda.synchronize()
+    for i, (what, (kc2, vc2)) in enumerate((("graph replays", kv2[:2]),
+                                            ("eager calls", kv2[2:]))):
+        y_ref = mha_cache.mha_cache_step_ref(q2[i], kc2, vc2, int(clocks[i]))
+        check("mha_cache_step", f"B=1 f32 caches, t={int(clocks[i])}, 20 {what} on one "
+              f"of two streams at once", torch.cat([y.flatten(1) for y in outs[i]]),
+              y_ref.flatten(1).repeat(20, 1), per_row=True)
+    del graph, kv, kc, vc, kv2, outs
 
     # the pack2 kernel: an odd B gives the last CTA a zero second row; the
     # rows differ, so a pair's rows swapped would show. Two windows of 32
@@ -904,6 +965,37 @@ def main():
         return ((y - ref).abs().max().item(),
                 ((y - ref).square().mean() / ref.square().mean()).sqrt().item())
 
+    def replayed_wave(s, wav):
+        """As `stream_steps`, every hop after priming a replay of one hop
+        captured in a CUDA graph (torch_profile.stream_replayed). Returns
+        (waveform, KV-cache launches counted: those of the capture and its
+        warm-up hops, none of the replays)."""
+        xd = torch.as_tensor(wav, device=dev)[None]
+        n = xd.shape[1] // 256
+        state = s.prime(s.init_state(1), xd[:, :256])
+        rest = torch.cat([xd[:, 256:n * 256], torch.zeros(1, 256, dtype=xd.dtype, device=dev)], 1)
+        n0 = mha_cache.mha_cache_step.launches
+        state, y = stream_replayed(s, state, rest)
+        torch.cuda.synchronize()
+        if int(state.t) != n:
+            fail(f"the replayed stream's clock is {int(state.t)}, not {n}")
+        return y[0], mha_cache.mha_cache_step.launches - n0
+
+    def sync_free_hop(s, wav):
+        """One eager fused hop, after a warm one, under
+        torch.cuda.set_sync_debug_mode("error"): it raises if the hop
+        synchronises with the host."""
+        xd = torch.as_tensor(wav, device=dev)[None]
+        state = s.prime(s.init_state(1), xd[:, :256])
+        state, _ = s.step(state, xd[:, 256:512])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s.step(state, xd[:, 512:768])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
     counted["mha_cache_step"] = mha_cache.mha_cache_step
     for label, art_s, offline, ctor in (
             ("mhanet-1.1c, StreamingMHANet(fused=True)", art_m, enhance_plain_m,
@@ -954,6 +1046,38 @@ def main():
                   f"rel RMS {rel:.3e} (tol {rel_tol:.0e})")
             if not (torch.isfinite(y_v).all() and err <= atol and rel <= rel_tol):
                 fail(f"{label}: {what} disagrees")
+
+        # the hop as one CUDA graph: an eager fused hop must not synchronise
+        # with the host; the stream through one captured hop, replayed, must
+        # give the eager stream (the same kernels on the same inputs: bitwise
+        # expected, held to 1e-6 of the waveform's scale) and so the offline
+        # enhancer's waveform
+        sync_free_hop(s, art_s.noisy)
+        print(f"[3d] {label}: an eager fused hop ran under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+        for cache, y_eager in (("f32", y), ("bf16", variants[0][3])):
+            s_g = s if cache == "f32" else ctor(art_s, cache_dtype=torch.bfloat16)
+            y_g, n_replay = replayed_wave(s_g, art_s.noisy)
+            err = (y_g - y_eager).abs().max().item()
+            scale = y_eager.abs().max().item()
+            w_err, w_rel = wave_errs(y_g, y_off)
+            print(f"[3d] {label}, {cache} caches, one captured hop replayed {n_hops} "
+                  f"times: against the eager stream bitwise "
+                  f"{bool(torch.equal(y_g, y_eager))}, max abs err {err:.3e} (tol "
+                  f"{1e-6 * scale:.1e}, 1e-6 of its scale); against the offline enhancer "
+                  f"max abs err {w_err:.3e}, rel RMS {w_rel:.3e}; KV-cache launches "
+                  f"counted: {n_replay}, {len(s.blocks)} for each of the {WARMUPS} warm-up "
+                  f"hops and the captured one (a replay runs the captured launches without "
+                  f"calling the wrapper, so it counts none; the eager stream counted "
+                  f"{len(s.blocks)} a hop)")
+            if not (torch.isfinite(y_g).all() and y_g.shape == y_eager.shape
+                    and err <= 1e-6 * scale):
+                fail(f"{label}, {cache} caches: the replayed stream disagrees with the eager one")
+            if n_replay != (WARMUPS + 1) * len(s.blocks):
+                fail(f"{label}, {cache} caches: {n_replay} KV-cache launches around the "
+                     f"replayed stream, not {(WARMUPS + 1) * len(s.blocks)}")
+            if cache == "f32" and (w_err > WAVE_ATOL or w_rel > WAVE_REL_RMS):
+                fail(f"{label}: the replayed stream disagrees with the offline enhancer")
 
     # 3e. the last three kernels' paths ---------------------------------------
     counted.update({"fused_block_group_whole_pack2": tcn_fused.fused_block_group_whole_pack2,
@@ -1457,6 +1581,7 @@ def main():
     # f32 with the same float mask (scale 1: q is pre-scaled)
     gcu = torch.Generator(device=dev).manual_seed(0)
     t_clock = 1023
+    t_dev = torch.tensor(t_clock, dtype=torch.int32, device=dev)  # the stream's clock
     neg_mask = (mha_fused.NEG_INF_V2
                 * (torch.arange(2048, device=dev) > t_clock).float()).view(1, 1, 1, -1)
     row = {"name": "mha_cache_step", "route": "cuda",
@@ -1474,23 +1599,29 @@ def main():
                 def sdpa():
                     return torch.nn.functional.scaled_dot_product_attention(
                         q[:, :, None], kh, vh, attn_mask=neg_mask, scale=1.0)[:, :, 0]  # noqa: B023
-                y = mha_cache.mha_cache_step(q, kc, vc, t_clock)
+                y = mha_cache.mha_cache_step(q, kc, vc, t_dev)
                 lib_rel = ((sdpa() - y).abs().max() / y.abs().max()).item()
                 if lib_rel > LIB_TOL_REL:
                     fail(f"scaled_dot_product_attention is not mha_cache_step's function "
                          f"({lib_rel:.3e})")
-                ms = cuda_ms(lambda: mha_cache.mha_cache_step(q, kc, vc, t_clock))  # noqa: B023
-                plain = cuda_ms(lambda: mha_cache.mha_cache_step_ref(q, kc, vc, t_clock))  # noqa: B023
+                def kernel():
+                    return mha_cache.mha_cache_step(q, kc, vc, t_dev)  # noqa: B023
+                ms = cuda_ms(kernel)
+                plain = cuda_ms(lambda: mha_cache.mha_cache_step_ref(q, kc, vc, t_dev))  # noqa: B023
                 lib = cuda_ms(sdpa)
+                dev_ms, ops = device_ms(kernel)
+                lib_dev, lib_ops = device_ms(sdpa)
                 bound, by = cache_bound_ms(B, t_clock + 1, kc.element_size())
                 cache = "f32" if dtype == torch.float32 else "bf16"
-                print(f"[4] mha_cache_step: B={B} L=2048 t={t_clock} {cache} caches: {ms:.4f} ms; "
+                print(f"[4] mha_cache_step: B={B} L=2048 t={t_clock} (device clock) {cache} "
+                      f"caches: {ms:.4f} ms (device only {dev_ms:.4f} ms, {ops:g} operations); "
                       f"plain {plain:.4f} ms; scaled_dot_product_attention {lib:.4f} ms "
-                      f"(within {lib_rel:.1e} rel); bound {bound:.4f} ms ({by}); "
-                      f"{bound / ms:.1%} of the bound")
-                times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                             library_ms=lib, shape={"B": B, "L": 2048, "t": t_clock,
-                                                    "cache": cache})
+                      f"(device only {lib_dev:.4f} ms; within {lib_rel:.1e} rel); bound "
+                      f"{bound:.4f} ms ({by}); {bound / ms:.1%} of the bound, device only "
+                      f"{bound / dev_ms:.1%}")
+                times = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                             bound_by=by, library_ms=lib, library_device_ms=lib_dev,
+                             shape={"B": B, "L": 2048, "t": t_clock, "cache": cache})
                 row.update(times if (B, cache) == (1, "f32") else {f"at_b{B}_{cache}": times})
             del kv, kc, vc, kh, vh
     kernels.append(row)
@@ -1511,7 +1642,7 @@ def main():
         st = s.init_state(B)
         for c in st.k_caches + st.v_caches:
             c.copy_(torch.randn(c.shape, device=dev, generator=gcu))
-        return st._replace(t=t_clock)
+        return st._replace(t=t_dev.clone())
 
     chunks = {(B, n): torch.randint(-3000, 3000, (B, n), dtype=torch.int16, device=dev,
                                generator=gcu)
@@ -1526,6 +1657,12 @@ def main():
         for route, s in routes.items():
             hop_times(f"mhanet-1.1c step ({route}, {cache} caches) B={B} t={t_clock}",
                       lambda: s.step(st, chunks[B, 256]), HOP_BUDGET_MS)  # noqa: B023
+        # the same hop each replay: `step` returns a new clock, so the
+        # captured state stays at t_clock
+        hop_times(f"mhanet-1.1c step (fused, {cache} caches) B={B} t={t_clock}, one captured "
+                  f"CUDA graph replayed (launches are not counted in a replay)",
+                  captured(lambda: routes["fused"].step(st, chunks[B, 256]))[0],  # noqa: B023
+                  HOP_BUDGET_MS)
         if B == 256:
             hop_times(f"mhanet-1.1c step_block of 8 hops ({cache} caches) B={B} t={t_clock}",
                       lambda: routes["fused"].step_block(st, chunks[B, 8 * 256]),  # noqa: B023

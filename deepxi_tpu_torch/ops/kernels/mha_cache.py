@@ -12,9 +12,25 @@ mask of written rows ``valid = arange(L) <= t`` for the stream's clock `t`
 logits ``q.k + (-1e10)(1 - valid)`` over all L rows, a full-row float32
 softmax, then the weighted values: [B, H, d] float32. The JAX function takes
 the mask itself; streaming only ever hands it this one, so the port takes
-`t`, and the kernel gets ``n_valid = min(t + 1, L)`` as a launch argument:
-row 0 is always valid, so each masked row's weight is exp(-1e10 + ...) = 0
-exactly in float32 and the kernel reads only the written rows.
+`t`: a Python int >= 0, or a 0-d int32 tensor on q's device (the stream's
+clock, as `MHAStreamState.t`), which must hold a value >= 0. On the card the
+kernel reads the clock from device memory (an int is first written into a
+one-element device tensor) and visits only the n_valid = min(t + 1, L)
+written rows: row 0 is always valid, so each masked row's weight is
+exp(-1e10 + ...) = 0 exactly in float32. The wrapper reads no device value
+back, so a call can be captured in a CUDA graph and replayed at later
+clocks.
+
+One launch a call, whose grid depends only on (B, L): `key_splits` CTAs a
+batch row, each taking the 32-key chunks `split_keys` gives it; with more
+than one split the last CTA of a row merges the partial softmaxes, which
+each call writes to scratch of its own (from the stream-ordered caching
+allocator, or the graph's pool under capture), using a counter a row. An
+eager call takes the counters of its stream, made zero at the stream's
+first call and left zero by the kernel, so calls on one stream are ordered
+and calls on two streams never share them; a call under graph capture takes
+new zeros from the graph's pool (a fill node of the graph), so replays share
+them with nothing else.
 
 The heads' widths are compile-time constants of the kernel, built once per
 set of widths that `mha_fused.kernel_takes` accepts; at any other the
@@ -32,21 +48,21 @@ import functools
 import torch
 
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
-from deepxi_tpu_torch.ops.kernels import refuse_autograd
+from deepxi_tpu_torch.ops.kernels import launch_context, raw_stream, refuse_autograd
 from deepxi_tpu_torch.ops.kernels.mha_fused import head_defines, kernel_takes
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
-# Keys a warp scores at a time (csrc/mha_cache.cu TK), and the CTAs a launch
-# aims for (about four a streaming multiprocessor): below that many batch
-# rows the keys are split across CTAs and the partial softmaxes merged.
-TILE_KEYS = 32
-SPLIT_CTAS = 528
+# Keys of the split's unit (csrc/mha_cache.cu CHUNK), and the CTAs a launch
+# aims for (two on each of the H100's 132 streaming multiprocessors): below
+# that many batch rows the keys are split across CTAs.
+CHUNK_KEYS = 32
+SPLIT_CTAS = 264
 
 
 def mha_cache_step_ref(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                       t: int) -> torch.Tensor:
+                       t) -> torch.Tensor:
     """Plain version: the additive mask over all L rows and a full-row
-    softmax on the caches upcast to float32."""
+    softmax on the caches upcast to float32; t an int or a 0-d tensor."""
     L = kc.shape[1]
     valid = (torch.arange(L, device=q.device) <= t).to(torch.float32)
     logits = torch.einsum("bHd,bLHd->bHL", q, kc.to(torch.float32))
@@ -55,8 +71,8 @@ def mha_cache_step_ref(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return torch.einsum("bHL,bLHd->bHd", w, vc.to(torch.float32))
 
 
-def _check(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, t: int) -> None:
-    """Raise on what the kernel does not take."""
+def _check(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, t) -> None:
+    """Raise on what the kernel does not take (reading no device value)."""
     if q.dtype != torch.float32 or q.dim() != 3 or not kernel_takes(*q.shape[1:]):
         raise ValueError(f"q must be float32 [B, H, d] with heads the kernel "
                          f"takes (mha_fused.kernel_takes), not {tuple(q.shape)} "
@@ -64,25 +80,37 @@ def _check(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, t: int) -> None:
     B, H, d = q.shape
     if (kc.dtype not in CACHE_DTYPES or kc.dim() != 4 or kc.shape[0] != B
             or tuple(kc.shape[2:]) != (H, d) or vc.shape != kc.shape
-            or vc.dtype != kc.dtype):
-        raise ValueError(f"kc and vc must be [B={B}, L, {H}, {d}] caches of one "
-                         f"dtype (float32 or bfloat16), not {tuple(kc.shape)} "
+            or vc.dtype != kc.dtype or not 1 <= B <= 65535):
+        raise ValueError(f"kc and vc must be [B={B} <= 65535, L, {H}, {d}] caches of "
+                         f"one dtype (float32 or bfloat16), not {tuple(kc.shape)} "
                          f"{kc.dtype} and {tuple(vc.shape)} {vc.dtype}")
     for x in (q, kc, vc):
         if not x.is_contiguous() or x.device != q.device or x.data_ptr() % 16:
             raise ValueError("q, kc and vc must be contiguous, 16-byte aligned "
                              "and on one device")
-    if not isinstance(t, int) or t < 0:
-        raise ValueError(f"the clock t must be an int >= 0, not {t!r}")
+    if isinstance(t, torch.Tensor):
+        if t.dim() != 0 or t.dtype != torch.int32 or t.device != q.device:
+            raise ValueError(f"a tensor clock t must be 0-d int32 on {q.device}, not "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    elif not isinstance(t, int) or isinstance(t, bool) or t < 0:
+        raise ValueError(f"the clock t must be an int >= 0 or a 0-d int32 tensor, "
+                         f"not {t!r}")
 
 
-def key_splits(B: int, n_valid: int):
-    """(keys a CTA walks, CTAs a batch row): one run of all n_valid keys
-    when B alone fills the card, else runs of whole 32-key tiles."""
-    tiles = -(-n_valid // TILE_KEYS)
-    want = min(tiles, max(1, -(-SPLIT_CTAS // B)))
-    per = -(-tiles // want) * TILE_KEYS
-    return per, -(-n_valid // per)
+def key_splits(B: int, L: int) -> int:
+    """CTAs a batch row (the kernel's grid x): one when B alone fills the
+    card's CTA slots, else enough for SPLIT_CTAS, at most one a chunk."""
+    return max(1, min(-(-L // CHUNK_KEYS), SPLIT_CTAS // B))
+
+
+def split_keys(S: int, L: int, t: int):
+    """The Python twin of the kernel's split: the key range [k0, k1) of
+    each of the S CTAs of a batch row at the clock t (empty when k0 >= k1):
+    the balanced split of the written rows' 32-key chunks."""
+    n_valid = min(max(t, 0) + 1, L)
+    nc = -(-n_valid // CHUNK_KEYS)
+    return [(s * nc // S * CHUNK_KEYS, min((s + 1) * nc // S * CHUNK_KEYS, n_valid))
+            for s in range(S)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,36 +120,50 @@ def _lib(n_heads: int, head_dim: int) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mha_cache_error_string.argtypes = [i]
     lib.mha_cache_error_string.restype = ctypes.c_char_p
-    lib.mha_cache_forward.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.mha_cache_forward.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.mha_cache_forward.restype = i
     return lib
 
 
+_COUNTERS = {}
+
+
+def _counters(device: torch.device, B: int) -> torch.Tensor:
+    """Zeros for the merge's counters of B rows: under graph capture new
+    ones in the graph's pool; else the current stream's, made at its first
+    call (65535 rows, the most a launch takes) and left zero by the kernel."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(B, dtype=torch.int32, device=device)
+    key = (device, raw_stream(device))
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(65535, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
 def mha_cache_step(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                   t: int) -> torch.Tensor:
+                   t) -> torch.Tensor:
     """One streaming attention step: q [B, H, d] against the caches' rows
-    written up to the clock t; returns [B, H, d] float32."""
+    written up to the clock t (an int, or a 0-d int32 tensor on q's device);
+    returns [B, H, d] float32. One kernel launch on the card, no host
+    synchronisation."""
     refuse_autograd([q, kc, vc], "mha_cache_step")
     if q.device.type == "cpu":
         return mha_cache_step_ref(q, kc, vc, t)
     _check(q, kc, vc, t)
     B, L = kc.shape[:2]
-    n_valid = min(t + 1, L)
-    per, n_split = key_splits(B, n_valid)
+    H, d = q.shape[1:]
+    if not isinstance(t, torch.Tensor):
+        t = torch.full((), t, dtype=torch.int32, device=q.device)
+    S = key_splits(B, L)
+    part, counters = ((torch.empty(B, S, H, d + 2, device=q.device),
+                       _counters(q.device, B)) if S > 1 else (None, None))
     out = torch.empty_like(q)
-    parts = [None] * 3
-    if n_split > 1:
-        shape = (B, n_split, q.shape[1])
-        parts = [torch.empty(shape, device=q.device),
-                 torch.empty(shape, device=q.device),
-                 torch.empty(shape + (q.shape[2],), device=q.device)]
-    lib = _lib(*q.shape[1:])
-    with torch.cuda.device(q.device):
+    lib = _lib(H, d)
+    with launch_context(q.device):
         rc = lib.mha_cache_forward(
-            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-            *(x if x is None else x.data_ptr() for x in parts), B, L, n_valid,
-            per, n_split, int(kc.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), t.data_ptr(), out.data_ptr(),
+            *(x if x is None else x.data_ptr() for x in (part, counters)), B, L, S,
+            int(kc.dtype == torch.bfloat16), raw_stream(q.device))
     if rc != 0:
         raise RuntimeError(f"mha_cache_forward failed: CUDA error {rc} "
                            f"({lib.mha_cache_error_string(rc).decode()})")

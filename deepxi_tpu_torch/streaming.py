@@ -17,8 +17,12 @@ samples late (N_d = 32 ms analysis window, N_s = 16 ms hop)::
 A step consumes its input state: the MHANet caches are written in place at
 the clock's row, as the JAX package's bench donates them (copying
 [B, 2048, 8, 32] caches every hop would double the traffic), and the state a
-step returns shares them. The clock `t` is a Python int, so no step reads a
-device value back; all streams of a batch share it. `stream` is the parity
+step returns shares them. The clock `t` is a 0-d int32 tensor on the
+stream's device, as the JAX package's `[] int32` array, shared by all
+streams of a batch: each hop takes its cache row, its positional row and
+the attention mask from it on the device, so with ``fused=True`` on the card
+a hop reads no device value back (no host synchronisation) and can be
+captured in a CUDA graph and replayed hop after hop. `stream` is the parity
 harness: prime with chunk 0, step over chunks 1 .. T-1 and one zero chunk,
 which gives the offline enhancer's first T * N_s samples when the length is
 a whole number of hops.
@@ -189,7 +193,7 @@ class MHAStreamState(NamedTuple):
     frame clock and the analysis/synthesis carry."""
     k_caches: Tuple[torch.Tensor, ...]  # each [B, max_len, H, dk]
     v_caches: Tuple[torch.Tensor, ...]
-    t: int                              # frames processed so far
+    t: torch.Tensor                     # [] int32: frames processed so far
     wav_tail: torch.Tensor              # [B, N_d - N_s]
     ola_tail: torch.Tensor              # [B, N_d - N_s]
 
@@ -256,16 +260,24 @@ class StreamingMHANet(_Hops):
                                      dtype=self.cache_dtype, device=self.device)
                          for _ in self.blocks)
         pad = self.N_d - self.N_s
-        return MHAStreamState(caches(), caches(), 0,
+        return MHAStreamState(caches(), caches(),
+                              torch.zeros((), dtype=torch.int32, device=self.device),
                               torch.zeros(batch, pad, device=self.device),
                               torch.zeros(batch, pad, device=self.device))
 
     def _embed(self, feat, rows):
         """in_conv (no bias), LN, ReLU and the positional embedding's `rows`
-        (an int, or a tensor of rows for a block of frames)."""
+        ([n] row indices on the device: 1 for a frame, Hn for a block)."""
         w, s, b = self.in_
         x = torch.relu(layer_norm_two_pass(feat @ w, s, b))
-        return x if self.pos is None else x + self.pos[rows]
+        return x if self.pos is None else x + self.pos.index_select(0, rows)
+
+    def _write(self, kc, vc, rows, kv):
+        """Write k and v (kv [B, n, 2, H, dk], cast to the caches' type in
+        one operation) into the caches at the [n] int64 device rows."""
+        kv = kv.to(kc.dtype)
+        kc.index_copy_(1, rows, kv[:, :, 0])
+        vc.index_copy_(1, rows, kv[:, :, 1])
 
     def _post(self, x, o, blk: _Block):
         """Output projection, residual + LN1, FFN, residual + LN2."""
@@ -274,21 +286,22 @@ class StreamingMHANet(_Hops):
         return layer_norm_two_pass(x + h, blk.ln2_s, blk.ln2_b)
 
     def _qkv(self, x, blk: _Block):
-        """q (scaled by dk^-1/2), k, v [..., H, dk] of x [..., C]."""
-        q, k, v = (x @ blk.wqkv).unflatten(-1, (3, self.H, self.dk)).unbind(-3)
-        return q * (float(self.dk) ** -0.5), k, v
+        """q (scaled by dk^-1/2) [..., H, dk] and k, v [..., 2, H, dk] of
+        x [..., C]."""
+        qkv = (x @ blk.wqkv).unflatten(-1, (3, self.H, self.dk))
+        return qkv[..., 0, :, :] * (float(self.dk) ** -0.5), qkv[..., 1:, :, :]
 
     def _net_step(self, state: MHAStreamState, feat):
         """One frame [B, n_feat] through the MHANet at the clock state.t;
         writes each block's k and v at row min(t, max_len - 1)."""
         t = state.t
-        row = min(t, self.max_len - 1)
+        t64 = t.long().view(1)
         attend = mha_cache_step if self.fused else mha_cache_step_ref
-        x = self._embed(feat, t % self.max_len)
+        x = self._embed(feat, t64 % self.max_len)
+        row = t64.clamp(max=self.max_len - 1)
         for blk, kc, vc in zip(self.blocks, state.k_caches, state.v_caches):
-            q, k, v = self._qkv(x, blk)
-            kc[:, row] = k
-            vc[:, row] = v
+            q, kv = self._qkv(x, blk)
+            self._write(kc, vc, row, kv[:, None])
             o = attend(q.contiguous(), kc, vc, t)
             x = self._post(x, o.flatten(1), blk)
         w, b = self.out
@@ -301,14 +314,14 @@ class StreamingMHANet(_Hops):
         t, Hn, L = state.t, feat.shape[1], self.max_len
         if Hn > L:
             raise ValueError(f"a block of {Hn} hops exceeds the {L}-frame cache")
-        start = min(t, L - Hn)    # dynamic_update_slice clamps the start
-        pos = t + torch.arange(Hn, device=self.device)
+        steps = torch.arange(Hn, device=self.device)
+        rows = t.clamp(max=L - Hn) + steps   # dynamic_update_slice clamps the start
+        pos = t + steps
         valid = (torch.arange(L, device=self.device)[None, :] <= pos[:, None]).to(torch.float32)
         x = self._embed(feat, pos % L)
         for blk, kc, vc in zip(self.blocks, state.k_caches, state.v_caches):
-            q, k, v = self._qkv(x, blk)
-            kc[:, start:start + Hn] = k
-            vc[:, start:start + Hn] = v
+            q, kv = self._qkv(x, blk)
+            self._write(kc, vc, rows, kv)
             logits = torch.einsum("btHd,bLHd->bHtL", q, kc.to(torch.float32))
             w = torch.softmax(logits + NEG_INF_V2 * (1.0 - valid), dim=-1)
             o = torch.einsum("bHtL,bLHd->btHd", w, vc.to(torch.float32))
@@ -320,7 +333,8 @@ class StreamingMHANet(_Hops):
     def step(self, state: MHAStreamState, chunk) -> Tuple[MHAStreamState, torch.Tensor]:
         """One hop: chunk [B, N_s] int16 (or float32) samples -> (new state,
         [B, N_s] float32 enhanced samples). Consumes `state`: its caches are
-        written in place and shared by the returned state."""
+        written in place and shared by the returned state; the clock is not
+        advanced in place, the returned state holds a new tensor t + 1."""
         x, re, im, mag = self._hop(state, chunk)
         syn = self._resynthesis(re, im, self._net_step(state, mag))
         return (state._replace(t=state.t + 1, wav_tail=x, ola_tail=syn[:, self.N_s:]),
@@ -331,7 +345,8 @@ class StreamingMHANet(_Hops):
                    ) -> Tuple[MHAStreamState, torch.Tensor]:
         """Hn hops in one pass (chunked streaming): chunk [B, Hn * N_s] ->
         (new state, [B, Hn * N_s] enhanced samples), equal to Hn `step`s to
-        float rounding with Hn hops of latency. Consumes `state`."""
+        float rounding with Hn hops of latency. Consumes `state` (its caches;
+        the returned clock is a new tensor t + Hn)."""
         x = self._samples(chunk)
         B, n = x.shape
         if n % self.N_s:

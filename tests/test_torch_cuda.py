@@ -522,24 +522,112 @@ def test_mha_wrappers_count_launches_and_refuse_autograd(cuda):
 
 # -- the KV-cache attention step of streaming MHANet ---------------------------
 
+CACHE_CLOCKS = (0, 31, 32, 700, 2047, 2500)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", [1, 3, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cache_step_kernel_matches_plain(cuda, B, dtype):
     """mha_cache_step at full width (8 heads of 32, L = 2048) against its
     plain version, every cache row nonzero so only the mask removes the
-    unwritten ones; t at 0, in the middle, L - 1 and past the cap; 1e-4 of
-    the output's scale."""
+    unwritten ones; t at 0, a chunk's last and next key, in the middle,
+    L - 1 and past the cap, as an int and as a device int32 tensor; 1e-4 of
+    the output's scale; a second call bitwise the same."""
     from deepxi_tpu_torch.ops.kernels import mha_cache
     gen = torch.Generator().manual_seed(B)
     q = (torch.randn(B, 8, 32, generator=gen) * 32 ** -0.5).to(cuda)
     kc, vc = (torch.randn(B, 2048, 8, 32, generator=gen).to(cuda, dtype) for _ in range(2))
-    for t in (0, 700, 2047, 2500):
-        y, y_ref = (mha_cache.mha_cache_step(q, kc, vc, t),
-                    mha_cache.mha_cache_step_ref(q, kc, vc, t))
+    for t in CACHE_CLOCKS:
+        y_ref = mha_cache.mha_cache_step_ref(q, kc, vc, t)
+        for clock in (t, torch.tensor(t, dtype=torch.int32, device=cuda)):
+            y = mha_cache.mha_cache_step(q, kc, vc, clock)
+            torch.cuda.synchronize()
+            assert torch.isfinite(y).all()
+            assert _close(y, y_ref, 1e-4), (t, _rel_err(y, y_ref))
+            assert torch.equal(mha_cache.mha_cache_step(q, kc, vc, clock), y), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_heads,head_dim", [(1, 4), (5, 4), (16, 64), (32, 32)])
+def test_cache_step_kernel_at_domain_edges(cuda, n_heads, head_dim):
+    """The kernel at the edges of `kernel_takes`: one head of 4, bf16 rows
+    that are no multiple of 16 bytes (5 heads of 4: the 8-byte copy path),
+    1024 columns (4- and 8-key tiles), 32 heads; L = 300 (a partial last
+    chunk), B = 1 and 3, both cache types; 1e-4 of the output's scale."""
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    gen = torch.Generator().manual_seed(n_heads)
+    for B in (1, 3):
+        q = (torch.randn(B, n_heads, head_dim, generator=gen) * head_dim ** -0.5).to(cuda)
+        kv = [torch.randn(B, 300, n_heads, head_dim, generator=gen) for _ in range(2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            kc, vc = (c.to(cuda, dtype) for c in kv)
+            for t in (0, 31, 32, 299, 400):
+                y = mha_cache.mha_cache_step(q, kc, vc, t)
+                y_ref = mha_cache.mha_cache_step_ref(q, kc, vc, t)
+                torch.cuda.synchronize()
+                assert _close(y, y_ref, 1e-4), (B, dtype, t, _rel_err(y, y_ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 256])
+def test_cache_step_graph_replays_read_the_clock(cuda, B):
+    """One call captured in a CUDA graph at t = 5 and replayed after the
+    device clock is set to 31, 700 and 2500: each replay matches the plain
+    version at the new clock (the kernel reads the clock when it runs), and
+    the merge's counters stay usable for eager calls in between."""
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    gen = torch.Generator().manual_seed(5)
+    q = (torch.randn(B, 8, 32, generator=gen) * 32 ** -0.5).to(cuda)
+    kc, vc = (torch.randn(B, 2048, 8, 32, generator=gen).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    clock = torch.tensor(5, dtype=torch.int32, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = mha_cache.mha_cache_step(q, kc, vc, clock)
+    for t in (31, 700, 2500, 5):
+        clock.fill_(t)
+        graph.replay()
+        y_ref = mha_cache.mha_cache_step_ref(q, kc, vc, t)
         torch.cuda.synchronize()
-        assert torch.isfinite(y).all()
         assert _close(y, y_ref, 1e-4), (t, _rel_err(y, y_ref))
+        assert torch.equal(mha_cache.mha_cache_step(q, kc, vc, clock), y), t
+
+
+@pytest.mark.cuda
+def test_cache_step_on_two_streams_at_once(cuda):
+    """B = 1 (64 key splits, so the merge's scratch and counters are used):
+    a captured call replayed on one stream while eager calls of the same
+    shape run on another, and eager calls on two streams, 20 of each
+    without a synchronisation; every output matches the plain version."""
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    gen = torch.Generator().manual_seed(9)
+    q = (torch.randn(3, 1, 8, 32, generator=gen) * 32 ** -0.5).to(cuda)
+    kv = [torch.randn(1, 2048, 8, 32, generator=gen).to(cuda) for _ in range(6)]
+    ts = (700, 2047, 31)
+    clocks = [torch.tensor(t, dtype=torch.int32, device=cuda) for t in ts]
+
+    def call(i):
+        return mha_cache.mha_cache_step(q[i], kv[2 * i], kv[2 * i + 1], clocks[i])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = call(0)
+    sides = [torch.cuda.Stream() for _ in range(3)]
+    for side in sides:
+        side.wait_stream(torch.cuda.current_stream())
+    outs = [[], [], []]
+    for _ in range(20):
+        with torch.cuda.stream(sides[0]):
+            graph.replay()
+            outs[0].append(y_graph.clone())
+        for i in (1, 2):
+            with torch.cuda.stream(sides[i]):
+                outs[i].append(call(i))
+    torch.cuda.synchronize()
+    for i, t in enumerate(ts):
+        y_ref = mha_cache.mha_cache_step_ref(q[i], kv[2 * i], kv[2 * i + 1], t)
+        for y in outs[i]:
+            assert _close(y, y_ref, 1e-4), (i, t, _rel_err(y, y_ref))
 
 
 @pytest.mark.cuda
@@ -551,15 +639,19 @@ def test_cache_step_counts_launches_and_refuses_autograd(cuda):
     n = fn.launches
     fn(q, kc, vc, 5)
     assert fn.launches == n + 1
+    fn(q, kc, vc, torch.tensor(5, dtype=torch.int32, device=cuda))
+    assert fn.launches == n + 2
     with pytest.raises(RuntimeError, match="no backward"):
         fn(q.clone().requires_grad_(True), kc, vc, 5)
     for bad in ((q[..., :6].contiguous(), kc[..., :6].contiguous(), vc[..., :6].contiguous(), 5),
                 (q[:, :4].contiguous(), kc, vc, 5),
                 (q, kc, vc.to(torch.bfloat16), 5), (q, kc.half(), vc.half(), 5),
-                (q, kc, vc, -1)):
+                (q, kc, vc, -1), (q, kc, vc, torch.tensor(5, device=cuda)),
+                (q, kc, vc, torch.tensor([5], dtype=torch.int32, device=cuda)),
+                (q, kc, vc, torch.tensor(5, dtype=torch.int32))):
         with pytest.raises(ValueError):
             fn(*bad)
-    assert fn.launches == n + 1
+    assert fn.launches == n + 2
 
 
 @pytest.mark.cuda
@@ -592,20 +684,26 @@ def test_non_flagship_widths_run_the_kernels_on_the_card(cuda, tmp_path):
     assert rel <= 1e-4 and wav <= 1.0, (rel, worst, wav)
 
 
-@pytest.mark.cuda
-def test_streaming_mhanet_fused_launches_the_kernel(cuda):
-    """fused=True runs each block's cache attention through the kernel (one
-    launch a block and hop) and gives the einsum route's waveform."""
+def _small_stream(gen):
+    """A 2-block MHANetV3 StreamingMHANet's pieces with random weights."""
     from deepxi_tpu_torch.inp_tgt import MagXi
     from deepxi_tpu_torch.models.attention import MHANetV3
-    from deepxi_tpu_torch.ops.kernels import mha_cache
     from deepxi_tpu_torch.ops.maps import NormalCDF
-    from deepxi_tpu_torch.streaming import StreamingMHANet
-    gen = torch.Generator().manual_seed(4)
     net = MHANetV3(257, 257, n_blocks=2)
     params = {k: torch.randn(v.shape, generator=gen) * 0.05 + (k.endswith(".scale"))
               for k, v in net.state_dict().items()}
     it = MagXi(xi_map=NormalCDF(use_db=True, mu=torch.zeros(257), sigma=torch.full((257,), 10.0)))
+    return it, net, params
+
+
+@pytest.mark.cuda
+def test_streaming_mhanet_fused_launches_the_kernel(cuda):
+    """fused=True runs each block's cache attention through the kernel (one
+    launch a block and hop) and gives the einsum route's waveform."""
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    from deepxi_tpu_torch.streaming import StreamingMHANet
+    gen = torch.Generator().manual_seed(4)
+    it, net, params = _small_stream(gen)
     x = (torch.randn(2, 256 * 6, generator=gen) * 3000).to(torch.int16)
     n = mha_cache.mha_cache_step.launches
     y = StreamingMHANet(it, net, params, fused=True, device=cuda).stream(x)
@@ -614,3 +712,30 @@ def test_streaming_mhanet_fused_launches_the_kernel(cuda):
     torch.cuda.synchronize()
     assert y.shape == (2, 256 * 6) and torch.isfinite(y).all()
     assert (y - y_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_streaming_mhanet_hop_replays_as_a_cuda_graph(cuda):
+    """One fused hop captured in a CUDA graph and replayed hop by hop (each
+    chunk copied into the static input, the returned state into the
+    captured one) gives the eager stream's samples bitwise; an eager hop
+    synchronises nothing with the host."""
+    import torch_profile
+    from deepxi_tpu_torch.streaming import StreamingMHANet
+    gen = torch.Generator().manual_seed(6)
+    it, net, params = _small_stream(gen)
+    s = StreamingMHANet(it, net, params, fused=True, device=cuda)
+    x = (torch.randn(2, 256 * 12, generator=gen) * 3000).to(torch.int16).to(cuda)
+    y_eager = s.stream(x)
+    chunks = torch.cat([x, torch.zeros(2, 256, dtype=x.dtype, device=cuda)], 1)
+    state = s.prime(s.init_state(2), chunks[:, :256])
+    state, y1 = s.step(state, chunks[:, 256:512])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, y2 = s.step(state, chunks[:, 512:768])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    state, y = torch_profile.stream_replayed(s, state, chunks[:, 768:])
+    torch.cuda.synchronize()
+    assert int(state.t) == 12
+    assert torch.equal(torch.cat([y1, y2, y], 1), y_eager)

@@ -46,11 +46,13 @@ def _bits(a, dtype_j):
 # -- the plain KV-cache step against the JAX kernel ----------------------------
 
 # Measured on the CPU: 3.6e-7 at most over the cases; held to 1e-6.
+@pytest.mark.parametrize("clock", ["int", "tensor"])
 @pytest.mark.parametrize("cache", ["f32", "bf16"])
 @pytest.mark.parametrize("t", [0, 30, 63, 80])
-def test_mha_cache_step_ref_matches_jax_kernel(cache, t):
+def test_mha_cache_step_ref_matches_jax_kernel(cache, t, clock):
     """B=2, L=64, 4 heads of 8; every cache row nonzero, so only the mask
-    zeroes the unwritten ones; t = 80 is past the cap (all rows valid)."""
+    zeroes the unwritten ones; t = 80 is past the cap (all rows valid); the
+    clock as an int and as the stream's 0-d int32 tensor."""
     dtype_j, dtype_t = CACHE[cache]
     rs = np.random.RandomState(t)
     q = (rs.randn(2, 4, 8) * 8 ** -0.5).astype(np.float32)
@@ -60,7 +62,8 @@ def test_mha_cache_step_ref_matches_jax_kernel(cache, t):
                                       jnp.asarray(vc, dtype_j), jnp.asarray(valid),
                                       interpret=True))
     kc_t, vc_t = (torch.as_tensor(a).to(dtype_t) for a in (kc, vc))
-    out = mha_cache.mha_cache_step(torch.as_tensor(q), kc_t, vc_t, t)
+    clock_t = t if clock == "int" else torch.tensor(t, dtype=torch.int32)
+    out = mha_cache.mha_cache_step(torch.as_tensor(q), kc_t, vc_t, clock_t)
     assert out.dtype == torch.float32 and out.shape == (2, 4, 8)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
 
@@ -74,15 +77,23 @@ def test_mha_cache_step_refuses_autograd():
         assert mha_cache.mha_cache_step(q, kc, vc, 3).shape == (1, 8, 32)
 
 
-@pytest.mark.parametrize("B,n_valid", [(1, 1), (1, 1024), (3, 701), (256, 1024),
-                                       (1000, 2048), (2, 33)])
-def test_key_splits_cover_the_written_rows(B, n_valid):
-    """Runs of whole 32-key tiles, none empty, covering exactly n_valid keys,
-    and enough CTAs to spread a small batch."""
-    per, n_split = mha_cache.key_splits(B, n_valid)
-    assert per % mha_cache.TILE_KEYS == 0
-    assert (n_split - 1) * per < n_valid <= n_split * per
-    assert B * n_split >= min(mha_cache.SPLIT_CTAS, B * -(-n_valid // 32))
+@pytest.mark.parametrize("L", [64, 300, 2048])
+@pytest.mark.parametrize("B", [1, 3, 256, 1000])
+def test_split_keys_cover_the_written_rows_once(B, L):
+    """The kernel's split (its Python twin): the grid's splits depend on
+    (B, L) only, and at every clock the CTAs' ranges start on 32-key
+    chunks and cover each written row exactly once; every t in 0 .. L + 3
+    at L = 64 and 300, the flagship's clocks at L = 2048."""
+    S = mha_cache.key_splits(B, L)
+    assert 1 <= S <= -(-L // mha_cache.CHUNK_KEYS)
+    assert B * S >= min(mha_cache.SPLIT_CTAS, B * -(-L // mha_cache.CHUNK_KEYS)) or S == 1
+    assert B * S <= max(B, mha_cache.SPLIT_CTAS)
+    for t in (range(L + 4) if L < 2048 else (0, 1023, 2047, 2500)):
+        seen = np.zeros(L, np.int64)
+        for k0, k1 in mha_cache.split_keys(S, L, t):
+            assert k0 % mha_cache.CHUNK_KEYS == 0
+            seen[k0:max(k0, k1)] += 1
+        assert (seen == (np.arange(L) <= t)).all(), t
 
 
 # -- StreamingMHANet on the JAX tests' nets ------------------------------------
@@ -191,6 +202,61 @@ def test_fused_step_matches_unfused(its):
     n = mha_cache.mha_cache_step.launches
     np.testing.assert_allclose(smf.stream(x).numpy(), sm.stream(x).numpy(), rtol=0, atol=1e-6)
     assert mha_cache.mha_cache_step.launches == n  # the plain version launches nothing
+
+
+def test_clock_is_a_device_int32_scalar(its):
+    """state.t is a 0-d int32 tensor on the stream's device, as the JAX
+    state's `[] int32` clock: zero at init, +1 a `step`, +Hn a `step_block`,
+    and a step returns a new clock tensor (the input state's is unchanged)."""
+    _, sm = _mha_pair(its, "MHANetV3")
+    x = _noisy(7, 2, 8)
+    state = sm.prime(sm.init_state(2), x[:, :256])
+    t0 = state.t
+    assert t0.dim() == 0 and t0.dtype == torch.int32 and t0.device == sm.device
+    assert int(t0) == 0
+    state, _ = sm.step(state, x[:, 256:512])
+    assert state.t.dtype == torch.int32 and int(state.t) == 1 and int(t0) == 0
+    state, _ = sm.step_block(state, x[:, 512:])
+    assert state.t.dim() == 0 and state.t.dtype == torch.int32 and int(state.t) == 7
+
+
+class _Unreadable(torch.Tensor):
+    """A clock whose value the host cannot read: every conversion raises."""
+
+    def _read(self, *args):
+        raise AssertionError("a hop read the clock back to the host")
+
+    item = tolist = __int__ = __index__ = __bool__ = __float__ = _read
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_no_hop_reads_the_clock_back(its, fused):
+    """`step` and `step_block` take their cache rows, positional rows and mask
+    from the clock on the device: given a clock whose item, __int__,
+    __index__ and __bool__ raise, both run (past the cap too) and give the
+    outputs of the same hops from a plain clock."""
+    _, sm = _mha_pair(its, "MHANetV3", max_len=16, fused=fused)
+    x = _noisy(8, 2, 22)
+    plain = sm.prime(sm.init_state(2), x[:, :256])
+    hidden = sm.prime(sm.init_state(2), x[:, :256])
+    hidden = hidden._replace(t=hidden.t.as_subclass(_Unreadable))
+    with pytest.raises(AssertionError):
+        int(hidden.t)
+    for i in range(1, 22, 4):
+        chunk = x[:, i * 256:(i + 4) * 256] if i < 20 else x[:, i * 256:]
+        if i % 8 == 1:
+            plain, y = sm.step(plain, chunk[:, :256])
+            hidden, y_h = sm.step(hidden, chunk[:, :256])
+            plain, y2 = sm.step_block(plain, chunk[:, 256:])
+            hidden, y2_h = sm.step_block(hidden, chunk[:, 256:])
+        else:
+            plain, y = sm.step_block(plain, chunk)
+            hidden, y_h = sm.step_block(hidden, chunk)
+            y2 = y2_h = torch.zeros(0)
+        assert isinstance(hidden.t, _Unreadable)
+        np.testing.assert_array_equal(y_h.numpy(), y.numpy())
+        np.testing.assert_array_equal(y2_h.numpy(), y2.numpy())
+    assert int(plain.t) == 21
 
 
 # Measured on the CPU: 5.3e-8 (V2) and 2.7e-7 (V3) from JAX with bf16 caches

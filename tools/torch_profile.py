@@ -3,8 +3,8 @@
 
     python3 tools/torch_profile.py enhance [--ver resnet-1.1c|mhanet-1.1c] [--batch 96|64] [--seconds 10] [--iters 5] [--timed 30] [--plain]
     python3 tools/torch_profile.py train [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
-    python3 tools/torch_profile.py stream [--ver mhanet-1.1c|resnet-1.1c] [--batch 1] [--cache f32|bf16] [--iters 5] [--timed 30] [--plain]
-    python3 tools/torch_profile.py kernels [--iters 20]
+    python3 tools/torch_profile.py stream [--ver mhanet-1.1c|resnet-1.1c] [--batch 1] [--cache f32|bf16] [--iters 5] [--timed 30] [--plain] [--graph]
+    python3 tools/torch_profile.py kernels [--iters 20] [--rows 6,7,11]
 
 `enhance` runs offline enhancement of `--batch` copies of the checked-in
 trained artifact's noisy utterance (resnet-1.1c, or mhanet-1.1c), tiled or
@@ -17,6 +17,9 @@ plain ResNetV2). `stream` runs one streaming hop (`step`) of `--batch`
 channels of the checked-in artifact: for mhanet-1.1c at the clock 1023 with
 random K/V caches (`--cache` f32 or bf16) through the KV-cache kernel (or,
 with `--plain`, the einsum route); for resnet-1.1c from zero delay lines.
+With `--graph` the hop is captured once in a CUDA graph and each call is a
+replay of it (the same hop: `step` returns a new clock, so the captured
+state stays at 1023).
 
 After warm-up it times `--timed` calls without the profiler (host clock,
 each call synchronised: min, median, max), then runs `--iters` calls under
@@ -25,8 +28,9 @@ the profiled window's wall time and idle share, and the unprofiled median's
 idle share given the traced device time per call. Needs one NVIDIA card.
 
 `kernels` times the redesigned kernels (the TCN forward's four routes, the
-TCN backward in saved and replay mode, the fused transformer block and both
-attentions) and their library yardsticks at
+TCN backward in saved and replay mode, the spectral kernels beside cuFFT,
+the fused transformer block, both attentions and the KV-cache step beside
+scaled_dot_product_attention) and their library yardsticks at
 chip_smoke.py phase 4's shapes, each two ways: CUDA events around `--iters`
 back-to-back calls (chip_smoke.py's `cuda_ms`: what the host adds between
 launches included), and the device-only time, the summed device durations
@@ -50,6 +54,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 MATMUL = ("gemm", "gemv", "xmma", "cutlass", "sm90")
+LEAD_IN = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
 def short_name(name: str) -> str:
@@ -66,40 +71,52 @@ def short_name(name: str) -> str:
 
 
 def device_ms(fn, iters=20, warmup=3, by_name=False):
-    """(ms, operations) per call on the device alone: the summed device
-    durations of the kernels and copies `fn` launches over `iters` calls
-    under torch.profiler, after warm-up, and their count, per call. Host
-    time between launches is left out; raises when the trace holds no
-    device time. With `by_name`, a third item: {short name: (ms, launches)
-    per call}."""
+    """(ms, operations) per call on the device alone: the device durations
+    of the kernels and copies `fn` launches, summed over a call, under
+    torch.profiler over `iters` calls after warm-up, and their count a call.
+    Host time between launches is left out. A trace now and then lacks
+    some of its device events (seen on an H100 with torch 2.11: the first
+    launch of the window, in five traces in a row of a three-kernel call),
+    so each trace starts with a lead-in kernel (`torch.cuda._sleep`, left
+    out of the counts), and a trace is taken only when it holds device
+    events and each operation's count in it is a whole multiple of `iters`;
+    else it is taken again, up to five times, and then it raises. With
+    `by_name`, a third item: {short name: (ms, launches) per call}."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ops = [(short_name(e.name), e.time_range.elapsed_us()) for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not ops:
-        raise RuntimeError("the trace holds no device time")
-    total = (sum(t for _, t in ops) / 1e3 / iters, len(ops) / iters)
-    if not by_name:
-        return total
-    split = {}
-    for name, t in ops:
-        ms, n = split.get(name, (0.0, 0))
-        split[name] = (ms + t / 1e3 / iters, n + 1 / iters)
-    return (*total, split)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = {}
+        for e in prof.events():
+            name = short_name(e.name)
+            if e.device_type == torch.autograd.DeviceType.CUDA and LEAD_IN not in name:
+                events.setdefault(name, []).append(e.time_range.elapsed_us())
+        if events and all(len(us) % iters == 0 for us in events.values()):
+            break
+    else:
+        raise RuntimeError(f"five traces in a row lack device events: counts "
+                           f"{ {k: len(v) for k, v in events.items()} } over {iters} calls")
+    split = {name: (sum(us) / iters / 1e3, len(us) // iters) for name, us in events.items()}
+    total = (sum(ms for ms, _ in split.values()), sum(n for _, n in split.values()))
+    return (*total, split) if by_name else total
 
 
 def kernel_calls():
-    """(row, shape, kernel call, library call or None) of PERF.md rows 1-5
-    and 8-10 at chip_smoke.py phase 4's shapes, seeded."""
+    """(row, shape, kernel call, library call or None) of PERF.md rows 1-11
+    at chip_smoke.py phase 4's shapes, seeded; the KV-cache step's clock a
+    0-d int32 tensor on the card."""
     from deepxi_tpu_torch.models.attention import NEG_INF_V2
     from deepxi_tpu_torch.models.tcn import cyclic_dilation
-    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_flash_stream,
-                                              mha_fused, tcn_fused, tcn_fused_train)
+    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_cache,
+                                              mha_flash_stream, mha_fused,
+                                              spectral, tcn_fused, tcn_fused_train)
+    from deepxi_tpu_torch.sig.stft import _hamming_np, _synthesis_window_np, hop_rows
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -171,20 +188,56 @@ def kernel_calls():
             ("10 flash_attention_streaming", f"B=1 T={T} causal",
              lambda q=q, k=k, v=v, valid=valid: mha_flash_stream.flash_attention_streaming(
                  q, k, v, valid, True), sdpa)]
+
+    # the spectral kernels (an FFT a frame) beside cuFFT, as chip_smoke.py
+    w_ana = torch.as_tensor(_hamming_np(512), device=dev)
+    w_syn = torch.as_tensor(_synthesis_window_np(512, 256), device=dev)
+    for B, T in ((1, 250), (96, 625)):
+        wave = (torch.randn(B, T * 256, generator=gen) * 0.1).to(dev)
+        x2d = hop_rows(wave, 256)
+        Y = spectral.stft_reim(wave, 512, 256, 512)
+        gain = torch.rand(B, T, 257, generator=gen).to(dev)
+        calls += [
+            ("6 stft_mag_fused", f"B={B} T={T}",
+             lambda x2d=x2d: spectral.stft_mag_fused(x2d, 512, 512),
+             lambda x2d=x2d, B=B: torch.stft(x2d.reshape(B, -1), 512, 256, 512, w_ana,
+                                             center=False, return_complex=True).abs()),
+            ("7 enhance_frames_fused", f"B={B} T={T}",
+             lambda Y=Y, gain=gain: spectral.enhance_frames_fused(Y, gain, 512, 256, 512),
+             lambda Y=Y, gain=gain: torch.fft.irfft(
+                 torch.complex(Y[..., :257], Y[..., 257:]) * gain, n=512) * w_syn)]
+
+    # the KV-cache step at the clock 1023 beside scaled_dot_product_attention
+    # over the caches as f32 with the same float mask
+    t = torch.tensor(1023, dtype=torch.int32, device=dev)
+    neg = (NEG_INF_V2 * (torch.arange(2048, device=dev) > 1023).float()).view(1, 1, 1, -1)
+    for B, dtype in ((1, torch.float32), (256, torch.float32), (256, torch.bfloat16)):
+        q = (torch.randn(B, 8, 32, generator=gen) * 32 ** -0.5).to(dev)
+        kc, vc = (torch.randn(B, 2048, 8, 32, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        kh, vh = (c.float().transpose(1, 2) for c in (kc, vc))
+        calls.append((
+            "11 mha_cache_step", f"B={B} L=2048 t=1023 {str(dtype)[6:]} caches",
+            lambda q=q, kc=kc, vc=vc: mha_cache.mha_cache_step(q, kc, vc, t),
+            lambda q=q, kh=kh, vh=vh: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kh, vh, attn_mask=neg, scale=1.0)))
     return sorted(calls, key=lambda c: int(c[0].split()[0]))
 
 
-def kernels_report(iters):
-    from chip_smoke import cuda_ms
-
+def kernels_report(iters, rows=None):
     """Print each kernel's and its library call's CUDA-events and device-only
-    times (`kernel_calls`); for the rows whose call launches several
+    times (`kernel_calls`; only the PERF.md `rows` given); for the rows
+    whose call launches several
     kernels (5, the TCN backward, and 8, the transformer block), the device
     time of each kernel."""
+    from chip_smoke import cuda_ms
+
     print(f"card: {torch.cuda.get_device_name(0)}; CUDA events over {iters} calls, "
           f"device-only over {iters} profiled calls")
     with torch.no_grad():
         for row, shape, call, lib in kernel_calls():
+            if rows and int(row.split()[0]) not in rows:
+                continue
             ev, (dev_ms, ops, split) = cuda_ms(call, iters), device_ms(call, iters,
                                                                        by_name=True)
             line = (f"row {row} {shape}: events {ev:.4f} ms, device {dev_ms:.4f} ms "
@@ -262,10 +315,49 @@ def stream_call(args):
     st = s.init_state(args.batch)
     for c in st.k_caches + st.v_caches:
         c.copy_(torch.randn(c.shape, device=dev, generator=gen))
-    st = st._replace(t=1023)
+    st = st._replace(t=torch.tensor(1023, dtype=torch.int32, device=dev))
     return (lambda: s.step(st, chunk)), (
         f"mhanet-1.1c streaming hop ({'plain' if args.plain else 'fused'}, {args.cache} "
         f"caches, t=1023)")
+
+
+WARMUPS = 3
+
+
+def captured(call):
+    """`call` captured once in a CUDA graph after WARMUPS warm-up calls on a
+    side stream: (the graph's replay, the captured call's outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(WARMUPS):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    return graph.replay, out
+
+
+def stream_replayed(s, state, chunks):
+    """Step the streaming network `s` from `state` over `chunks` [B, n * N_s]
+    through one hop captured in a CUDA graph (`captured`; its warm-up hops
+    write the cache row the first replay writes again), replayed n times:
+    each chunk is copied into the captured input, and every tensor field of
+    the returned state into the captured state (the caches are shared and
+    written in place). Returns (the final state, [B, n * N_s] samples)."""
+    N = s.N_s
+    chunk = chunks[:, :N].clone()
+    replay, (new, y) = captured(lambda: s.step(state, chunk))
+    outs = []
+    for i in range(chunks.shape[1] // N):
+        chunk.copy_(chunks[:, i * N:(i + 1) * N])
+        replay()
+        outs.append(y.clone())
+        for a, b in zip(state, new):
+            if isinstance(a, torch.Tensor) and a is not b:
+                a.copy_(b)
+    return state, torch.cat(outs, 1)
 
 
 def enhance_call(args):
@@ -336,7 +428,13 @@ def main():
     ap.add_argument("--cache", choices=("f32", "bf16"), default="f32",
                     help="stream: the MHANet K/V cache type")
     ap.add_argument("--plain", action="store_true", help="the plain network")
+    ap.add_argument("--graph", action="store_true",
+                    help="stream: replay one captured hop")
+    ap.add_argument("--rows", type=lambda v: [int(r) for r in v.split(",")],
+                    help="kernels: only these PERF.md rows, e.g. 6,7,11")
     args = ap.parse_args()
+    if args.graph and args.path != "stream":
+        sys.exit("--graph applies to stream")
     train = args.path == "train"
     args.batch = args.batch or (8 if train else 1 if args.path == "stream"
                                 else 64 if args.ver == "mhanet-1.1c" else 96)
@@ -344,12 +442,15 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
     if args.path == "kernels":
-        kernels_report(args.iters or 20)
+        kernels_report(args.iters or 20, args.rows)
         return
     args.iters = args.iters or 5
 
     call, what = {"enhance": enhance_call, "train": train_call,
                   "stream": stream_call}[args.path](args)
+    if args.graph:
+        call, _ = captured(call)
+        what += ", one captured CUDA graph replayed"
     layer_of = {"enhance": layer_enhance, "train": layer_train,
                 "stream": layer_stream}[args.path]
     for _ in range(3):

@@ -6,7 +6,8 @@ and tests/test_torch_cuda.py:
 
   * `kernel_checks(device)`: each kernel built for small widths (TCN d_model
     32 / d_f 16 / k 3 and 48 / 12 / 2; MHANet 4 heads of 8 and 12 heads of
-    4, d_ff 4 d_model) against its plain version on the same inputs;
+    4, d_ff 4 d_model; the KV-cache step also at 5 heads of 4 and 16 of 64)
+    against its plain version on the same inputs;
   * `small_widths_run(device, root)`: the routes a user calls at d_model 32
     (resnet-1.1c trained and run through `DeepXiTorch.infer`, MHANetV3 with
     4 heads through `mhanetv3_apply_fused` and "full", "fused" and "stream"
@@ -35,6 +36,9 @@ from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_cache,  # noqa: E
 # (d_model, d_f, k) and (heads, head width); d_ff is 4 d_model, as the model's
 SMALL_TCN = ((32, 16, 3), (48, 12, 2))
 SMALL_HEADS = ((4, 8), (12, 4))
+# and for the KV-cache step alone: bf16 rows of 40 bytes (the producer's
+# 8-byte cp.async path), and 1024 columns (4-key f32 and 8-key bf16 tiles)
+CACHE_HEADS = ((5, 4), (16, 64))
 TOL_REL = 1e-4       # forward kernels: of the output's scale
 BWD_TOL_REL = 2e-4   # the backward: of each leaf's scale, ReLU ties aside
 
@@ -65,9 +69,9 @@ def build_specs():
         specs += [tcn_fused.build_spec(n, C, F, k) for n in ("tcn_fused", "tcn_fused_train")]
     for H, d in SMALL_HEADS:
         specs += [("mha_attention", mha_fused.head_defines(H, d)),
-                  ("mha_cache", mha_fused.head_defines(H, d)),
                   mha_block_fused.build_spec(H, d, 4 * H * d)]
-    return specs
+    return specs + [("mha_cache", mha_fused.head_defines(H, d))
+                    for H, d in SMALL_HEADS + CACHE_HEADS]
 
 
 def _rel(y: torch.Tensor, ref: torch.Tensor) -> float:
@@ -135,13 +139,18 @@ def kernel_checks(device) -> Dict[str, float]:
             _rel(mha_block_fused.fused_transformer_block(xb, vf, wb, causal),
                  mha_block_fused.fused_transformer_block_ref(xb, vf, wb, causal))
             for causal in (True, False))
+    for H, d in SMALL_HEADS + CACHE_HEADS:
+        # L = 300 ends on a partial 32-key chunk; the clock as an int and on
+        # the device, past the cap too
         qc = (torch.randn(3, H, d, generator=gen) * d ** -0.5).to(device)
         for dtype in mha_cache.CACHE_DTYPES:
             kc, vc = (torch.randn(3, 300, H, d, generator=gen).to(device, dtype)
                       for _ in range(2))
-            out[f"mha_cache_step ({str(dtype)[6:]}), {tag}"] = max(
-                _rel(mha_cache.mha_cache_step(qc, kc, vc, t),
-                     mha_cache.mha_cache_step_ref(qc, kc, vc, t)) for t in (0, 150, 299, 400))
+            out[f"mha_cache_step ({str(dtype)[6:]}), {H} heads of {d}"] = max(
+                _rel(mha_cache.mha_cache_step(qc, kc, vc, clock),
+                     mha_cache.mha_cache_step_ref(qc, kc, vc, t))
+                for t in (0, 31, 32, 150, 299, 400)
+                for clock in (t, torch.tensor(t, dtype=torch.int32, device=device)))
     return out
 
 
