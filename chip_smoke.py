@@ -4,8 +4,9 @@
     python3 chip_smoke.py        # from the repository root; needs one card
 
 Phases (any failure exits non-zero before the result line):
-  1. device: the card's name and power limit, torch and CUDA versions, and
-     the build of every CUDA kernel from `deepxi_tpu_torch/ops/kernels/csrc`
+  1. device: the card's name and power limit, torch, CUDA, numpy and scipy
+     versions (infer's .mat writer needs scipy), and the build of every CUDA
+     kernel from `deepxi_tpu_torch/ops/kernels/csrc`
      at the flagship widths and at phase 3f's (one nvcc per source and set
      of widths, all started together);
   2. each kernel against its plain PyTorch version on the card at full width
@@ -89,6 +90,22 @@ Phases (any failure exits non-zero before the result line):
      MHANetV3 with 4 heads of 8 runs its fused blocks and "full", "fused" and
      "stream" attention, and StreamingMHANet(fused=True) streams, on the card
      and on the CPU; each route's kernels must launch and the results agree;
+  3g. the infer surface: `DeepXiTorch.infer` on both trained artifacts, each
+     on its 4 s utterance and the same tiled 5x (T=1250: resnet's halo-tiled
+     kernel): `y` with each of the 8 MagXi gains (the fused network must
+     launch for each; wavs against the plain path on the card, a binary
+     mask's bins at the threshold tie taking the kernel route's side; SNR up
+     for mmse-lsa, mmse-stsa, wf, srwf, cwf); `xi_hat`, `gamma_hat`,
+     `deepmmse`, `ibm_hat`, `subband_ibm_hat` per utterance (one
+     stft_mag_fused launch an utterance; the .mat contents against the plain
+     per-utterance route: network output, the noise PSD, masks differing only
+     within the measured xi_hat distance of 0 dB); `d_hat` and `y` with
+     fast=False (one enhance_frames_fused launch an utterance; wavs against
+     the plain polar synthesis, and fast=False against fast=True);
+  3h. MHANet training: `DeepXiTorch(preset("mhanet-1.1c")).train()` at full
+     width, B=8, 2 epochs of 2 steps (the plain MHANetV3 under autograd):
+     finite losses, the first step's gradients on a crop against float64, 30
+     steps on one batch lower its loss, a restored checkpoint continues;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -114,7 +131,8 @@ Phases (any failure exits non-zero before the result line):
      T=250 and B=96 T=625, against the bytes they must move; resnet-1.1c
      `make_enhancer`, `make_xi_estimator` and the spectral-kernel route end
      to end at B=1 x 4 s and B=96 x 10 s; resnet-1.1c enhancement at B=96 x
-     10 s, pack2 against unpacked.
+     10 s, pack2 against unpacked; the mhanet-1.1c train step beside the
+     resnet one; the per-utterance infer routes (xi_hat, d_hat) at 4 s.
 The last three lines are the card line, the kernels JSON and the result JSON.
 """
 
@@ -149,6 +167,9 @@ CKPT_TOL = 1e-6
 NET_ATOL = 1e-3
 WAVE_ATOL = 1e-3
 WAVE_REL_RMS = 1e-3
+# The DeepMMSE noise PSD of the per-utterance route against the plain one:
+# its largest error over its largest value.
+PSD_TOL_REL = 1e-3
 # A library yardstick against the kernel on valid rows before it is timed:
 # cuBLAS/SDPA f32 sums in other orders, through two LayerNorms.
 LIB_TOL_REL = 1e-3
@@ -358,7 +379,8 @@ def main():
     from torch.func import functional_call
     from deepxi_tpu_torch.ops.gains import gfunc
     from deepxi_tpu_torch.ops.kernels import spectral
-    from deepxi_tpu_torch.ops.kernels.spectral import apply_gain_reim, stft_mag, stft_reim
+    from deepxi_tpu_torch.ops.kernels.spectral import (apply_gain_reim, stft_mag, stft_reim,
+                                                       synthesis_from_reim)
     from deepxi_tpu_torch.sig.stft import (_hamming_np, _synthesis_window_np,
                                            hop_rows, overlap_and_add)
     from deepxi_tpu_torch.sig.mix import normalise
@@ -374,7 +396,12 @@ def main():
     card = card_line()
 
     # 1. device and build -------------------------------------------------
-    print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    try:
+        import scipy
+    except ImportError:
+        fail("scipy is not installed: DeepXiTorch.infer writes its .mat outputs with scipy.io")
+    print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"numpy {np.__version__}, scipy {scipy.__version__}")
     t0 = time.perf_counter()
     # every kernel at the flagship widths, and at phase 3f's small widths
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -1237,6 +1264,315 @@ def main():
     if not (c1_rel <= KERNEL_TOL_REL and wav_steps <= 1):
         fail("the card's results at d_model 32 differ from the CPU's")
 
+    # 3g. the infer surface: every gain and every MagXi out_type ------------
+    # Both trained artifacts through DeepXiTorch.infer, each on its 4 s
+    # utterance and the same tiled 5x (resnet: T=1250, the halo-tiled B4).
+    # (1) y with each MagXi gain, batched (fast=True): the fused network must
+    # launch, the wavs agree with the plain path on the card (bins where a
+    # binary mask's threshold ties, within the xi_hat distance of the two
+    # networks, take the kernel route's side), and the SNR rises for the
+    # estimator and Wiener gains. (2) The xi_hat out_types per utterance:
+    # |X| from one stft_mag_fused launch an utterance; the .mat contents
+    # against the plain per-utterance route (exact FFT, plain network). (3)
+    # d_hat and y with fast=False: one enhance_frames_fused launch an
+    # utterance; the wavs against the plain polar synthesis.
+    from scipy.io import loadmat
+
+    from deepxi_tpu_torch.ops.gains import GAIN_TYPES
+    from deepxi_tpu_torch.sig.mel import mel_filter_bank
+    y_gains = [g for g in GAIN_TYPES if g != "dgwf"]  # dgwf needs a cd mask
+    snr_gains = ("mmse-lsa", "mmse-stsa", "wf", "srwf", "cwf")
+    net_kernels = {"resnet-1.1c": ("fused_block_group_whole", "fused_block_group"),
+                   "mhanet-1.1c": ("fused_transformer_block",)}
+    per_utt = {}  # (DeepXiTorch, params, padded 4 s utterance, frames) for phase 4
+
+    def db(a):
+        return 10.0 * torch.log10(a.double())
+
+    def max_db_diff(a, b):
+        """The largest |a - b| in dB over the bins where both are finite and
+        positive (saturated bins, 0 or +inf, lie far from 0 dB)."""
+        d = (db(a) - db(b)).abs()
+        return d[torch.isfinite(d)].max()
+
+    def wave_gate(label, path, y, ref):
+        """The written wav against y, the route's float waveform, as save_wav
+        quantises it (at most 1 int16 step: a sample within rounding of a
+        step may truncate to either side), and y against the plain float
+        reference. (A d_hat waveform follows the int16 noisy input closely
+        where noise dominates, so its quantised samples flip often.)"""
+        y = y.cpu().numpy()
+        steps = np.abs(read_wav(path)[0].astype(np.int32)
+                       - np.asarray(y * 32768.0, np.int16)).max()
+        if y.shape != ref.shape or not np.isfinite(y).all() or steps > 1:
+            fail(f"{label}: the wav is not the route's waveform ({steps} int16 steps off), "
+                 "of the wrong length or not finite")
+        err = np.abs(y - ref).max()
+        rel = np.sqrt(np.mean((y - ref) ** 2) / np.mean(ref ** 2))
+        if err > WAVE_ATOL or rel > WAVE_REL_RMS:
+            fail(f"{label}: max abs err {err:.3e}, rel RMS {rel:.3e} against the plain path")
+        return y, f"wave max abs err {err:.3e}, rel RMS {rel:.3e}; written wav {steps} int16 steps from it"
+
+    ig_counts = {"stft_mag_fused": 0, "enhance_frames_fused": 0}
+    for ver, a, root in (("resnet-1.1c", art, FLAGSHIP_ROOT), ("mhanet-1.1c", art_m, MHANET_ROOT)):
+        tmp = tempfile.mkdtemp(prefix="deepxi_chip_smoke_infer_")
+        try:
+            ig_utts = {"c012_white_5dB": (a.noisy, a.clean),
+                       "c012_white_5dB_x5": (np.tile(a.noisy, 5), np.tile(a.clean, 5))}
+            test_dir = os.path.join(tmp, "test")
+            for u, (x, _) in ig_utts.items():
+                save_wav(os.path.join(test_dir, u + ".wav"), x, 16000)
+            os.makedirs(os.path.join(tmp, "data"))
+            shutil.copy(os.path.join(root, "stats.npz"),
+                        os.path.join(tmp, "data", f"{ver}_stats.npz"))
+            dx_i = DeepXiTorch(preset(ver, data_path=os.path.join(tmp, "data"),
+                                      out_path=os.path.join(tmp, "out"),
+                                      test_x_path=test_dir), device=dev)
+            it = dx_i.inp_tgt
+
+            def infer(**kw):
+                """infer() with the counts zeroed just before and read just
+                after; (written paths by file name, counts, wall s)."""
+                zero_counts()
+                t0 = time.perf_counter()
+                paths = dx_i.infer(params=a.params, epochs=[1], **kw)  # noqa: B023
+                torch.cuda.synchronize()
+                return ({os.path.basename(p).rsplit(".", 1)[0]: p for p in paths},
+                        counts(), time.perf_counter() - t0)
+
+            # the plain references of each utterance, padded as infer pads it
+            refs = {}
+            with torch.no_grad():
+                for u, (x, _) in ig_utts.items():
+                    xp = np.zeros((1, bucket_length(len(x), 256)), np.int16)
+                    xp[0, :len(x)] = x
+                    n = it.n_frames(len(x))
+                    xn = normalise(torch.as_tensor(xp, device=dev))
+                    Y = stft_reim(xn, 512, 256, 512)      # the batched route's |X|
+                    mag_b = torch.sqrt(Y[..., :257] ** 2 + Y[..., 257:] ** 2)
+                    mag_o, pha_o = it.observation(torch.as_tensor(xp, device=dev))  # exact FFT
+                    refs[u] = dict(
+                        n=n, n_out=(n + 1) * 256, Y=Y, xp=xp,
+                        xi_b=it.xi_hat(a.net(mag_b)),                       # plain network
+                        xi_k=it.xi_hat(dx_i.fast_apply()(a.params, mag_b)),  # the kernels'
+                        tgt_o=a.net(mag_o)[0, :n], mag_o=mag_o[0, :n], pha_o=pha_o[0, :n])
+                    if u == "c012_white_5dB":
+                        per_utt[ver] = (dx_i, a.params, xp, n)
+
+            # (1) y with every MagXi gain, batched
+            y_fast = {}
+            for g in y_gains:
+                written, n, wall = infer(out_type="y", gains=[g])
+                missing = [k for k in net_kernels[ver] if not n.get(k)]
+                if missing:
+                    fail(f"{ver} y {g}: no launch of {missing}")
+                for u, (x, clean) in ig_utts.items():
+                    r = refs[u]
+                    G = gfunc(r["xi_b"], r["xi_b"] + 1.0, g)
+                    ties = 0
+                    if g == "ibm":
+                        # a bin whose xi_hat the two networks place on either
+                        # side of 0 dB takes the kernel route's gain
+                        delta = max_db_diff(r["xi_k"], r["xi_b"])
+                        tie = db(r["xi_b"]).abs() <= delta
+                        ties = int(tie.sum())
+                        G = torch.where(tie, gfunc(r["xi_k"], r["xi_k"] + 1.0, g), G)
+                    with torch.no_grad():
+                        ref = synthesis_from_reim(apply_gain_reim(r["Y"], G, 512), 512, 256,
+                                                  512)[0, :r["n_out"]].cpu().numpy()
+                    with torch.no_grad():
+                        y = dx_i.fast_enhancer(g)(a.params, r["xp"])[0, :r["n_out"]]
+                    y, msg = wave_gate(f"{ver} y {g} {u}", written[u], y, ref)
+                    y_fast[g, u] = y
+                    snr_noisy, snr_enh = snr_db(clean, x / 32768.0), snr_db(clean, y)
+                    print(f"[3g] {ver} infer y {g}, {u} (T={r['n']}): {msg}"
+                          + (f", {ties} bins at the threshold tie" if g == "ibm" else "")
+                          + f"; SNR noisy {snr_noisy:.3f} dB -> {snr_enh:.3f} dB; "
+                          f"launches {n}; {wall * 1e3:.1f} ms for both")
+                    if g in snr_gains and snr_enh <= snr_noisy:
+                        fail(f"{ver} y {g} {u}: enhanced SNR does not beat noisy SNR")
+
+            # (2) the xi_hat out_types, per utterance
+            mel = torch.as_tensor(mel_filter_bank(40, 512, 16000), device=dev)
+            keys = {"xi_hat": "xi_hat", "gamma_hat": "gamma_hat", "deepmmse": "d_psd_hat",
+                    "ibm_hat": "ibm_hat", "subband_ibm_hat": "subband_ibm_hat"}
+            mats = {}
+            for out_type, key in keys.items():
+                written, n, wall = infer(out_type=out_type)
+                if n.get("stft_mag_fused") != len(ig_utts):
+                    fail(f"{ver} {out_type}: stft_mag_fused launched "
+                         f"{n.get('stft_mag_fused', 0)} times for {len(ig_utts)} utterances")
+                ig_counts["stft_mag_fused"] += n["stft_mag_fused"]
+                print(f"[3g] {ver} infer {out_type}: launches {n}; {wall * 1e3:.1f} ms for "
+                      f"{len(ig_utts)} utterances")
+                for u, path in written.items():
+                    mats[out_type, u] = torch.as_tensor(loadmat(path)[key], device=dev)
+            for u in ig_utts:
+                r = refs[u]
+                xi_k = mats["xi_hat", u]
+                xi_p = it.xi_hat(r["tgt_o"])
+                if xi_k.shape != xi_p.shape or not torch.isfinite(xi_k).all():
+                    fail(f"{ver} xi_hat {u}: shape {tuple(xi_k.shape)} or not finite")
+                # the route's network output, recomputed as its estimator
+                # computes it (the .mat must hold its xi_hat)
+                with torch.no_grad():
+                    mag_k = spectral.stft_mag_fused(hop_rows(normalise(torch.as_tensor(
+                        r["xp"], device=dev)), 256), 512, 512)
+                    tgt_k = dx_i.fast_apply()(a.params, mag_k)[0, :r["n"]]
+                if not torch.allclose(xi_k, it.xi_hat(tgt_k), rtol=1e-6, atol=0,
+                                      equal_nan=True):
+                    fail(f"{ver} xi_hat {u}: the .mat does not hold the route's estimate")
+                valid = sequence_valid_mask(r["mag_o"][None])[0]
+                net_err = (tgt_k - r["tgt_o"])[valid].abs().max().item()
+                delta = max_db_diff(xi_k, xi_p).item()
+                psd_p = r["mag_o"] ** 2 * gfunc(xi_p, xi_p + 1.0, "deepmmse")
+                psd_k = mats["deepmmse", u]
+                psd_err = (psd_k - psd_p).abs().max().item() / psd_p.abs().max().item()
+                masks = {"ibm_hat": (xi_p > 1.0, xi_p),
+                         "subband_ibm_hat": ((xi_p @ mel.T) > 1.0, xi_p @ mel.T)}
+                msg = []
+                for out_type, (m_p, s_p) in masks.items():
+                    differ = mats[out_type, u].bool() != m_p
+                    if (db(s_p).abs()[differ] > delta).any():
+                        fail(f"{ver} {out_type} {u}: a bin differs from the plain route away "
+                             f"from the threshold")
+                    msg.append(f"{out_type} {differ.float().mean().item():.3e} of "
+                               f"{differ.numel()} bins differ")
+                print(f"[3g] {ver} {u}: network output against the plain "
+                      f"per-utterance route on {int(valid.sum())} valid frames: max abs err "
+                      f"{net_err:.3e} (tol {NET_ATOL:.0e}); largest xi_hat difference "
+                      f"delta {delta:.3e} dB; gamma_hat = xi_hat + 1; d_psd_hat max err "
+                      f"{psd_err:.3e} of its largest (tol {PSD_TOL_REL:.0e}); " + "; ".join(msg)
+                      + " (each within delta of 0 dB)")
+                if net_err > NET_ATOL or psd_err > PSD_TOL_REL:
+                    fail(f"{ver} {u}: the xi_hat out_types disagree with the plain route")
+                if not torch.equal(mats["gamma_hat", u], xi_k + 1.0):
+                    fail(f"{ver} gamma_hat {u} is not xi_hat + 1")
+
+            # (3) d_hat and y with fast=False, per utterance
+            for out_type, kw in (("d_hat", {}), ("y", dict(gains=["mmse-lsa"], fast=False))):
+                written, n, wall = infer(out_type=out_type, **kw)
+                if n.get("enhance_frames_fused") != len(ig_utts):
+                    fail(f"{ver} {out_type}: enhance_frames_fused launched "
+                         f"{n.get('enhance_frames_fused', 0)} times for {len(ig_utts)} "
+                         "utterances")
+                ig_counts["enhance_frames_fused"] += n["enhance_frames_fused"]
+                for u in ig_utts:
+                    r = refs[u]
+                    # the plain definitions: MagXi.enhanced_speech, and the
+                    # polar synthesis of sqrt(|X|^2 G_dmmse) with the noisy phase
+                    with torch.no_grad():
+                        if out_type == "y":
+                            ref = it.enhanced_speech(r["mag_o"], r["pha_o"], r["tgt_o"],
+                                                     "mmse-lsa")
+                        else:
+                            G = gfunc(it.xi_hat(r["tgt_o"]), it.xi_hat(r["tgt_o"]) + 1.0,
+                                      "deepmmse")
+                            ref = it.polar_synthesis(torch.sqrt(torch.clamp(
+                                r["mag_o"] ** 2 * G, min=0.0)), r["pha_o"])
+                    ref = ref.cpu().numpy()
+                    y = dx_i.gain_synthesiser("d_hat" if out_type == "d_hat" else "mmse-lsa")(
+                        a.params, r["xp"], r["n"])[0]
+                    y, msg = wave_gate(f"{ver} {out_type} {u}", written[u], y, ref)
+                    if out_type == "y":
+                        fast_err = np.abs(y - y_fast["mmse-lsa", u]).max()
+                        msg += f"; against fast=True max abs err {fast_err:.3e}"
+                        if fast_err > WAVE_ATOL:
+                            fail(f"{ver} y {u}: fast=False disagrees with fast=True")
+                    print(f"[3g] {ver} infer {out_type}{' fast=False' if kw else ''}, {u}: "
+                          f"against the plain polar synthesis: {msg} (tol {WAVE_ATOL:.0e}, "
+                          f"{WAVE_REL_RMS:.0e}); launches {n}; {wall * 1e3:.1f} ms for both")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    launches.update(ig_counts)  # B2 and B3 on the package's per-utterance route
+
+    # 3h. MHANet training at full width -------------------------------------
+    # DeepXiTorch(preset("mhanet-1.1c")).train(): the plain MHANetV3 under
+    # autograd ("full" attention; the attention kernels are inference-only),
+    # B=8, 2 epochs of 2 steps on a synthetic corpus; finite losses, the
+    # first step's gradients on a crop against float64, 30 steps on one
+    # batch, and a checkpoint restore.
+    tmp = tempfile.mkdtemp(prefix="deepxi_chip_smoke_mha_train_")
+    try:
+        clean_dir, noise_dir = write_corpus(tmp)
+        cfg_t = preset("mhanet-1.1c", mbatch_size=TRAIN_B, sample_size=16, max_epochs=2,
+                       model_path=os.path.join(tmp, "model"), set_path=tmp,
+                       log_path=os.path.join(tmp, "log"), data_path=os.path.join(tmp, "data"))
+        s_list = batch_list(clean_dir, "clean", cfg_t.data_path)
+        d_list = batch_list(noise_dir, "noise", cfg_t.data_path)
+        dx_t = DeepXiTorch(cfg_t, s_list, d_list, device=dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        losses_t = dx_t.train(verbose=False)
+        torch.cuda.synchronize()
+        print(f"[3h] DeepXiTorch(preset('mhanet-1.1c')).train(): {cfg_t.max_epochs} epochs "
+              f"of {len(s_list) // TRAIN_B} steps, B={TRAIN_B}, full width "
+              f"({sum(v.numel() for v in dx_t._state.params.values()):,} parameters) in "
+              f"{time.perf_counter() - t0:.1f} s; epoch losses {losses_t}; kernel launches "
+              f"{counts()} (the plain network: none)")
+        if not (len(losses_t) == cfg_t.max_epochs and np.isfinite(losses_t).all()):
+            fail("MHANet training losses are not finite")
+
+        params0_m = dx_t.init_params()
+        s, d, s_len, d_len, snr = next(MiniBatchLoader(
+            s_list, d_list, TRAIN_B, cfg_t.snr_levels, seed=cfg_t.seed,
+            N_s=cfg_t.N_s).epoch(0))
+        offs_m = noise_offsets(torch.as_tensor(s_len), torch.as_tensor(d_len),
+                               torch.Generator().manual_seed(cfg_t.seed + 1))
+        batch_m = (torch.as_tensor(s, device=dev), torch.as_tensor(d, device=dev),
+                   torch.as_tensor(s_len), torch.as_tensor(d_len), torch.as_tensor(snr))
+        with torch.no_grad():
+            inp_m, tgt_m, nf_m = dx_t.inp_tgt.example(*batch_m, offsets=offs_m)
+        mask_m = frame_mask(inp_m.shape[1], nf_m, dev)
+
+        def crop_grads(p0):
+            """The masked loss's gradients on 2 utterances x 32 frames of the
+            first batch, through the plain network, in p0's dtype."""
+            p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+            dt = next(iter(p0.values())).dtype
+            loss = masked_loss(functional_call(dx_t.network, p, (inp_m[:2, :32].to(dt),)),
+                               tgt_m[:2, :32].to(dt), mask_m[:2, :32].to(dt), cfg_t.loss_fnc)
+            return dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+        g_32 = crop_grads(params0_m)
+        g_64 = crop_grads({k: v.double() for k, v in params0_m.items()})
+        w = max(((g_32[k].double() - g_64[k]).abs().max().item()
+                 / max(g_64[k].abs().max().item(), 1e-30), k) for k in g_64)
+        print(f"[3h] first step, 2 utterances x 32 frames of the batch: gradients of "
+              f"{len(g_64)} leaves against float64, worst rel err {w[0]:.3e} at {w[1]} (tol "
+              f"{GRAD_TOL_REL:.0e} of each leaf's max abs)")
+        if not w[0] <= GRAD_TOL_REL:
+            fail("MHANet gradients disagree with float64 autograd")
+
+        # The preset's schedule warms up over 40000 steps: its rate at step 30
+        # is ~2e-7, too small to move the loss in 30 steps, so the overfit
+        # check alone takes warmup_steps=100.
+        tx_fit = make_optimizer(cfg_t.network_type, cfg_t.d_model, 100)
+        step_fit = make_train_step(dx_t.network, dx_t.inp_tgt, tx_fit, cfg_t.loss_fnc)
+        st = TrainState.create(params0_m, tx_fit)
+        fit = []
+        for _ in range(30):
+            st, m = step_fit(st, *batch_m, offsets=offs_m)
+            fit.append(m["loss"])
+        fit = torch.stack(fit).tolist()
+        print(f"[3h] 30 steps on one batch (warmup_steps 100): loss {fit[0]:.5f} -> "
+              f"{fit[-1]:.5f}")
+        if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
+            fail("30 MHANet steps on one batch did not lower its loss")
+
+        tx_m = make_optimizer(cfg_t.network_type, cfg_t.d_model, cfg_t.warmup_steps)
+        step_m = make_train_step(dx_t.network, dx_t.inp_tgt, tx_m, cfg_t.loss_fnc)
+        restored = restore_checkpoint(os.path.join(cfg_t.model_path, cfg_t.ver),
+                                      cfg_t.max_epochs - 1, TrainState.create(params0_m, tx_m))
+        l_live = step_m(dx_t._state, *batch_m, offsets=offs_m)[1]["loss"].item()
+        l_back = step_m(restored, *batch_m, offsets=offs_m)[1]["loss"].item()
+        print(f"[3h] checkpoint epoch-{cfg_t.max_epochs - 1}: next-step loss live "
+              f"{l_live:.9f}, restored {l_back:.9f} (tol {CKPT_TOL:.0e})")
+        if not (restored.step == dx_t._state.step and abs(l_live - l_back) <= CKPT_TOL):
+            fail("a restored MHANet checkpoint does not continue the run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -1387,6 +1723,17 @@ def main():
             e2e[name].append(host_ms(fn))
         print(f"[4] resnet-1.1c {k}, median of 10 a turn: " + "; ".join(
             f"{name} {', '.join(f'{t:.3f}' for t in ts)} ms" for name, ts in e2e.items()))
+    # the per-utterance routes of DeepXiTorch.infer on each artifact's 4 s
+    # utterance (padded to its bucket, as infer runs it): the xi_hat
+    # out_types' |X| -> network -> xi_hat (stft_mag_fused), and d_hat's
+    # synthesis (enhance_frames_fused)
+    for ver, (dx_i, p_i, xp, n_i) in per_utt.items():
+        t_xi = host_times(lambda: dx_i.xi_estimator()(p_i, xp, with_mag=True))  # noqa: B023
+        t_d = host_times(lambda: dx_i.gain_synthesiser("d_hat")(p_i, xp, n_i))  # noqa: B023
+        print(f"[4] {ver} per-utterance infer route, 4 s (T={n_i}, padded to "
+              f"{xp.shape[1] // 256}): xi_hat median {np.median(t_xi):.3f} ms (10 calls, min "
+              f"{t_xi.min():.3f}, max {t_xi.max():.3f}); d_hat median {np.median(t_d):.3f} ms "
+              f"(min {t_d.min():.3f}, max {t_d.max():.3f})")
     # resnet-1.1c enhancement at B=96 x 10 s (distinct rows), pack2 against
     # unpacked, in turns
     x = batches["B=96 x 10 s, T=625"]
@@ -1473,6 +1820,18 @@ def main():
           + "; ".join(f"{arm} median {step_ms[arm]:.3f} ms ({spread[arm]}; "
                       f"{audio_s / step_ms[arm] * 1e3:.1f} audio-s/s, peak "
                       f"{peak_mb[arm]:.0f} MiB)" for arm in step_ms))
+    # the mhanet-1.1c train step (the plain MHANetV3 under autograd) at the
+    # same batch shape, from 3h's initial state and first batch
+    st_m = TrainState.create(params0_m, tx_m)
+    torch.cuda.reset_peak_memory_stats()
+    ts = host_times(lambda: step_m(st_m, *batch_m, offsets=offs_m), iters=30)
+    audio_m = TRAIN_B * batch_m[0].shape[1] / 16000.0
+    print(f"[4] mhanet-1.1c train step B={TRAIN_B} x {batch_m[0].shape[1] / 16000:.3f} s "
+          f"(T={inp_m.shape[1]}): median {np.median(ts):.3f} ms (30 steps min {ts.min():.3f} "
+          f"max {ts.max():.3f}; {audio_m / np.median(ts) * 1e3:.1f} audio-s/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB); resnet-1.1c fused median "
+          f"{step_ms['fused']:.3f} ms")
+    del st_m
 
     # the MHANet kernels (causal, all rows valid) and mhanet-1.1c enhancement
     neg = mha_fused.NEG_INF_V2

@@ -1,7 +1,8 @@
 """Typed configuration and the presets the port runs (follows
 deepxi_tpu/config.py; only the fields that training, the statistics sample
-and offline inference read: resnet-1.1c, and mhanet-1.1c/1.0c for
-inference)."""
+and offline inference read): resnet-1.1c, mhanet-1.1c and mhanet-1.0c, and
+their DEMAND VoiceBank variants (`-vb`: SNR 0..15 dB in steps of 5, no
+validation set, test epoch 125)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class Config:
     min_snr: int = -10
     max_snr: int = 20
     snr_inter: int = 1
+    n_filters: int = 40   # mel filters of the subband_ibm_hat output
 
     # training
     mbatch_size: int = 8
@@ -118,6 +120,12 @@ VERSION_PRESETS: Dict[str, Dict[str, Any]] = {
                         unit_type="ReLU->LN->W+b", test_epoch=200,
                         tcn_fused_train=True, **_COMMON),
 }
+
+# DEMAND VoiceBank training variants.
+for _ver in list(VERSION_PRESETS):
+    VERSION_PRESETS[_ver + "-vb"] = dict(VERSION_PRESETS[_ver], min_snr=0,
+                                         max_snr=15, snr_inter=5,
+                                         val_flag=False, test_epoch=125)
 
 
 def preset(ver: str, **overrides: Any) -> Config:

@@ -1,7 +1,7 @@
 """Framework facade: map statistics, the training loop and offline
-inference (follows deepxi_tpu/framework.py; `infer` has the fast path of
-out_type `y` only, `test` and `spectral_distortion` are still to port, and
-there is no device mesh and no phoneme mode).
+inference (follows deepxi_tpu/framework.py; `infer` writes every MagXi
+out_type, `test` and `spectral_distortion` are still to port, and there is
+no device mesh, no hybrid mode and no phoneme mode).
 
 Artifact layout as in the JAX package:
 
@@ -10,6 +10,7 @@ Artifact layout as in the JAX package:
   data/sample.npz                  cached training sample
   log/loss/<ver>.csv               epoch,loss[,val_loss]
   out/<ver>/e<epoch>/y/<gain>/     enhanced wavs
+  out/<ver>/e<epoch>/<out_type>/   the other outputs (.mat; d_hat: wavs)
 """
 
 from __future__ import annotations
@@ -27,14 +28,30 @@ from deepxi_tpu_torch.data.listing import test_batch, val_wav_batch
 from deepxi_tpu_torch.data.loader import MiniBatchLoader, bucket_length
 from deepxi_tpu_torch.data.wavio import save_wav
 from deepxi_tpu_torch.inp_tgt import MagXi
-from deepxi_tpu_torch.models.attention import MHANetV2, MHANetV3
+from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
+                                               init_flax_like as init_mhanet_flax_like)
 from deepxi_tpu_torch.models.tcn import ResNetV2, init_flax_like
+from deepxi_tpu_torch.ops.gains import gfunc
 from deepxi_tpu_torch.ops.maps import NormalCDF
 from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
                                        checkpoint_params, frame_mask,
                                        make_eval_step, make_optimizer,
                                        make_train_step, restore_checkpoint,
                                        save_checkpoint)
+
+# The MagXi out_types `infer` writes; the other families' and modes' are
+# named in its error.
+OUT_TYPES = ("y", "xi_hat", "gamma_hat", "deepmmse", "ibm_hat",
+             "subband_ibm_hat", "d_hat")
+UNPORTED_OUT_TYPES = ("mag_hat", "cd_hat", "pho", "hybrid_omlsa", "hybrid_mixmax",
+                      "tracking_hist", "tracking_vts")
+
+
+def _save_mat(path: str, data: np.ndarray, name: str) -> None:
+    """One array as `name` in a .mat file (scipy.io)."""
+    from scipy.io import savemat
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    savemat(path, {name: np.asarray(data)})
 
 
 def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
@@ -59,7 +76,7 @@ def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
 class DeepXiTorch:
     """Deep Xi on one device (the card unless ``device="cpu"``): the MagXi
     target with the DBNormalCDF map, and the causal ReLU->LN->W+b ResNetV2
-    (training and inference) or MHANetV2/V3 (inference)."""
+    or MHANetV2/V3, for training and inference."""
 
     def __init__(self, cfg: Config, train_s_list: Optional[List[Dict]] = None,
                  train_d_list: Optional[List[Dict]] = None, device=None):
@@ -142,16 +159,19 @@ class DeepXiTorch:
     def init_params(self) -> Dict[str, torch.Tensor]:
         """Seeded initial parameters (flax's scheme, `cfg.seed`) on the
         device."""
-        init_flax_like(self.network.to("cpu"),
-                       torch.Generator().manual_seed(self.cfg.seed))
+        init = init_flax_like if self.cfg.network_type == "ResNetV2" \
+            else init_mhanet_flax_like
+        init(self.network.to("cpu"), torch.Generator().manual_seed(self.cfg.seed))
         self.network.to(self.device)
         return {k: v.detach().clone() for k, v in self.network.state_dict().items()}
 
     def apply_fn(self):
-        """The network forward of the train step: the fused stack when
-        `cfg.tcn_fused_train`, else None (the plain network)."""
+        """The network forward of the train step: the fused stack for
+        ResNetV2 with `cfg.tcn_fused_train`, else None (the plain network
+        under autograd; for MHANet "full" attention, as in the JAX
+        package)."""
         cfg = self.cfg
-        if not cfg.tcn_fused_train:
+        if not cfg.tcn_fused_train or cfg.network_type != "ResNetV2":
             return None
         from deepxi_tpu_torch.ops.kernels.tcn_fused_train import \
             resnetv2_apply_fused_train
@@ -165,8 +185,9 @@ class DeepXiTorch:
         """The training loop; returns the per-epoch mean losses. The final
         state is kept as `self._state`."""
         cfg = self.cfg
-        if cfg.network_type != "ResNetV2":
-            raise ValueError(f"the port trains ResNetV2 so far, not {cfg.network_type}")
+        if cfg.network_type != "ResNetV2" and cfg.attention_impl != "full":
+            raise ValueError(f"attention_impl {cfg.attention_impl!r} is inference-only "
+                             "(its kernels have no backward): train MHANet with 'full'")
         model_dir = os.path.join(cfg.model_path, cfg.ver)
         os.makedirs(model_dir, exist_ok=True)
         tx = make_optimizer(cfg.network_type, cfg.d_model or 256, cfg.warmup_steps)
@@ -304,33 +325,112 @@ class DeepXiTorch:
                     ys[i] = y[r, :(-(-int(x_lens[i]) // N_s) + 1) * N_s]
         return ys
 
+    def xi_estimator(self) -> Callable:
+        """The cached `make_xi_estimator` of `fast_apply` (the per-utterance
+        route of the xi_hat-type out_types)."""
+        key = ("estimate",)
+        if key not in self._enhancers:
+            from deepxi_tpu_torch.enhance import make_xi_estimator
+            self._enhancers[key] = make_xi_estimator(
+                self.inp_tgt, self.network, apply_fn=self.fast_apply(),
+                device=self.device)
+        return self._enhancers[key]
+
+    def gain_synthesiser(self, gain: str) -> Callable:
+        """The cached `make_gain_synthesiser` of `fast_apply` for a gain
+        function, or for the noise estimate when `gain` is "d_hat" (the
+        per-utterance route of `y` with ``fast=False`` and of `d_hat`)."""
+        key = ("synthesis", gain)
+        if key not in self._enhancers:
+            from deepxi_tpu_torch.enhance import make_gain_synthesiser, noise_gain
+            fn = noise_gain if gain == "d_hat" else (
+                lambda xi: gfunc(xi, xi + 1.0, gain))
+            self._enhancers[key] = make_gain_synthesiser(
+                self.inp_tgt, self.network, fn, apply_fn=self.fast_apply(),
+                device=self.device)
+        return self._enhancers[key]
+
     def infer(self, params: Optional[Dict[str, torch.Tensor]] = None,
               test_x_path: Optional[str] = None, out_type: Optional[str] = None,
               gains: Optional[Sequence[str]] = None,
-              epochs: Optional[Sequence[int]] = None) -> List[str]:
-        """Enhance every wav of the test directory for each epoch and gain
-        into `out/<ver>/e<epoch>/y/<gain>/<name>.wav` (16-bit); `params`
-        replaces the saved epochs' weights. Returns the written paths. Only
-        out_type `y` on the batched fast path is ported."""
+              epochs: Optional[Sequence[int]] = None, fast: bool = True) -> List[str]:
+        """Write `out_type` of every wav of the test directory for each epoch
+        and gain under `out/<ver>/e<epoch>/`: `y` (16-bit wavs under
+        `y/<gain>/`), `d_hat` (wavs), and `xi_hat`, `gamma_hat`, `deepmmse`
+        (key `d_psd_hat`), `ibm_hat` and `subband_ibm_hat` (.mat). `params`
+        replaces the saved epochs' weights. Returns the written paths.
+
+        `y` with ``fast=True`` enhances utterances batched by length
+        (`enhance_all`); every other out_type, and `y` with ``fast=False``,
+        runs each utterance alone, padded to its `bucket_length` and cut to
+        its frames."""
         cfg = self.cfg
         out_type = out_type or cfg.out_type
-        if out_type != "y":
-            raise ValueError(f"the port infers out_type 'y' only, not {out_type!r}")
+        if out_type in UNPORTED_OUT_TYPES:
+            raise ValueError(f"out_type {out_type!r} belongs to a family or mode the "
+                             f"port does not have ({', '.join(UNPORTED_OUT_TYPES)}); "
+                             f"it writes {', '.join(OUT_TYPES)}")
+        if out_type not in OUT_TYPES:
+            raise ValueError(f"Invalid output type: {out_type!r}")
         gains = list(gains) if gains else (
             cfg.gain if isinstance(cfg.gain, list) else [cfg.gain])
         epochs = list(epochs) if epochs else (
             cfg.test_epoch if isinstance(cfg.test_epoch, list) else [cfg.test_epoch])
         x_batch, x_lens, _, names = test_batch(test_x_path or cfg.test_x_path)
+        mel_bank = None
+        if out_type == "subband_ibm_hat":
+            from deepxi_tpu_torch.sig.mel import mel_filter_bank
+            mel_bank = mel_filter_bank(cfg.n_filters, cfg.K, cfg.f_s)
         written: List[str] = []
         for e in epochs:
             if e < 1:
                 raise ValueError("test_epoch must be greater than 0")
             p = params if params is not None else self.load_epoch(e)
             for g in gains:
-                out_dir = os.path.join(cfg.out_path, cfg.ver, f"e{e}", "y", g)
-                ys = self.enhance_all(p, x_batch, x_lens, g)
-                for name, y in zip(names, ys):
-                    path = os.path.join(out_dir, name + ".wav")
-                    save_wav(path, y, cfg.f_s)
-                    written.append(path)
+                sub = os.path.join("y", g) if out_type == "y" else out_type
+                out_dir = os.path.join(cfg.out_path, cfg.ver, f"e{e}", sub)
+                if out_type == "y" and fast:
+                    ys = self.enhance_all(p, x_batch, x_lens, g)
+                    for name, y in zip(names, ys):
+                        path = os.path.join(out_dir, name + ".wav")
+                        save_wav(path, y, cfg.f_s)
+                        written.append(path)
+                    continue
+                for i, name in enumerate(names):
+                    written.append(self._write_output(
+                        out_dir, name, out_type, g, p, x_batch[i], int(x_lens[i]),
+                        mel_bank))
         return written
+
+    def _write_output(self, out_dir: str, name: str, out_type: str, gain: str,
+                      params: Dict[str, torch.Tensor], wav: np.ndarray, length: int,
+                      mel_bank: Optional[np.ndarray]) -> str:
+        """One utterance's output on the per-utterance route: the waveform
+        padded to `bucket_length` at B=1, the outputs cut to its frames."""
+        cfg = self.cfg
+        w = np.zeros((1, bucket_length(length, cfg.N_s)), np.int16)
+        w[0, :length] = wav[:length]
+        n = self.inp_tgt.n_frames(length)
+        if out_type in ("y", "d_hat"):
+            y = self.gain_synthesiser("d_hat" if out_type == "d_hat" else gain)(
+                params, w, n)
+            path = os.path.join(out_dir, name + ".wav")
+            save_wav(path, y[0].cpu().numpy(), cfg.f_s)
+            return path
+        xi_hat, mag = self.xi_estimator()(params, w, with_mag=True)
+        xi_hat, mag = xi_hat[0, :n], mag[0, :n]
+        key = out_type
+        if out_type == "xi_hat":
+            data = xi_hat
+        elif out_type == "gamma_hat":
+            data = xi_hat + 1.0
+        elif out_type == "deepmmse":
+            key = "d_psd_hat"
+            data = torch.square(mag) * gfunc(xi_hat, xi_hat + 1.0, "deepmmse")
+        elif out_type == "ibm_hat":
+            data = xi_hat > 1.0
+        else:
+            data = (xi_hat.cpu().numpy() @ mel_bank.T) > 1.0
+        path = os.path.join(out_dir, name + ".mat")
+        _save_mat(path, data.cpu().numpy() if torch.is_tensor(data) else data, key)
+        return path

@@ -9,9 +9,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from deepxi_tpu_torch.ops.gains import gfunc
 from deepxi_tpu_torch.ops.maps import NormalCDF
 from deepxi_tpu_torch.sig import mix as mixing
-from deepxi_tpu_torch.sig.stft import polar_analysis
+from deepxi_tpu_torch.sig import stft
 
 
 def _stack_valid_frames(transform: Callable, sample_wavs: np.ndarray,
@@ -46,8 +47,21 @@ class MagXi:
     def n_outp(self) -> int:
         return self.n_feat
 
+    def polar_analysis(self, x: torch.Tensor):
+        return stft.polar_analysis(x, self.N_d, self.N_s, self.K)
+
+    def polar_synthesis(self, STMS: torch.Tensor, STPS: torch.Tensor) -> torch.Tensor:
+        return stft.polar_synthesis(STMS, STPS, self.N_d, self.N_s, self.K)
+
+    def n_frames(self, n: int) -> int:
+        return stft.n_frames(n, self.N_s)
+
+    def observation(self, x: torch.Tensor):
+        """Noisy-speech STMS and STPS of an int16 waveform."""
+        return self.polar_analysis(mixing.normalise(x))
+
     def _stms(self, w: torch.Tensor) -> torch.Tensor:
-        return polar_analysis(w, self.N_d, self.N_s, self.K)[0]
+        return self.polar_analysis(w)[0]
 
     def mix(self, s, d, s_len, d_len, snr,
             generator: Optional[torch.Generator] = None,
@@ -74,6 +88,17 @@ class MagXi:
         xi_bar = self.xi_map.map(mixing.xi(self._stms(s), self._stms(d)))
         return self._stms(x), xi_bar, n_frames
 
+    def enhanced_speech(self, x_STMS: torch.Tensor, x_STPS: torch.Tensor,
+                        xi_bar_hat: torch.Tensor, gtype: str) -> torch.Tensor:
+        """Waveform of the gain `gtype` applied to the noisy STMS, with the
+        noisy phase."""
+        xi_hat = self.xi_hat(xi_bar_hat)
+        return self.polar_synthesis(x_STMS * gfunc(xi_hat, xi_hat + 1.0, gtype), x_STPS)
+
     def xi_hat(self, xi_bar_hat: torch.Tensor) -> torch.Tensor:
         """A priori SNR estimate from the network output."""
         return self.xi_map.inverse(xi_bar_hat)
+
+    def gamma_hat(self, xi_bar_hat: torch.Tensor) -> torch.Tensor:
+        """ML a posteriori SNR estimate xi_hat + 1."""
+        return self.xi_map.inverse(xi_bar_hat) + 1.0

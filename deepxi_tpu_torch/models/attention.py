@@ -9,7 +9,8 @@ scaled by d_k^-1/2, the mask applied as ``logits += -1e10 (1 - mask)``. A
 frame is valid iff any feature of the NETWORK INPUT is nonzero (Keras
 ``Masking(0.0)``). LayerNorms are flax's ``nn.LayerNorm`` (variance in one
 pass, E[x^2] - E[x]^2, eps 1e-6, scale and bias). Parameters keep the flax
-names and layouts, so the weight bridge passes them unchanged.
+names and layouts, so the weight bridge passes them unchanged, and
+`init_flax_like` draws them as flax initialises the JAX modules.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from deepxi_tpu_torch.models import tcn
 from deepxi_tpu_torch.models.tcn import Conv1d, layer_norm, output_activation
 
 NEG_INF_V2 = -1.0e10  # tfa's masking constant
@@ -193,3 +195,43 @@ class MHANetV3(MHANetV2):
     def positional(self, x: torch.Tensor) -> torch.Tensor:
         pos = torch.arange(x.shape[1], device=x.device) % self.max_len
         return x + self.pos_emb.embedding[pos][None]
+
+
+def _xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax `xavier_uniform()` (in_axis -2, out_axis -1): the leading axes
+    are the receptive field, so a [H, I, d] kernel has fan_in H*I and
+    fan_out H*d; uniform in +-sqrt(6 / (fan_in + fan_out))."""
+    receptive = w[..., 0, 0].numel()
+    fan_in, fan_out = receptive * w.shape[-2], receptive * w.shape[-1]
+    a = (6.0 / (fan_in + fan_out)) ** 0.5
+    nn.init.uniform_(w, -a, a, generator=generator)
+
+
+def init_flax_like(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise an MHANetV2/V3 in place as flax does, from `generator` (a
+    CPU generator; initialise on the CPU, then move): the 1x1 convs and the
+    Dense kernels lecun_normal (a normal truncated to 2 standard deviations
+    with variance 1 / fan_in), the attention kernels xavier_uniform, the
+    positional embedding a normal of variance 1 / d_model (flax `Embed`),
+    biases zero and LayerNorm scales one. Modules are visited in
+    registration order; the numbers differ from flax's (another generator),
+    the distributions are the same."""
+    tcn.init_flax_like(net, generator)  # the convs
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Dense):
+                std = m.kernel.shape[0] ** -0.5 / tcn.TRUNC_STD
+                nn.init.trunc_normal_(m.kernel, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, TFAMultiHeadAttention):
+                for w in (m.query_kernel, m.key_kernel, m.value_kernel,
+                          m.projection_kernel):
+                    _xavier_uniform_(w, generator)
+            elif isinstance(m, Embed):
+                nn.init.normal_(m.embedding, 0.0, m.embedding.shape[1] ** -0.5,
+                                generator=generator)
+            elif isinstance(m, LayerNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+    return net

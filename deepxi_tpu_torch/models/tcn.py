@@ -121,7 +121,7 @@ class ResNetV2(nn.Module):
 
 # Standard deviation of a unit normal truncated to [-2, 2]: flax's
 # variance_scaling divides by it so the truncated draw keeps the variance.
-_TRUNC_STD = 0.87962566103423978
+TRUNC_STD = 0.87962566103423978
 
 
 def init_flax_like(net: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -135,7 +135,7 @@ def init_flax_like(net: nn.Module, generator: torch.Generator) -> nn.Module:
         for m in net.modules():
             if isinstance(m, Conv1d):
                 k, c_in, _ = m.kernel.shape
-                std = (k * c_in) ** -0.5 / _TRUNC_STD
+                std = (k * c_in) ** -0.5 / TRUNC_STD
                 nn.init.trunc_normal_(m.kernel, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
                 if m.bias is not None:

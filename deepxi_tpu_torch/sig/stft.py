@@ -8,7 +8,9 @@
   * The COLA-normalised synthesis window of
     ``tf.signal.inverse_stft_window_fn`` and shift-and-add overlap-add.
   * `stft` / `polar_analysis` on the exact FFT (``torch.fft.rfft``), the
-    spectra of the training examples and the map statistics.
+    spectra of the training examples and the map statistics, and their
+    inverse `inverse_stft` / `polar_synthesis` (``torch.fft.irfft``), the
+    plain definition of the per-utterance synthesis.
 
 Framing and overlap-add take Deep Xi's 50% overlap (N_d = 2 N_s) only.
 """
@@ -95,3 +97,18 @@ def polar_analysis(x: torch.Tensor, N_d: int, N_s: int,
     """Short-time magnitude and phase spectra."""
     X = stft(x, N_d, N_s, K)
     return torch.abs(X), torch.angle(X)
+
+
+def inverse_stft(X: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:
+    """Inverse of `stft`, ``tf.signal.inverse_stft`` with the
+    ``inverse_stft_window_fn`` synthesis window: [..., T, K//2+1] complex ->
+    [..., (T-1)*N_s + N_d] waveform."""
+    frames = torch.fft.irfft(X, n=K, dim=-1)[..., :N_d]
+    w_syn = torch.as_tensor(_synthesis_window_np(N_d, N_s), device=X.device)
+    return overlap_and_add(frames * w_syn, N_s)
+
+
+def polar_synthesis(STMS: torch.Tensor, STPS: torch.Tensor, N_d: int, N_s: int,
+                    K: int) -> torch.Tensor:
+    """Waveform from short-time magnitude and phase spectra."""
+    return inverse_stft(torch.polar(STMS, STPS), N_d, N_s, K)

@@ -368,6 +368,58 @@ def test_xi_estimator_launches_stft_kernel(cuda):
     assert keep.float().mean().item() > 0.5 and err_db <= 1e-2, err_db
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [32, 96, 250, 640, 1280])
+def test_spectral_kernels_at_per_utterance_shapes(cuda, T):
+    """The per-utterance route of `DeepXiTorch.infer` launches each spectral
+    kernel at B=1 on one utterance's frames (bucketed to 32-frame multiples
+    for |X|, cut to its own count for the synthesis): every row within 1e-4
+    of the output's scale of the plain version."""
+    from deepxi_tpu_torch.ops.kernels import spectral
+    gen = torch.Generator().manual_seed(T)
+    x2d = torch.randn(1, T + 1, 256, generator=gen).to(cuda)
+    Y = torch.randn(1, T, 514, generator=gen).to(cuda)
+    G = torch.rand(1, T, 257, generator=gen).to(cuda)
+    for y, y_ref in ((spectral.stft_mag_fused(x2d, 512, 512),
+                      spectral.stft_mag_fused_ref(x2d, 512, 512)),
+                     (spectral.enhance_frames_fused(Y, G, 512, 256, 512),
+                      spectral.enhance_frames_fused_ref(Y, G, 512, 256, 512))):
+        torch.cuda.synchronize()
+        assert y.shape == y_ref.shape and torch.isfinite(y).all()
+        rows = (y - y_ref).abs().amax(-1) / y_ref.abs().amax(-1)
+        assert rows.max().item() <= 1e-4, rows.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain", ["d_hat", "mmse-stsa"])
+def test_gain_synthesiser_launches_the_synthesis_kernel(cuda, gain):
+    """make_gain_synthesiser on the card: one enhance_frames_fused launch a
+    call, and the waveform of the polar synthesis of the gained magnitude
+    with the noisy phase (the noise estimate for "d_hat"), on the card."""
+    from deepxi_tpu_torch.enhance import make_gain_synthesiser, noise_gain
+    from deepxi_tpu_torch.inp_tgt import MagXi
+    from deepxi_tpu_torch.ops.gains import gfunc
+    from deepxi_tpu_torch.ops.kernels import spectral
+    from deepxi_tpu_torch.ops.maps import NormalCDF
+    gen = torch.Generator().manual_seed(7)
+    net = init_flax_like(ResNetV2(257, 257, n_blocks=3, d_model=32, d_f=16), gen).to(cuda)
+    params = {k: v.detach() for k, v in net.state_dict().items()}
+    it = MagXi(xi_map=NormalCDF(use_db=True, mu=torch.zeros(257, device=cuda),
+                                sigma=torch.full((257,), 10.0, device=cuda)))
+    fn = noise_gain if gain == "d_hat" else (lambda xi: gfunc(xi, xi + 1.0, gain))
+    x = torch.zeros(1, 8192, dtype=torch.int16)
+    x[0, :7000] = (torch.randn(7000, generator=gen) * 3000).to(torch.int16)
+    n = spectral.enhance_frames_fused.launches
+    y = make_gain_synthesiser(it, net, fn, device=cuda)(params, x, 28)
+    assert spectral.enhance_frames_fused.launches == n + 1
+    with torch.no_grad():
+        mag, pha = it.observation(x.to(cuda))
+        G = fn(it.xi_hat(net(mag)))[:, :28]
+        y_ref = it.polar_synthesis(mag[:, :28] * G, pha[:, :28])
+    assert y.shape == y_ref.shape == (1, 29 * 256) and torch.isfinite(y).all()
+    assert (y - y_ref).abs().max().item() <= 1e-4 * y_ref.abs().max().item()
+
+
 # -- the MHANet kernels ---------------------------------------------------------
 
 def _heads(B, T, lengths, gen, device):

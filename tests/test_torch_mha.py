@@ -323,7 +323,8 @@ def test_framework_routes_and_checkpoints(tmp_path):
     """`fast_apply` picks the fused block for mhanet-1.1c with "full"
     attention, the module itself for "fused", and the fused TCN groups for
     resnet-1.1c; `load_epoch` reads a `torch.save` checkpoint (1-indexed);
-    MHANet training is refused."""
+    MHANet training through the inference-only "fused" or "stream"
+    attention is refused (it trains through "full" attention)."""
     from deepxi_tpu_torch.training import TrainState, make_optimizer, save_checkpoint
     np.savez(tmp_path / "mhanet-1.1c_stats.npz",
              **{"xi_map.mu": np.zeros(257, np.float32),
@@ -340,5 +341,7 @@ def test_framework_routes_and_checkpoints(tmp_path):
                     TrainState.create(params, make_optimizer("MHANetV3")))
     got = dx.load_epoch(3)
     assert all(torch.equal(got[k], params[k]) for k in params)
-    with pytest.raises(ValueError, match="trains ResNetV2"):
-        dx.train()
+    assert dx.apply_fn() is None  # the plain network under autograd
+    for impl in ("fused", "stream"):
+        with pytest.raises(ValueError, match="inference-only"):
+            DeepXiTorch(cfg.replace(attention_impl=impl), device="cpu").train()

@@ -21,7 +21,8 @@ from deepxi_tpu_torch import resolve_device
 from deepxi_tpu_torch.compat.artifact import (FLAGSHIP_PARAMS, flax_order,
                                               from_flax_params,
                                               load_flagship_artifact)
-from deepxi_tpu_torch.enhance import make_enhancer
+from deepxi_tpu_torch.enhance import (make_enhancer, make_gain_synthesiser,
+                                      make_xi_estimator, noise_gain)
 from deepxi_tpu_torch.ops.kernels.tcn_fused import resnetv2_apply_fused
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,6 +106,10 @@ def test_entry_points_default_to_the_card(port):
         load_flagship_artifact()
     with pytest.raises(RuntimeError):
         make_enhancer(port.inp_tgt, port.net)
+    with pytest.raises(RuntimeError):
+        make_xi_estimator(port.inp_tgt, port.net)
+    with pytest.raises(RuntimeError):
+        make_gain_synthesiser(port.inp_tgt, port.net, noise_gain)
 
 
 def _imported_roots(path):

@@ -2,7 +2,7 @@
 """Where the time of the PyTorch port's main paths goes on the card.
 
     python3 tools/torch_profile.py enhance [--ver resnet-1.1c|mhanet-1.1c] [--batch 96|64] [--seconds 10] [--iters 5] [--timed 30] [--plain]
-    python3 tools/torch_profile.py train [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
+    python3 tools/torch_profile.py train [--ver resnet-1.1c|mhanet-1.1c] [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
     python3 tools/torch_profile.py stream [--ver mhanet-1.1c|resnet-1.1c] [--batch 1] [--cache f32|bf16] [--iters 5] [--timed 30] [--plain] [--graph]
     python3 tools/torch_profile.py kernels [--iters 20] [--rows 6,7,11]
 
@@ -13,7 +13,8 @@ plain network). `train` runs train steps (example synthesis, forward,
 backward, update) at full width on `--batch` synthetic utterances of
 `--seconds`, with seeded initial weights and map statistics fitted on the
 batch, through the fused training stack (or, with `--plain`, autograd of the
-plain ResNetV2). `stream` runs one streaming hop (`step`) of `--batch`
+plain ResNetV2); for mhanet-1.1c autograd of the plain MHANetV3, its only
+training route. `stream` runs one streaming hop (`step`) of `--batch`
 channels of the checked-in artifact: for mhanet-1.1c at the clock 1023 with
 random K/V caches (`--cache` f32 or bf16) through the KV-cache kernel (or,
 with `--plain`, the einsum route); for resnet-1.1c from zero delay lines.
@@ -275,7 +276,7 @@ def layer_train(n: str) -> str:
     if "tcn_bwd" in n:
         return "tcn backward kernels"
     if any(s in n for s in MATMUL):
-        return "matmul (ff_conv, out_conv, their gradients)"
+        return "matmul (cuBLAS products and their gradients; fused resnet: ff_conv, out_conv)"
     if "fft" in n:
         return "FFT (example spectra)"
     return "elementwise/reduction/copy (mixing, maps, LN, loss, Adam)"
@@ -382,7 +383,10 @@ def enhance_call(args):
 
 def train_call(args):
     """The train workload: (one step, its description)."""
+    from deepxi_tpu_torch.config import preset
+    from deepxi_tpu_torch.framework import build_network
     from deepxi_tpu_torch.inp_tgt import MagXi
+    from deepxi_tpu_torch.models import attention
     from deepxi_tpu_torch.models.tcn import ResNetV2, init_flax_like
     from deepxi_tpu_torch.ops.kernels.tcn_fused_train import \
         resnetv2_apply_fused_train
@@ -401,10 +405,17 @@ def train_call(args):
     s_f, d_f = (s / 32768.0).astype(np.float32), (d / 32768.0).astype(np.float32)
     it = MagXi(xi_map=NormalCDF(use_db=True)).with_stats(s_f, d_f, s_f, lens.numpy(),
                                                          device=dev)
-    net = init_flax_like(ResNetV2(257, 257), torch.Generator().manual_seed(0)).to(dev)
-    tx = make_optimizer("ResNetV2")
-    apply_fn = None if args.plain else (
-        lambda p, m: resnetv2_apply_fused_train(p, m, save_acts=True))
+    gen = torch.Generator().manual_seed(0)
+    if args.ver == "mhanet-1.1c":
+        cfg = preset(args.ver)
+        net = attention.init_flax_like(build_network(cfg, 257, 257), gen).to(dev)
+        tx = make_optimizer(cfg.network_type, cfg.d_model, cfg.warmup_steps)
+        apply_fn = None
+    else:
+        net = init_flax_like(ResNetV2(257, 257), gen).to(dev)
+        tx = make_optimizer("ResNetV2")
+        apply_fn = None if args.plain else (
+            lambda p, m: resnetv2_apply_fused_train(p, m, save_acts=True))
     step = make_train_step(net, it, tx, apply_fn=apply_fn)
     box = [TrainState.create(dict(net.state_dict()), tx)]
     batch = (torch.as_tensor(s, device=dev), torch.as_tensor(d, device=dev), lens,
@@ -413,7 +424,8 @@ def train_call(args):
 
     def call():
         box[0], _ = step(box[0], *batch, offsets=offs)
-    return call, f"{'plain' if args.plain else 'fused'} train step"
+    plain = args.plain or apply_fn is None
+    return call, f"{args.ver} {'plain' if plain else 'fused'} train step"
 
 
 def main():
@@ -424,7 +436,8 @@ def main():
     ap.add_argument("--iters", type=int, help="profiled calls (5; kernels: 20)")
     ap.add_argument("--timed", type=int, default=30)
     ap.add_argument("--ver", choices=("resnet-1.1c", "mhanet-1.1c"), default="resnet-1.1c",
-                    help="enhance, stream: the checked-in artifact to run")
+                    help="enhance, stream: the checked-in artifact to run; train: "
+                         "the preset to train")
     ap.add_argument("--cache", choices=("f32", "bf16"), default="f32",
                     help="stream: the MHANet K/V cache type")
     ap.add_argument("--plain", action="store_true", help="the plain network")
