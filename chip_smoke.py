@@ -106,6 +106,21 @@ Phases (any failure exits non-zero before the result line):
      width, B=8, 2 epochs of 2 steps (the plain MHANetV3 under autograd):
      finite losses, the first step's gradients on a crop against float64, 30
      steps on one batch lower its loss, a restored checkpoint continues;
+  3i. entry points and objective testing: each trained artifact's weights
+     saved as epoch 1 with its statistics and a test set (the 4 s pair and
+     the pair tiled 5x); `cli.main(["--test", "1", ...])` with 4 metric
+     workers (then 1, timed): B1 and B4 (resnet) and B7 (mhanet) must
+     launch, the CSVs, average.csv and results.txt be written, and every
+     utterance's scores agree with the plain network's waveform scored in
+     the process (PESQ, MOS-LQO, CSIG, CBAK, COVL, SegSNR, SNR within 0.01;
+     STOI, eSTOI within 0.1 %), the 4 s utterance's with the CPU numbers
+     of the JAX package, PESQ above the noisy pair's by 0.3;
+     `spectral_distortion` for xi and gamma at -5..15 dB on both artifacts,
+     the kernel route (B1, B7) within 1e-3 dB of the plain network;
+     `python3 -m deepxi_tpu_torch --enhance` on the mhanet-1.1c artifact as
+     a subprocess and through `cli.main` (B7 must launch), each within one
+     int16 step of infer's wav; `cli.main(["--prelim", "1"])` on the card
+     (mean |prediction - target| < 0.12 after 60 steps);
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -132,7 +147,10 @@ Phases (any failure exits non-zero before the result line):
      `make_enhancer`, `make_xi_estimator` and the spectral-kernel route end
      to end at B=1 x 4 s and B=96 x 10 s; resnet-1.1c enhancement at B=96 x
      10 s, pack2 against unpacked; the mhanet-1.1c train step beside the
-     resnet one; the per-utterance infer routes (xi_hat, d_hat) at 4 s.
+     resnet one; the per-utterance infer routes (xi_hat, d_hat) at 4 s;
+     `--test` on each artifact's set split into enhancement (synchronised)
+     and scoring (host) with 1 and 4 metric workers, and the `--enhance`
+     subprocess's wall time.
 The last three lines are the card line, the kernels JSON and the result JSON.
 """
 
@@ -1573,6 +1591,233 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # 3i. entry points and objective testing ---------------------------------
+    # (a) a workspace a trained artifact: its weights as epoch 1, its map
+    # statistics, a test set of the 4 s pair and the pair tiled 5x (T=1250:
+    # resnet's halo-tiled B4). The tiled pair is named r012x5, not c012x5:
+    # test() matches a noisy file to the first clean basename it contains,
+    # and "c012" is contained in "c012x5_white_5dB".
+    # (b) cli.main --test on the card (metric_workers 4, then 1 for the
+    # times): B1 and B4 (resnet) and B7 (mhanet) must launch, the CSVs,
+    # average.csv and results.txt be written, and every utterance's scores
+    # agree with the plain network's waveform scored in the process, the 4 s
+    # utterance's with the CPU table (the JAX package at "highest"
+    # precision), PESQ above the noisy pair's by 0.3.
+    # (c) python3 -m deepxi_tpu_torch --enhance on the mhanet-1.1c artifact
+    # as a subprocess on the card, within one int16 step of infer's wav;
+    # then through cli.main in the process (B7 must launch).
+    # (d) spectral_distortion, xi and gamma, each artifact: the 4 s clean
+    # utterance with noisy - clean as its noise (exactly as long, offset 0),
+    # the kernel route (B1, B7) against the plain network on the card.
+    # (e) cli.main --prelim 1 on the card: mean |prediction - target| < 0.12.
+    import contextlib
+    import io
+
+    from deepxi_tpu_torch import cli
+    from deepxi_tpu_torch.metrics.scoring import score_utterance
+    from deepxi_tpu_torch.training import save_checkpoint
+
+    # the 4 s utterances' scores on the CPU: the JAX package's MMSE-LSA
+    # enhancement at "highest" precision, scored by deepxi_tpu.metrics
+    cpu_scores = {
+        "resnet-1.1c": {"PESQ": 2.8723, "STOI": 94.4233, "eSTOI": 82.0900,
+                        "MOS-LQO": 1.5209, "CSIG": 3.2722, "CBAK": 3.2459, "COVL": 3.0810,
+                        "SegSNR": 6.1086, "SNR": 12.1090},
+        "mhanet-1.1c": {"PESQ": 3.0017, "STOI": 93.1245, "eSTOI": 81.7119,
+                        "MOS-LQO": 1.8664, "CSIG": 1.0000, "CBAK": 3.0680, "COVL": 1.0000,
+                        "SegSNR": 1.9396, "SNR": 12.5388}}
+    noisy_pesq = 1.6567  # the resnet-1.1c noisy pair's (mhanet-1.1c's: 1.5122)
+    test_kernels = {"resnet-1.1c": ("fused_block_group_whole", "fused_block_group"),
+                    "mhanet-1.1c": ("fused_transformer_block",)}
+    sd_kernel = {"resnet-1.1c": "fused_block_group_whole",
+                 "mhanet-1.1c": "fused_transformer_block"}
+    test_launches = {}
+    entry_times = {}  # phase 4: {(ver, workers): (wall s, enhancement s)}, --enhance
+    ws = {}           # the workspaces, removed at the end of 3i
+    orig_test, orig_enhance_all = DeepXiTorch.test, DeepXiTorch.enhance_all
+    record = {}
+
+    def recording_test(self, *args, **kw):
+        record["results"] = orig_test(self, *args, **kw)
+        return record["results"]
+
+    def timed_enhance_all(self, *args, **kw):
+        t0 = time.perf_counter()
+        ys = orig_enhance_all(self, *args, **kw)  # ends in a copy to the host
+        record["enhance_s"] = record.get("enhance_s", 0.0) + time.perf_counter() - t0
+        return ys
+
+    DeepXiTorch.test, DeepXiTorch.enhance_all = recording_test, timed_enhance_all
+    try:
+        for ver, a, root in (("resnet-1.1c", art, FLAGSHIP_ROOT),
+                             ("mhanet-1.1c", art_m, MHANET_ROOT)):
+            tmp = ws[ver] = tempfile.mkdtemp(prefix="deepxi_chip_smoke_entry_")
+            d = {k: os.path.join(tmp, k) for k in
+                 ("model", "data", "log", "noisy", "clean", "noise", "out")}
+            cfg_v = preset(ver)
+            save_checkpoint(os.path.join(d["model"], ver), 0, TrainState.create(
+                a.params, make_optimizer(cfg_v.network_type, cfg_v.d_model,
+                                         cfg_v.warmup_steps)))
+            os.makedirs(d["data"])
+            shutil.copy(os.path.join(root, "stats.npz"),
+                        os.path.join(d["data"], f"{ver}_stats.npz"))
+            pairs_v = {"c012": (a.noisy, a.clean),
+                       "r012x5": (np.tile(a.noisy, 5), np.tile(a.clean, 5))}
+            for u, (x, c) in pairs_v.items():
+                save_wav(os.path.join(d["noisy"], f"{u}_white_5dB.wav"), x, 16000)
+                save_wav(os.path.join(d["clean"], f"{u}.wav"), c, 16000)
+            noise = np.clip(a.noisy.astype(np.int32) - a.clean, -32768, 32767)
+            save_wav(os.path.join(d["noise"], "d012.wav"), noise.astype(np.int16), 16000)
+            argv = ["--ver", ver, "--test", "1", "--test_epoch", "1",
+                    "--model_path", d["model"], "--data_path", d["data"],
+                    "--log_path", d["log"], "--test_x_path", d["noisy"],
+                    "--test_s_path", d["clean"]]
+
+            # (b) --test, metric_workers 4 (gated), then 1 (timed)
+            for workers in (4, 1):
+                zero_counts()
+                record.clear()
+                t0 = time.perf_counter()
+                rc = cli.main(argv + ["--metric_workers", str(workers)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                entry_times[ver, workers] = (wall, record["enhance_s"])
+                n = counts()
+                print(f"[3i] {ver} cli.main --test 1 (metric_workers {workers}): rc {rc}, "
+                      f"{wall:.2f} s ({record['enhance_s']:.3f} s enhancing); launches {n}")
+                if rc != 0:
+                    fail(f"{ver}: --test returned {rc}")
+                missing = [k for k in test_kernels[ver] if not n.get(k)]
+                if missing:
+                    fail(f"{ver} --test: no launch of {missing}")
+                if workers == 4:
+                    test_launches.update({k: n[k] for k in test_kernels[ver]})
+                    results = record["results"][(1, "mmse-lsa")]
+            for f in (f"{ver}_e1_mmse-lsa.csv", "average.csv", "results.txt"):
+                path = os.path.join(d["log"], "results", f)
+                if not os.path.exists(path):
+                    fail(f"{ver} --test did not write {f}")
+            with open(os.path.join(d["log"], "results", "results.txt")) as f:
+                lines = f.read().splitlines()
+            if lines[0] != "ver, CSIG, CBAK, COVL, PESQ, STOI, SegSNR, SNR" or len(lines) != 3:
+                fail(f"{ver}: results.txt is not the DEMAND-VB layout: {lines}")
+
+            # the plain network's waveform of each utterance, padded as
+            # enhance_all pads it, scored in the process
+            plain = make_enhancer(a.inp_tgt, a.net, "mmse-lsa", device=dev)
+            worst = {}
+            for i, (u, (x, c)) in enumerate(pairs_v.items()):
+                xp = np.zeros((1, bucket_length(len(x), 256)), np.int16)
+                xp[0, :len(x)] = x
+                y = plain(a.params, xp)[0, :len(c)].cpu().numpy()
+                ref = score_utterance(c.astype(np.float32) / 32768.0, y, 16000)
+                got = {m: results[("white", 5, m)][i] for m in ref}
+                if set(got) != set(cpu_scores[ver]):
+                    fail(f"{ver} {u}: scored {sorted(got)}")
+                against = [("the plain network", ref)]
+                if u == "c012":
+                    against.append(("the CPU table", cpu_scores[ver]))
+                for what, r in against:
+                    for m, v in got.items():
+                        tol = 0.1 if m in ("STOI", "eSTOI") else 0.01
+                        err = abs(v - r[m])
+                        worst[what, m] = max(worst.get((what, m), 0.0), err)
+                        if not (np.isfinite(v) and err <= tol):
+                            fail(f"{ver} {u} {m}: {v:.4f} on the card, {r[m]:.4f} from "
+                                 f"{what} (tol {tol})")
+                print(f"[3i] {ver} {u}_white_5dB ({len(x) / 16000:g} s): "
+                      + ", ".join(f"{m} {v:.4f}" for m, v in got.items()))
+                if got["PESQ"] <= noisy_pesq + 0.3:
+                    fail(f"{ver} {u}: PESQ {got['PESQ']:.4f} not above the noisy pair's "
+                         f"{noisy_pesq} + 0.3")
+            for what in ("the plain network", "the CPU table"):
+                print(f"[3i] {ver} test() scores against {what}: largest differences "
+                      + ", ".join(f"{m} {e:.2e}" for (w, m), e in worst.items() if w == what)
+                      + " (tol 0.01; STOI and eSTOI 0.1)")
+
+            # (d) spectral distortion, xi and gamma: the kernel route against
+            # the plain network (an instance whose fast_apply is None)
+            cfg_sd = cfg_v.replace(model_path=d["model"], data_path=d["data"],
+                                   log_path=d["log"], test_s_path=os.path.join(tmp, "sd_s"),
+                                   test_d_path=d["noise"])
+            save_wav(os.path.join(cfg_sd.test_s_path, "c012.wav"), a.clean, 16000)
+            dx_k = DeepXiTorch(cfg_sd, device=dev)
+            dx_p = DeepXiTorch(cfg_sd.replace(log_path=os.path.join(tmp, "log_plain")),
+                               device=dev)
+            dx_p.fast_apply = lambda: None
+            for target in ("xi", "gamma"):
+                zero_counts()
+                sd_k = dx_k.spectral_distortion(params=a.params, epochs=[1], target=target)
+                torch.cuda.synchronize()
+                n = counts()
+                sd_p = dx_p.spectral_distortion(params=a.params, epochs=[1], target=target)
+                err = max(abs(sd_k[k] - sd_p[k]) for k in sd_k)
+                suffix = "spect_dist" if target == "xi" else "spect_dist_gamma"
+                print(f"[3i] {ver} spectral_distortion({target!r}) at "
+                      f"{cfg_sd.sd_snr_levels} dB: "
+                      + ", ".join(f"{sd_k[k]:.4f}" for k in sorted(sd_k))
+                      + f" dB; against the plain network max {err:.3e} dB (tol 1e-3); "
+                      f"launches {n}")
+                if not n.get(sd_kernel[ver]):
+                    fail(f"{ver} spectral_distortion: no launch of {sd_kernel[ver]}")
+                if (sorted(sd_k) != [(1, lv) for lv in cfg_sd.sd_snr_levels]
+                        or not all(np.isfinite(v) for v in sd_k.values()) or err > 1e-3):
+                    fail(f"{ver} spectral_distortion({target!r}) disagrees with the plain "
+                         "network or is not finite")
+                if not os.path.exists(os.path.join(d["log"], "results",
+                                                   f"{ver}_e1_{suffix}.csv")):
+                    fail(f"{ver} spectral_distortion did not write its CSV")
+    finally:
+        DeepXiTorch.test, DeepXiTorch.enhance_all = orig_test, orig_enhance_all
+
+    # (c) --enhance on the mhanet-1.1c artifact: a subprocess on the card,
+    # then cli.main in the process; both against infer's wav
+    tmp = ws["mhanet-1.1c"]
+    in_wav = os.path.join(tmp, "in", "c012_white_5dB.wav")
+    save_wav(in_wav, art_m.noisy, 16000)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepxi_tpu_torch", "--enhance", MHANET_ROOT,
+                           "--in_wavs", in_wav, "--out_dir", os.path.join(tmp, "enh_sub")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    entry_times["enhance"] = time.perf_counter() - t0
+    print(f"[3i] python3 -m deepxi_tpu_torch --enhance {os.path.relpath(MHANET_ROOT, ROOT)}: "
+          f"rc {proc.returncode} in {entry_times['enhance']:.2f} s; {proc.stdout.strip()}")
+    if proc.returncode != 0:
+        fail(f"the --enhance subprocess failed: {proc.stderr[-2000:]}")
+    dx_e = DeepXiTorch(preset("mhanet-1.1c", data_path=os.path.join(tmp, "data"),
+                              out_path=os.path.join(tmp, "out"),
+                              test_x_path=os.path.dirname(in_wav)), device=dev)
+    ref = read_wav(dx_e.infer(params=art_m.params, epochs=[1])[0])[0]
+    zero_counts()
+    if cli.main(["--enhance", MHANET_ROOT, "--in_wavs", in_wav,
+                 "--out_dir", os.path.join(tmp, "enh_main")]) != 0:
+        fail("cli.main --enhance failed")
+    torch.cuda.synchronize()
+    n = counts()
+    test_launches["enhance fused_transformer_block"] = n.get("fused_transformer_block", 0)
+    for label, out_dir in (("subprocess", "enh_sub"), ("cli.main", "enh_main")):
+        y = read_wav(os.path.join(tmp, out_dir, "c012_white_5dB.wav"))[0]
+        steps = np.abs(y.astype(np.int32) - ref[:len(y)]).max()
+        print(f"[3i] --enhance ({label}): {len(y)} samples, {steps} int16 steps from infer's "
+              f"wav (tol 1)" + (f"; launches {n}" if label == "cli.main" else ""))
+        if len(y) != len(art_m.noisy) or steps > 1:
+            fail(f"--enhance ({label}) is not infer's waveform")
+    if not n.get("fused_transformer_block"):
+        fail("cli.main --enhance did not launch fused_transformer_block")
+    for tmp in ws.values():
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) --prelim 1 on the card
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--prelim", "1"])
+    mae = [float(ln.split()[-1]) for ln in out.getvalue().splitlines()
+           if "mean|pred-target|" in ln]
+    print(f"[3i] cli.main --prelim 1: rc {rc}; mean |prediction - target| after 60 steps "
+          f"{mae} (tol < 0.12)")
+    if rc != 0 or len(mae) != 1 or not mae[0] < 0.12:
+        fail("--prelim did not converge on the card")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -2033,6 +2278,17 @@ def main():
         hop_times(f"resnet-1.1c step B={B}",
                   lambda: s_r.step(st, chunks[B, 256]), HOP_BUDGET_MS)  # noqa: B023
 
+    for ver in ("resnet-1.1c", "mhanet-1.1c"):
+        for workers in (1, 4):
+            wall, enh = entry_times[ver, workers]
+            print(f"[4] {ver} cli.main --test 1 on 4 s + 20 s (metric_workers {workers}): "
+                  f"{wall:.3f} s wall; enhancement {enh:.3f} s (synchronised), scoring and "
+                  f"the rest {wall - enh:.3f} s (host)")
+    print(f"[4] python3 -m deepxi_tpu_torch --enhance (mhanet-1.1c, 4 s, kernel libraries "
+          f"built): {entry_times['enhance']:.3f} s wall")
+    for row in kernels:
+        if row["name"] in test_launches:
+            row["test_launches"] = test_launches[row["name"]]
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

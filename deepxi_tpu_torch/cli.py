@@ -1,0 +1,295 @@
+"""Command line of the port (follows deepxi_tpu/cli.py):
+
+    python -m deepxi_tpu_torch --ver resnet-1.1c --train 1
+    python -m deepxi_tpu_torch --ver resnet-1.1c --infer 1 --test_epoch 200 --gain mmse-lsa
+    python -m deepxi_tpu_torch --ver resnet-1.1c --test 1
+    python -m deepxi_tpu_torch --enhance artifacts/mhanet-1.1c-big2400-e400 --in_wavs a.wav
+    python -m deepxi_tpu_torch --prelim 1 --platform cpu
+
+The parser takes every flag of the JAX package's, so a command line written
+for one parses in the other, and gives the same Config values for every
+field both have. It runs on the CUDA card unless ``--platform cpu``. A flag
+whose path the port does not have yet raises and names the ROADMAP item that
+ports it; none is ignored silently.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import os
+import sys
+from typing import List, Optional
+
+from deepxi_tpu_torch.config import (UNPORTED_PRESETS, VERSION_PRESETS, Config, preset,
+                                     str_to_bool, str_to_list)
+
+PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="deepxi_tpu_torch",
+                                description="Deep Xi speech enhancement in PyTorch "
+                                            "on an NVIDIA card")
+    p.add_argument("--ver", type=str, default="resnet-1.1c", help="Model version/preset")
+    p.add_argument("--test_epoch", type=str_to_list, default=None, help="Epoch(s) to test")
+    p.add_argument("--train", type=str_to_bool, default=False)
+    p.add_argument("--infer", type=str_to_bool, default=False)
+    p.add_argument("--test", type=str_to_bool, default=False)
+    p.add_argument("--spect_dist", type=str_to_bool, default=False)
+    p.add_argument("--export", type=str_to_bool, default=False,
+                   help="serving export: not in the port yet (ROADMAP item A7)")
+    p.add_argument("--export_path", type=str, default=None)
+    p.add_argument("--prelim", type=str_to_bool, default=False)
+    p.add_argument("--enhance", type=str, default=None,
+                   help="artifact dir with a meta.json; enhance --in_wavs into --out_dir")
+    p.add_argument("--in_wavs", type=str, nargs="+", default=None,
+                   help="wav files, dirs, or globs to enhance")
+    p.add_argument("--out_dir", type=str, default="enhanced")
+    p.add_argument("--sd_snr_levels", type=str_to_list, default=None)
+    p.add_argument("--sd_target", type=str_to_list, default=None,
+                   help="spectral-distortion target(s): xi and/or gamma")
+    p.add_argument("--network_type", type=str, default=None)
+    p.add_argument("--inp_tgt_type", type=str, default=None)
+    # train
+    p.add_argument("--mbatch_size", type=int, default=None)
+    p.add_argument("--sample_size", type=int, default=None)
+    p.add_argument("--max_epochs", type=int, default=None)
+    p.add_argument("--resume_epoch", type=int, default=None)
+    p.add_argument("--save_model", type=str_to_bool, default=None)
+    p.add_argument("--save_every", type=int, default=None)
+    p.add_argument("--val_every", type=int, default=None)
+    p.add_argument("--log_iter", type=str_to_bool, default=None,
+                   help="kept for flag parity: neither package's trainer reads it")
+    p.add_argument("--eval_example", type=str_to_bool, default=None)
+    p.add_argument("--val_flag", type=str_to_bool, default=None)
+    p.add_argument("--reset_inp_tgt", type=str_to_bool, default=None)
+    p.add_argument("--reset_sample", type=str_to_bool, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    # outputs
+    p.add_argument("--out_type", type=str, default=None)
+    p.add_argument("--gain", type=str_to_list, default=None)
+    # paths
+    for flag in ("model_path", "set_path", "log_path", "data_path",
+                 "test_x_path", "test_s_path", "test_d_path", "out_path",
+                 "saved_data_path", "ali_path", "lexicon_path",
+                 "mixmax_stats", "vts_stats"):
+        p.add_argument(f"--{flag}", type=str, default=None)
+    # features
+    for flag in ("min_snr", "max_snr", "snr_inter", "f_s", "T_d", "T_s", "n_filters"):
+        p.add_argument(f"--{flag}", type=int, default=None)
+    # network
+    for flag in ("d_model", "n_blocks", "n_heads", "d_b", "d_f", "d_ff", "k",
+                 "max_d_rate", "warmup_steps", "length", "m_1", "max_len",
+                 "Noutp"):
+        p.add_argument(f"--{flag}", type=int, default=None)
+    p.add_argument("--causal", type=str_to_bool, default=None)
+    p.add_argument("--unit_type", type=str, default=None)
+    p.add_argument("--loss_fnc", type=str, default=None)
+    p.add_argument("--outp_act", type=str, default=None)
+    # map
+    p.add_argument("--map_type", type=str_to_list, default=None)
+    p.add_argument("--map_params", type=str_to_list, default=None)
+    # parallelism
+    p.add_argument("--n_data_shards", type=int, default=None,
+                   help="more than 1: not in the port yet (ROADMAP item A10)")
+    p.add_argument("--n_model_shards", type=int, default=None,
+                   help="more than 1: not in the port yet (ROADMAP item A10)")
+    p.add_argument("--metric_workers", type=int, default=None,
+                   help="host metric processes in --test (0=auto, 1=serial)")
+    p.add_argument("--platform", type=str, default=None,
+                   help="cpu, or cuda (alias gpu; the default): the device to run on")
+    p.add_argument("--attention_impl", type=str, default=None,
+                   help="MHANet attention: 'full', 'fused' (flash_attention) or "
+                        "'stream' (key tiles; long audio)")
+    p.add_argument("--block_q", type=int, default=None)
+    p.add_argument("--mha_fused", type=str_to_bool, default=None,
+                   help="the fused transformer-block kernels in MHANet inference")
+    p.add_argument("--tcn_fused", type=str_to_bool, default=None,
+                   help="the fused TCN kernels in ResNetV2 inference: always on in the port")
+    p.add_argument("--tcn_fused_train", type=str_to_bool, default=None,
+                   help="the fused TCN forward/backward kernels in the ResNetV2 train step")
+    p.add_argument("--dft_precision", type=str, default=None,
+                   choices=["highest", "high", "default"],
+                   help="a TPU matmul-precision knob of the JAX package; accepted and "
+                        "ignored: the port's DFT is float32 throughout")
+    p.add_argument("--import_stats", type=str, default=None,
+                   help="reference statistics pickle: not in the port yet (ROADMAP "
+                        "item A9, compat/tf_import)")
+    return p
+
+
+# (flag, the values the port runs, the reason it refuses any other): flags
+# whose path the port does not have yet, each naming its ROADMAP item.
+_REFUSED = (
+    ("export", (False,), "the serving export is ROADMAP item A7"),
+    ("n_data_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
+    ("n_model_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
+    ("import_stats", (None,), "importing reference statistics is ROADMAP item A9 "
+                              "(compat/tf_import)"),
+    ("inp_tgt_type", (None, "MagXi"), "the other input/target families are ROADMAP "
+                                      "item A9"),
+    ("map_type", (None, "DBNormalCDF"), "the other maps are ROADMAP item A9"),
+    ("map_params", (None,), "the other maps are ROADMAP item A9"),
+    ("saved_data_path", (None,), "MagGamma's saved xi_hat is ROADMAP item A9"),
+    ("length", (None,), "RDLNet is ROADMAP item A9"),
+    ("m_1", (None,), "RDLNet is ROADMAP item A9"),
+    ("attention_impl", (None, "full", "fused", "stream"),
+     "the 'block' attention is ROADMAP item A9"),
+    ("Noutp", (None,), "MagPhonemes is ROADMAP item A11"),
+    ("ali_path", (None,), "MagPhonemes is ROADMAP item A11"),
+    ("lexicon_path", (None,), "MagPhonemes is ROADMAP item A11"),
+    ("mixmax_stats", (None,), "hybrid inference is ROADMAP item A11"),
+    ("vts_stats", (None,), "hybrid inference is ROADMAP item A11"),
+    ("d_b", (None,), "no network of either package reads d_b"),
+    ("d_ff", (None,), "no network of either package reads d_ff (MHANet's FFN is "
+                      "4 d_model)"),
+    ("tcn_fused", (None, True), "the port's ResNetV2 inference always takes the "
+                                "fused TCN kernels"),
+)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Raise SystemExit naming the ROADMAP item for a flag whose path the
+    port does not have: a preset of another network, `--export 1`, more
+    than one shard, `--import_stats`,
+    another input/target family or map, the hybrid and phoneme modes'
+    inputs, RDLNet's, 'block' attention; and for `--d_b`, `--d_ff` (read by
+    no network) and `--tcn_fused 0`."""
+    if args.ver in UNPORTED_PRESETS:
+        raise SystemExit(f"--ver {args.ver}: not in the port yet: its network is "
+                         "ROADMAP item A9")
+    for flag, allowed, why in _REFUSED:
+        v = getattr(args, flag)
+        if v not in allowed:
+            raise SystemExit(f"--{flag} {v}: not in the port yet: {why}")
+    out_type = args.out_type
+    if out_type is not None:
+        from deepxi_tpu_torch.framework import UNPORTED_OUT_TYPES
+        if out_type in UNPORTED_OUT_TYPES:
+            raise SystemExit(f"--out_type {out_type}: not in the port yet: ROADMAP item "
+                             f"{UNPORTED_OUT_TYPES[out_type]}")
+    if args.platform is not None and args.platform not in PLATFORMS:
+        raise SystemExit(f"--platform {args.platform}: the port runs on "
+                         f"{', '.join(PLATFORMS)}")
+
+
+def config_from_args(argv: Optional[List[str]] = None) -> Config:
+    """The Config of a command line: the `--ver` preset (or the defaults
+    with that ver) with every given flag the Config has as an override."""
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    base = preset(args.ver) if args.ver in VERSION_PRESETS else Config(ver=args.ver)
+    field_names = {f.name for f in dataclasses.fields(Config)}
+    overrides = {k: v for k, v in vars(args).items()
+                 if k in field_names and v is not None}
+    # booleans parsed with default False must still override presets
+    for k in ("train", "infer", "test", "spect_dist", "prelim", "export"):
+        overrides[k] = getattr(args, k)
+    return base.replace(**overrides)
+
+
+def wav_paths(in_wavs: Optional[List[str]]) -> List[str]:
+    """Files, the .wav/.flac files of directories (sorted), and globs."""
+    paths: List[str] = []
+    for pat in in_wavs or []:
+        if os.path.isdir(pat):
+            paths += [os.path.join(pat, f) for f in sorted(os.listdir(pat))
+                      if f.endswith((".wav", ".flac"))]
+        elif any(c in pat for c in "*?["):
+            paths += sorted(glob.glob(pat))
+        else:
+            paths.append(pat)
+    return paths
+
+
+def run_artifact_enhance(artifact: str, in_wavs: List[str], out_dir: str,
+                         gain: str, device=None) -> int:
+    """Enhance wavs with a `meta.json` artifact: each input is read at the
+    artifact's rate (resampled and downmixed by `read_wav`), the batch,
+    padded to a whole hop, goes through `make_enhancer` with the kernels'
+    network forward (`framework.fast_apply_fn` of the artifact's preset),
+    and each output, cut to its input's length, is written under `out_dir`
+    with its input's basename at the rate `read_wav` returned for it (the
+    artifact's, as in the JAX package). An artifact without a meta.json
+    raises FileNotFoundError."""
+    import numpy as np
+
+    from deepxi_tpu_torch.compat.artifact import artifact_meta, load_artifact
+    from deepxi_tpu_torch.data.wavio import read_wav, save_wav
+    from deepxi_tpu_torch.enhance import make_enhancer
+    from deepxi_tpu_torch.framework import fast_apply_fn
+
+    paths = wav_paths(in_wavs)
+    if not paths:
+        print("--enhance needs --in_wavs (files, dirs, or globs)")
+        return 1
+    _, cfg = artifact_meta(artifact)
+    art = load_artifact(artifact, device=device)
+    it = art.inp_tgt
+    enhance = make_enhancer(it, art.net, gain, apply_fn=fast_apply_fn(cfg),
+                            device=device)
+    wavs, rates = zip(*(read_wav(p, it.f_s) for p in paths))
+    lens = [len(w) for w in wavs]
+    L = -(-max(lens) // it.N_s) * it.N_s
+    x = np.zeros((len(wavs), L), np.int16)
+    for i, w in enumerate(wavs):
+        x[i, : len(w)] = w
+    y = enhance(art.params, x).cpu().numpy()
+    os.makedirs(out_dir, exist_ok=True)
+    for i, p in enumerate(paths):
+        save_wav(os.path.join(out_dir, os.path.basename(p)), y[i, : lens[i]], rates[i])
+    print(f"wrote {len(paths)} enhanced wavs to {out_dir}")
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    device = None if args.platform is None else PLATFORMS[args.platform]  # None: the card
+    if args.enhance:
+        gain = args.gain[0] if isinstance(args.gain, list) and args.gain \
+            else (args.gain or "mmse-lsa")
+        return run_artifact_enhance(args.enhance, args.in_wavs, args.out_dir, gain,
+                                    device=device)
+    cfg = config_from_args(argv)
+    print(f"Version: {cfg.ver} ({cfg.network_type}, {cfg.inp_tgt_type})")
+    if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.prelim):
+        print("nothing to do: pass --train 1, --infer 1, --test 1, "
+              "--spect_dist 1 and/or --prelim 1")
+        return 1
+
+    if cfg.prelim:
+        from deepxi_tpu_torch.prelim import run_prelim
+        run_prelim(cfg.network_type, device=device)
+        if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist):
+            return 0
+
+    from deepxi_tpu_torch.data.listing import batch_list
+    from deepxi_tpu_torch.framework import DeepXiTorch
+
+    train_s_list = train_d_list = None
+    if cfg.train:
+        train_s_list = batch_list(os.path.join(cfg.set_path, "train_clean_speech"),
+                                  "clean_speech", cfg.data_path)
+        train_d_list = batch_list(os.path.join(cfg.set_path, "train_noise"),
+                                  "noise", cfg.data_path)
+
+    deepxi = DeepXiTorch(cfg, train_s_list, train_d_list, device=device)
+    if cfg.train:
+        deepxi.train()
+    if cfg.infer:
+        written = deepxi.infer()
+        print(f"wrote {len(written)} outputs")
+    if cfg.test:
+        deepxi.test()
+    if cfg.spect_dist:
+        targets = cfg.sd_target if isinstance(cfg.sd_target, list) else [cfg.sd_target]
+        for tgt in targets:
+            deepxi.spectral_distortion(target=tgt)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+from dataclasses import replace
 from typing import Dict, Mapping, NamedTuple
 
 import numpy as np
@@ -59,10 +60,10 @@ def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def _load(root: str, net: torch.nn.Module, n_params: int, dev: torch.device,
-          noisy: str, clean: str) -> Artifact:
+          noisy: str, clean: str, it: MagXi) -> Artifact:
     """`net` with the weights of `root/params.npz` (leaf i = the i-th key in
-    Flax order, each shape asserted), the map statistics and the test pair,
-    on `dev`."""
+    Flax order, each shape asserted), `it` with the map statistics, and the
+    test pair read at `it.f_s`, on `dev`."""
     shapes = {k: v.shape for k, v in net.state_dict().items()}
     z = np.load(os.path.join(root, "params.npz"))
     keys = flax_order(shapes)
@@ -85,9 +86,9 @@ def _load(root: str, net: torch.nn.Module, n_params: int, dev: torch.device,
     xi_map = NormalCDF(use_db=True,
                        mu=torch.as_tensor(stats["xi_map.mu"], device=dev),
                        sigma=torch.as_tensor(stats["xi_map.sigma"], device=dev))
-    it = MagXi(N_d=512, N_s=256, K=512, xi_map=xi_map)
-    noisy_wav, _ = read_wav(os.path.join(root, noisy))
-    clean_wav, _ = read_wav(os.path.join(root, clean))
+    it = replace(it, xi_map=xi_map)
+    noisy_wav, _ = read_wav(os.path.join(root, noisy), it.f_s)
+    clean_wav, _ = read_wav(os.path.join(root, clean), it.f_s)
     return Artifact(it, net, dict(net.state_dict()), noisy_wav, clean_wav)
 
 
@@ -97,7 +98,19 @@ def load_flagship_artifact(root: str = None, device=None) -> Artifact:
     net = ResNetV2(257, 257, n_blocks=40, d_model=256, d_f=64, k=3,
                    max_d_rate=16, outp_act="Sigmoid")
     return _load(root or FLAGSHIP_ROOT, net, FLAGSHIP_PARAMS,
-                 resolve_device(device), "c012_white_5dB.wav", "c012.wav")
+                 resolve_device(device), "c012_white_5dB.wav", "c012.wav", MagXi())
+
+
+def artifact_meta(root: str = None):
+    """(meta.json's contents, the Config of the preset it names) of a
+    `meta.json` artifact (by default the checked-in trained mhanet-1.1c).
+    An artifact without a meta.json raises FileNotFoundError, as the JAX
+    package's `load_artifact` does."""
+    from deepxi_tpu_torch.config import preset
+
+    with open(os.path.join(root or MHANET_ROOT, "meta.json")) as f:
+        meta = json.load(f)
+    return meta, preset(meta["ver"])
 
 
 def load_artifact(root: str = None, device=None) -> Artifact:
@@ -105,16 +118,13 @@ def load_artifact(root: str = None, device=None) -> Artifact:
     mhanet-1.1c): the preset named in `meta["ver"]` builds the network
     (MagXi with the DBNormalCDF map), whose Flax-ordered leaves must number
     `meta["n_leaves"]`; the test pair is the one meta names."""
-    from deepxi_tpu_torch.config import preset
     from deepxi_tpu_torch.framework import build_network
 
     root = root or MHANET_ROOT
-    with open(os.path.join(root, "meta.json")) as f:
-        meta = json.load(f)
-    cfg = preset(meta["ver"])
+    meta, cfg = artifact_meta(root)
     net = build_network(cfg, 257, 257)
     if len(net.state_dict()) != meta["n_leaves"]:
         raise ValueError(f"{root}: meta.json has {meta['n_leaves']} leaves, "
                          f"{cfg.ver} has {len(net.state_dict())}")
     return _load(root, net, PRESET_PARAMS[cfg.ver], resolve_device(device),
-                 meta["noisy"], meta["clean"])
+                 meta["noisy"], meta["clean"], MagXi(cfg.N_d, cfg.N_s, cfg.K, f_s=cfg.f_s))

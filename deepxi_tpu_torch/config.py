@@ -1,6 +1,7 @@
-"""Typed configuration and the presets the port runs (follows
-deepxi_tpu/config.py; only the fields that training, the statistics sample
-and offline inference read): resnet-1.1c, mhanet-1.1c and mhanet-1.0c, and
+"""Typed configuration, the command line's flag parsers and the presets the
+port runs (follows deepxi_tpu/config.py; the fields of the modes the port
+has: training, offline inference, objective testing, spectral distortion
+and the prelim harness): resnet-1.1c, mhanet-1.1c and mhanet-1.0c, and
 their DEMAND VoiceBank variants (`-vb`: SNR 0..15 dB in steps of 5, no
 validation set, test epoch 125)."""
 
@@ -11,12 +12,50 @@ import math
 from typing import Any, Dict, List, Optional, Union
 
 
+def str_to_list(x: str):
+    """The reference's nested-flag mini-DSL: ';' splits sublists, ','
+    splits items, 'neg_' -> '-', 'pi' -> math.pi, numbers become int or
+    float."""
+    def read_dtype(v: str):
+        v = v.replace("neg_", "-")
+        if v == "pi":
+            return math.pi
+        if v == "-pi":
+            return -math.pi
+        if any(c.isdigit() for c in v):
+            return float(v) if "." in v else int(v)
+        return v
+
+    if ";" in x:
+        return [[read_dtype(z) for z in y.split(",")] for y in x.split(";")]
+    if "," in x:
+        return [read_dtype(y) for y in x.split(",")]
+    return read_dtype(x)
+
+
+def str_to_bool(s: Union[str, bool]) -> bool:
+    if isinstance(s, bool):
+        return s
+    return s.lower() in ("yes", "true", "t", "1")
+
+
 @dataclasses.dataclass
 class Config:
     """Framework configuration (the JAX package's field names and defaults)."""
     ver: str = "resnet-1.1c"
     network_type: str = "ResNetV2"
     inp_tgt_type: str = "MagXi"
+
+    # modes
+    train: bool = False
+    infer: bool = False
+    test: bool = False
+    spect_dist: bool = False
+    prelim: bool = False
+    export: bool = False  # serving export: not in the port yet
+    export_path: Optional[str] = None
+    sd_snr_levels: Any = dataclasses.field(default_factory=lambda: [-5, 0, 5, 10, 15])
+    sd_target: Any = "xi"  # "xi", "gamma", or a list of both
 
     # features
     f_s: int = 16000
@@ -36,6 +75,8 @@ class Config:
     save_model: bool = True
     save_every: int = 1   # checkpoint every N epochs (always at the last)
     val_every: int = 1    # evaluate the validation set every N epochs
+    log_iter: bool = False  # read by neither package's trainer
+    eval_example: bool = False  # dump one mini-batch to .mat before training
     val_flag: bool = True
     loss_fnc: str = "BinaryCrossentropy"
     seed: int = 0
@@ -80,7 +121,12 @@ class Config:
     log_path: str = "log"
     data_path: str = "data"
     test_x_path: str = "set/test_noisy_speech"
+    test_s_path: str = "set/test_clean_speech"
+    test_d_path: str = "set/test_noise"
     out_path: str = "out"
+
+    # host metric processes in test(): 0 = one per CPU, 1 = serial
+    metric_workers: int = 0
 
     @property
     def N_d(self) -> int:
@@ -126,6 +172,13 @@ for _ver in list(VERSION_PRESETS):
     VERSION_PRESETS[_ver + "-vb"] = dict(VERSION_PRESETS[_ver], min_snr=0,
                                          max_snr=15, snr_inter=5,
                                          val_flag=False, test_epoch=125)
+
+
+# The JAX package's presets whose networks the port does not have yet
+# (ROADMAP item A9), and their -vb variants.
+UNPORTED_PRESETS = tuple(v + sfx for v in ("resnet-1.1n", "rdlnet-1.0n", "resnet-1.0c",
+                                           "resnet-1.0n", "reslstm-1.0c")
+                         for sfx in ("", "-vb"))
 
 
 def preset(ver: str, **overrides: Any) -> Config:

@@ -1,5 +1,6 @@
 """Wav I/O on the stdlib `wave` module (follows deepxi_tpu/data/wavio.py,
-without its native decoder and its resampling): `read_wav`, `save_wav`,
+without its native decoder): `read_wav` (8-, 16- and 32-bit PCM, downmixed
+to mono and resampled to ``f_s`` with scipy's polyphase filter), `save_wav`,
 `wav_length`."""
 
 from __future__ import annotations
@@ -9,18 +10,30 @@ import wave
 from typing import Tuple
 
 import numpy as np
+from scipy.signal import resample_poly
 
 
 def read_wav(path: str, f_s: int = 16000) -> Tuple[np.ndarray, int]:
-    """Read a 16-bit PCM mono wav file at ``f_s`` Hz as int16. Other sample
-    widths, channel counts and rates raise (no resampling yet)."""
+    """Read a PCM wav file as int16 mono at ``f_s`` Hz: samples scaled to
+    [-1, 1), channels averaged, the rate converted by `resample_poly` when
+    it differs, then clipped to [-1, 1 - 2^-15] and scaled by 32768."""
     with wave.open(path, "rb") as w:
-        n_ch, sw, rate = w.getnchannels(), w.getsampwidth(), w.getframerate()
-        raw = w.readframes(w.getnframes())
-    if (n_ch, sw, rate) != (1, 2, f_s):
-        raise ValueError(f"{path}: {n_ch} channel(s), {8 * sw}-bit, {rate} Hz; "
-                         f"read_wav takes mono 16-bit at {f_s} Hz")
-    return np.frombuffer(raw, dtype="<i2").astype(np.int16), f_s
+        n_ch, sw, rate, n = w.getnchannels(), w.getsampwidth(), w.getframerate(), w.getnframes()
+        raw = w.readframes(n)
+    if sw == 2:
+        x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif sw == 4:
+        x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif sw == 1:
+        x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        raise ValueError(f"Unsupported sample width {sw} in {path}")
+    if n_ch > 1:
+        x = x.reshape(-1, n_ch).mean(axis=1)
+    if rate != f_s:
+        g = np.gcd(rate, f_s)
+        x = resample_poly(x, f_s // g, rate // g).astype(np.float32)
+    return (np.clip(x, -1.0, 1.0 - 1.0 / 32768.0) * 32768.0).astype(np.int16), f_s
 
 
 def save_wav(path: str, wav: np.ndarray, f_s: int) -> None:
@@ -38,10 +51,11 @@ def save_wav(path: str, wav: np.ndarray, f_s: int) -> None:
 
 
 def wav_length(path: str, f_s: int = 16000) -> int:
-    """Sample count of a wav file without reading its samples. Rates other
-    than ``f_s`` raise, as in `read_wav`."""
+    """Sample count of a wav file at ``f_s`` Hz, without reading its samples:
+    `read_wav`'s resampled length, ceil(n * f_s / rate)."""
     with wave.open(path, "rb") as w:
         n, rate = w.getnframes(), w.getframerate()
-    if rate != f_s:
-        raise ValueError(f"{path}: {rate} Hz; wav_length takes {f_s} Hz")
-    return n
+    if rate == f_s:
+        return n
+    g = np.gcd(rate, f_s)
+    return int(np.ceil(n * (f_s // g) / (rate // g)))

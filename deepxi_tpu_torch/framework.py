@@ -1,7 +1,7 @@
-"""Framework facade: map statistics, the training loop and offline
-inference (follows deepxi_tpu/framework.py; `infer` writes every MagXi
-out_type, `test` and `spectral_distortion` are still to port, and there is
-no device mesh, no hybrid mode and no phoneme mode).
+"""Framework facade: map statistics, the training loop, offline
+inference, objective testing and the spectral-distortion study (follows
+deepxi_tpu/framework.py; `infer` writes every MagXi out_type; there is no
+device mesh, no serving export, no hybrid mode and no phoneme mode).
 
 Artifact layout as in the JAX package:
 
@@ -9,6 +9,8 @@ Artifact layout as in the JAX package:
   data/<ver>_stats.npz             map statistics
   data/sample.npz                  cached training sample
   log/loss/<ver>.csv               epoch,loss[,val_loss]
+  log/results/*.csv, results.txt   per-condition and average objective
+                                   scores, spectral distortion
   out/<ver>/e<epoch>/y/<gain>/     enhanced wavs
   out/<ver>/e<epoch>/<out_type>/   the other outputs (.mat; d_hat: wavs)
 """
@@ -17,10 +19,12 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from dataclasses import replace
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from deepxi_tpu_torch import resolve_device
 from deepxi_tpu_torch.config import Config
@@ -33,6 +37,7 @@ from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
 from deepxi_tpu_torch.models.tcn import ResNetV2, init_flax_like
 from deepxi_tpu_torch.ops.gains import gfunc
 from deepxi_tpu_torch.ops.maps import NormalCDF
+from deepxi_tpu_torch.sig import mix as sig_mix
 from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
                                        checkpoint_params, frame_mask,
                                        make_eval_step, make_optimizer,
@@ -40,11 +45,12 @@ from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
                                        save_checkpoint)
 
 # The MagXi out_types `infer` writes; the other families' and modes' are
-# named in its error.
+# named in its error with the ROADMAP item that ports them.
 OUT_TYPES = ("y", "xi_hat", "gamma_hat", "deepmmse", "ibm_hat",
              "subband_ibm_hat", "d_hat")
-UNPORTED_OUT_TYPES = ("mag_hat", "cd_hat", "pho", "hybrid_omlsa", "hybrid_mixmax",
-                      "tracking_hist", "tracking_vts")
+UNPORTED_OUT_TYPES = {"mag_hat": "A9", "cd_hat": "A9", "pho": "A11",
+                      "hybrid_omlsa": "A11", "hybrid_mixmax": "A11",
+                      "tracking_hist": "A11", "tracking_vts": "A11"}
 
 
 def _save_mat(path: str, data: np.ndarray, name: str) -> None:
@@ -59,7 +65,8 @@ def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
     or MHANetV3."""
     if cfg.network_type == "ResNetV2":
         if not cfg.causal or cfg.unit_type != "ReLU->LN->W+b":
-            raise ValueError("the port's ResNetV2 is causal with ReLU->LN->W+b units")
+            raise ValueError("the port's ResNetV2 is causal with ReLU->LN->W+b units "
+                             "(the others are ROADMAP item A9)")
         return ResNetV2(n_feat, n_outp, n_blocks=cfg.n_blocks, d_model=cfg.d_model,
                         d_f=cfg.d_f, k=cfg.k, max_d_rate=cfg.max_d_rate,
                         outp_act=cfg.outp_act)
@@ -70,13 +77,35 @@ def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
         return MHANetV3(n_feat, n_outp, max_len=cfg.max_len or 2048, **kw)
     if cfg.network_type == "MHANetV2":
         return MHANetV2(n_feat, n_outp, **kw)
-    raise ValueError(f"the port has no {cfg.network_type} yet")
+    raise ValueError(f"the port has no {cfg.network_type} yet (ROADMAP item A9)")
+
+
+def fast_apply_fn(cfg: Config) -> Optional[Callable]:
+    """The network forward of the inference fast path for `cfg`: the fused
+    TCN groups for ResNetV2, or for MHANetV2/V3 with `cfg.mha_fused` and
+    "full" attention the fused transformer blocks; None for the network's
+    own forward (whose attention follows `cfg.attention_impl`)."""
+    if cfg.network_type == "ResNetV2":
+        from deepxi_tpu_torch.ops.kernels.tcn_fused import resnetv2_apply_fused
+        return (lambda p, m: resnetv2_apply_fused(
+            p, m, n_blocks=cfg.n_blocks, max_d_rate=cfg.max_d_rate, k=cfg.k,
+            outp_act=cfg.outp_act))
+    if (cfg.network_type in ("MHANetV2", "MHANetV3") and cfg.mha_fused
+            and cfg.attention_impl == "full"):
+        from deepxi_tpu_torch.ops.kernels.mha_block_fused import mhanetv3_apply_fused
+        return (lambda p, m: mhanetv3_apply_fused(
+            p, m, n_blocks=cfg.n_blocks, n_heads=cfg.n_heads,
+            d_model=cfg.d_model, max_len=cfg.max_len or 2048,
+            causal=cfg.causal, outp_act=cfg.outp_act,
+            positional=cfg.network_type == "MHANetV3"))
+    return None
 
 
 class DeepXiTorch:
     """Deep Xi on one device (the card unless ``device="cpu"``): the MagXi
     target with the DBNormalCDF map, and the causal ReLU->LN->W+b ResNetV2
-    or MHANetV2/V3, for training and inference."""
+    or MHANetV2/V3, for training, inference, objective testing and the
+    spectral-distortion study."""
 
     def __init__(self, cfg: Config, train_s_list: Optional[List[Dict]] = None,
                  train_d_list: Optional[List[Dict]] = None, device=None):
@@ -87,7 +116,7 @@ class DeepXiTorch:
         self.device = resolve_device(device)
         self.train_s_list = train_s_list
         self.train_d_list = train_d_list
-        self.inp_tgt = MagXi(cfg.N_d, cfg.N_s, cfg.K, NormalCDF(use_db=True))
+        self.inp_tgt = MagXi(cfg.N_d, cfg.N_s, cfg.K, NormalCDF(use_db=True), cfg.f_s)
 
         stats_path = os.path.join(cfg.data_path, f"{cfg.ver}_stats.npz")
         if os.path.exists(stats_path) and not cfg.reset_inp_tgt:
@@ -116,7 +145,7 @@ class DeepXiTorch:
         xi_map = NormalCDF(use_db=True,
                            mu=torch.as_tensor(z["xi_map.mu"], device=self.device),
                            sigma=torch.as_tensor(z["xi_map.sigma"], device=self.device))
-        return MagXi(self.inp_tgt.N_d, self.inp_tgt.N_s, self.inp_tgt.K, xi_map)
+        return replace(self.inp_tgt, xi_map=xi_map)
 
     def sample(self, sample_size: int):
         """Training-set sample for the map statistics, cached as
@@ -201,6 +230,8 @@ class DeepXiTorch:
                                  N_s=cfg.N_s)
         val_set = self._build_val_set() if cfg.val_flag else None
         eval_step = make_eval_step(self.network, cfg.loss_fnc)
+        if cfg.eval_example:
+            self._dump_eval_example(loader)
 
         gen = torch.Generator().manual_seed(cfg.seed + 1)
         dev = self.device
@@ -258,6 +289,103 @@ class DeepXiTorch:
             out.append((inp, tgt, frame_mask(inp.shape[1], nf, self.device)))
         return out
 
+    def _dump_eval_example(self, loader: MiniBatchLoader) -> None:
+        """One mini-batch of the first `mbatch_size` training utterances as
+        `inp_batch.mat`, `tgt_batch.mat` and `seq_mask_batch.mat` in the
+        working directory (for eval_example.m), and each row's target SNR
+        beside the SNR of its mix. The noise offsets come from a generator
+        seeded with `seed + 99`, the same draws for both."""
+        cfg = self.cfg
+        dev = self.device
+        s, d, s_len, d_len, snr = loader._load_batch(self.train_s_list[:cfg.mbatch_size])
+        args = (torch.as_tensor(s, device=dev), torch.as_tensor(d, device=dev),
+                torch.as_tensor(s_len), torch.as_tensor(d_len), torch.as_tensor(snr))
+        with torch.no_grad():
+            inp, tgt, nf = self.inp_tgt.example(
+                *args, generator=torch.Generator().manual_seed(cfg.seed + 99))
+            seq_mask = frame_mask(inp.shape[1], nf, dev)
+            _save_mat("./inp_batch.mat", inp.cpu().numpy(), "inp_batch")
+            _save_mat("./tgt_batch.mat", tgt.cpu().numpy(), "tgt_batch")
+            _save_mat("./seq_mask_batch.mat", seq_mask.cpu().numpy(), "seq_mask_batch")
+            print("Testing if add_noise() works correctly...")
+            s_f, d_f, _, _ = self.inp_tgt.mix(
+                *args, generator=torch.Generator().manual_seed(cfg.seed + 99))
+            for i in range(len(s)):
+                n = int(s_len[i])
+                actual = float(sig_mix.snr_db(s_f[i, :n], d_f[i, :n]))
+                print("SNR target|actual: {:.2f}|{:.2f} (dB).".format(float(snr[i]), actual))
+
+    def spectral_distortion(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                            epochs: Optional[Sequence[int]] = None,
+                            snr_levels: Optional[Sequence[float]] = None,
+                            target: str = "xi") -> Dict:
+        """Spectral-distortion study: the mean over utterances of the RMS dB
+        distance between an instantaneous SNR and the network's estimate,
+        for each epoch and SNR level; returns {(epoch, snr): dB} and writes
+        `log/results/<ver>_e<epoch>_spect_dist[_gamma].csv`. target "xi"
+        scores xi = S^2/D^2 against xi_hat, "gamma" gamma = X^2/D^2 against
+        gamma_hat. Clean utterance i (`test_s_path`) is mixed with noise
+        clip i mod N (`test_d_path`), which must be at least as long, at an
+        offset drawn from a generator seeded with `seed + 7` (0 when the
+        clip is as long as the speech); the network (`fast_apply()`, else
+        its own forward) reads |X| of the STFT."""
+        if target not in ("xi", "gamma"):
+            raise ValueError(f"spectral_distortion target must be xi|gamma, got {target!r}")
+        cfg = self.cfg
+        dev = self.device
+        snr_levels = snr_levels or cfg.sd_snr_levels
+        epochs = list(epochs) if epochs else (
+            cfg.test_epoch if isinstance(cfg.test_epoch, list) else [cfg.test_epoch])
+        s_batch, s_lens, _, s_names = test_batch(cfg.test_s_path)
+        d_batch, d_lens, _, d_names = test_batch(cfg.test_d_path)
+        apply = self.fast_apply() or (
+            lambda p, m: functional_call(self.network, p, (m,)))
+        it = self.inp_tgt
+        estimate = it.xi_hat if target == "xi" else it.gamma_hat
+        res_dir = os.path.join(cfg.log_path, "results")
+        os.makedirs(res_dir, exist_ok=True)
+
+        def padded(w: np.ndarray, L: int) -> torch.Tensor:
+            return torch.as_tensor(np.pad(w, (0, max(L - w.shape[0], 0)))[:L][None],
+                                   device=dev)
+
+        results = {}
+        for e in epochs:
+            p = params if params is not None else self.load_epoch(e)
+            rows = []
+            for snr_level in snr_levels:
+                vals = []
+                for i in range(len(s_names)):
+                    j = i % len(d_names)
+                    L = bucket_length(int(s_lens[i]), cfg.N_s)
+                    n_s, n_d = min(int(s_lens[i]), L), min(int(d_lens[j]), L)
+                    if n_d < n_s:
+                        raise ValueError(
+                            f"noise {d_names[j]!r} ({int(d_lens[j])} samples) is shorter "
+                            f"than speech {s_names[i]!r} ({int(s_lens[i])} samples); "
+                            "cannot mix at SNR")
+                    with torch.no_grad():
+                        s_f, d_f, x_f, nf = it.mix(
+                            padded(s_batch[i], L), padded(d_batch[j], L),
+                            torch.tensor([n_s]), torch.tensor([n_d]),
+                            torch.tensor([float(snr_level)]),
+                            generator=torch.Generator().manual_seed(cfg.seed + 7))
+                        D, X = it._stms(d_f)[0], it._stms(x_f)[0]
+                        inst = (sig_mix.xi(it._stms(s_f)[0], D) if target == "xi"
+                                else sig_mix.gamma(X, D))
+                        n = int(nf[0])
+                        tgt_hat = apply(p, X[None])[0][:n]
+                        vals.append(float(sig_mix.spectral_distortion(inst[:n],
+                                                                      estimate(tgt_hat))))
+                results[(e, snr_level)] = float(np.mean(vals))
+                rows.append((snr_level, float(np.mean(vals))))
+            suffix = "spect_dist" if target == "xi" else "spect_dist_gamma"
+            with open(os.path.join(res_dir, f"{cfg.ver}_e{e}_{suffix}.csv"), "w") as f:
+                f.write(f"snr_db,{target}_spectral_distortion_db\n")
+                for snr_level, v in rows:
+                    f.write(f"{snr_level},{v:.4f}\n")
+        return results
+
     # -- inference ----------------------------------------------------------
 
     def load_epoch(self, epoch: int) -> Dict[str, torch.Tensor]:
@@ -267,28 +395,8 @@ class DeepXiTorch:
                                  epoch - 1, self.device)
 
     def fast_apply(self) -> Optional[Callable]:
-        """The network forward of the inference fast path: the fused TCN
-        groups for ResNetV2, or for MHANetV2/V3 with `cfg.mha_fused` and
-        "full" attention the fused transformer blocks; None for the
-        network's own forward (whose attention follows
-        `cfg.attention_impl`)."""
-        cfg = self.cfg
-        if cfg.network_type == "ResNetV2":
-            from deepxi_tpu_torch.ops.kernels.tcn_fused import \
-                resnetv2_apply_fused
-            return (lambda p, m: resnetv2_apply_fused(
-                p, m, n_blocks=cfg.n_blocks, max_d_rate=cfg.max_d_rate, k=cfg.k,
-                outp_act=cfg.outp_act))
-        if (cfg.network_type in ("MHANetV2", "MHANetV3") and cfg.mha_fused
-                and cfg.attention_impl == "full"):
-            from deepxi_tpu_torch.ops.kernels.mha_block_fused import \
-                mhanetv3_apply_fused
-            return (lambda p, m: mhanetv3_apply_fused(
-                p, m, n_blocks=cfg.n_blocks, n_heads=cfg.n_heads,
-                d_model=cfg.d_model, max_len=cfg.max_len or 2048,
-                causal=cfg.causal, outp_act=cfg.outp_act,
-                positional=cfg.network_type == "MHANetV3"))
-        return None
+        """`fast_apply_fn` of the config: the kernels' forward, or None."""
+        return fast_apply_fn(self.cfg)
 
     def fast_enhancer(self, gain: str) -> Callable:
         """The cached batched enhancer `enhance(params, x_int16[B, L])` for
@@ -368,8 +476,9 @@ class DeepXiTorch:
         out_type = out_type or cfg.out_type
         if out_type in UNPORTED_OUT_TYPES:
             raise ValueError(f"out_type {out_type!r} belongs to a family or mode the "
-                             f"port does not have ({', '.join(UNPORTED_OUT_TYPES)}); "
-                             f"it writes {', '.join(OUT_TYPES)}")
+                             f"port does not have yet (ROADMAP item "
+                             f"{UNPORTED_OUT_TYPES[out_type]}); it writes "
+                             f"{', '.join(OUT_TYPES)}")
         if out_type not in OUT_TYPES:
             raise ValueError(f"Invalid output type: {out_type!r}")
         gains = list(gains) if gains else (
@@ -434,3 +543,127 @@ class DeepXiTorch:
         path = os.path.join(out_dir, name + ".mat")
         _save_mat(path, data.cpu().numpy() if torch.is_tensor(data) else data, key)
         return path
+
+    # -- objective testing --------------------------------------------------
+
+    def test(self, params: Optional[Dict[str, torch.Tensor]] = None,
+             epochs: Optional[Sequence[int]] = None,
+             gains: Optional[Sequence[str]] = None) -> Dict:
+        """Objective evaluation: enhance every noisy test utterance
+        (`enhance_all`, through `fast_apply()`), score it against the clean
+        utterance whose basename its own contains (STOI, eSTOI, PESQ,
+        MOS-LQO and the DEMAND-VB composite CSIG, CBAK, COVL, SegSNR, SNR, by
+        `metrics.scoring.score_many` over `cfg.metric_workers` processes),
+        and write the per-condition CSV, a row of `average.csv` and of
+        `results.txt` in the JAX package's formats. Conditions come from
+        `<clean>_<noise>_<snr>dB` names. Returns {(epoch, gain): {(noise,
+        snr, metric): [scores]}}. A noisy file no clean name matches is
+        skipped with a warning."""
+        from deepxi_tpu_torch.metrics.scoring import score_many
+
+        cfg = self.cfg
+        gains = list(gains) if gains else (
+            cfg.gain if isinstance(cfg.gain, list) else [cfg.gain])
+        epochs = list(epochs) if epochs else (
+            cfg.test_epoch if isinstance(cfg.test_epoch, list) else [cfg.test_epoch])
+        x_batch, x_lens, _, x_names = test_batch(cfg.test_x_path)
+        s_batch, s_lens, _, s_names = test_batch(cfg.test_s_path)
+
+        all_results = {}
+        for e in epochs:
+            p = params if params is not None else self.load_epoch(e)
+            for g in gains:
+                results: Dict[Tuple, List[float]] = {}
+                ys = self.enhance_all(p, x_batch, x_lens, g)
+                pairs, conds = [], []
+                for i, name in enumerate(x_names):
+                    ref_idx = next((j for j, b in enumerate(s_names) if b in name), None)
+                    if ref_idx is None:
+                        print(f"WARNING: no clean reference matches {name!r}; skipping",
+                              flush=True)
+                        continue
+                    s = s_batch[ref_idx, :s_lens[ref_idx]].astype(np.float32) / 32768.0
+                    pairs.append((s, ys[i][: len(s)]))
+                    try:
+                        noise_src = name.split("_")[-2]
+                    except IndexError:
+                        noise_src = "Null"
+                    snr_level = 0 if noise_src == "Null" \
+                        else int(name.split("_")[-1][:-2])
+                    conds.append((noise_src, snr_level))
+
+                scores = score_many(pairs, cfg.f_s, n_workers=cfg.metric_workers)
+                for (noise_src, snr_level), sc in zip(conds, scores):
+                    for m, v in sc.items():
+                        results.setdefault((noise_src, snr_level, m), []).append(v)
+
+                self._write_results(results, e, g)
+                self._append_results_txt(results, e, g)
+                all_results[(e, g)] = results
+        return all_results
+
+    def _append_results_txt(self, results: Dict, e: int, g: str) -> None:
+        """Append the DEMAND-VB scorer's `results.txt` row: the means over
+        all utterances of CSIG, CBAK, COVL, PESQ, STOI, SegSNR and SNR."""
+        cfg = self.cfg
+        res_dir = os.path.join(cfg.log_path, "results")
+        os.makedirs(res_dir, exist_ok=True)
+        cols = ("CSIG", "CBAK", "COVL", "PESQ", "STOI", "SegSNR", "SNR")
+        means = {}
+        for m in cols:
+            vals = [v for (ns, sl, mm), vs in results.items() for v in vs if mm == m]
+            means[m] = float(np.mean(vals)) if vals else float("nan")
+        path = os.path.join(res_dir, "results.txt")
+        if not os.path.exists(path):
+            with open(path, "w") as f:
+                f.write("ver, " + ", ".join(cols) + "\n")
+        with open(path, "a") as f:
+            f.write(f"{cfg.ver}_e{e}_{g}, "
+                    + ", ".join(f"{means[m]:.2f}" for m in cols) + "\n")
+
+    def _write_results(self, results: Dict, e: int, g: str) -> None:
+        """`log/results/<ver>_e<epoch>_<gain>.csv` (noise, snr_db, the mean of
+        each metric a condition; an empty cell where a metric failed) and a
+        row of `average.csv` (each metric's mean over the conditions within
+        [min_snr, max_snr])."""
+        cfg = self.cfg
+        res_dir = os.path.join(cfg.log_path, "results")
+        os.makedirs(res_dir, exist_ok=True)
+        noise_srcs = sorted({k[0] for k in results})
+        snr_levels = sorted({k[1] for k in results})
+        metrics = sorted({k[2] for k in results})
+
+        with open(os.path.join(res_dir, f"{cfg.ver}_e{e}_{g}.csv"), "w") as f:
+            f.write("noise,snr_db")
+            for m in metrics:
+                f.write("," + m)
+            f.write("\n")
+            for ns in noise_srcs:
+                for sl in snr_levels:
+                    f.write(f"{ns},{sl}")
+                    for m in metrics:
+                        if (ns, sl, m) in results:
+                            f.write(",{:.2f}".format(np.mean(results[(ns, sl, m)])))
+                        else:
+                            f.write(",")
+                    f.write("\n")
+
+        avg: Dict[str, List[float]] = {}
+        for (ns, sl, m), v in results.items():
+            if cfg.min_snr <= sl <= cfg.max_snr:
+                avg.setdefault(m, []).extend(v)
+        avg_path = os.path.join(res_dir, "average.csv")
+        if not os.path.exists(avg_path):
+            with open(avg_path, "w") as f:
+                f.write("ver")
+                for m in metrics:
+                    f.write("," + m)
+                f.write("\n")
+        with open(avg_path, "a") as f:
+            f.write(f"{cfg.ver}_e{e}_{g}")
+            for m in metrics:
+                if m in avg:
+                    f.write(",{:.2f}".format(np.mean(avg[m])))
+                else:
+                    f.write(",")
+            f.write("\n")

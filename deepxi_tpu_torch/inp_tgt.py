@@ -33,11 +33,13 @@ def _stack_valid_frames(transform: Callable, sample_wavs: np.ndarray,
 @dataclass(frozen=True)
 class MagXi:
     """Analysis/synthesis framing plus the xi map; the map's statistics are
-    tensors on the device the family is used on."""
+    tensors on the device the family is used on. `f_s` is the sampling rate
+    the framing is for (wavs are read at it)."""
     N_d: int = 512
     N_s: int = 256
     K: int = 512
     xi_map: NormalCDF = None
+    f_s: int = 16000
 
     @property
     def n_feat(self) -> int:
@@ -66,6 +68,9 @@ class MagXi:
     def mix(self, s, d, s_len, d_len, snr,
             generator: Optional[torch.Generator] = None,
             offsets: Optional[torch.Tensor] = None):
+        """(s, d, x, n_frames) of int16 [B, L] speech and noise mixed at
+        `snr` dB; the noise offsets are `offsets`, or drawn on the host from
+        `generator` (see `sig.mix.noise_offsets`)."""
         return mixing.mix(s, d, s_len, d_len, snr, self.N_s, generator, offsets)
 
     def with_stats(self, s_sample: np.ndarray, d_sample: np.ndarray,

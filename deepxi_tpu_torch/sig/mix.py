@@ -24,6 +24,16 @@ def xi(S: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     return torch.square(S) / torch.clamp(torch.square(D), min=1e-12)
 
 
+def gamma(X: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Instantaneous a posteriori SNR: X^2 / max(D^2, 1e-12)."""
+    return torch.square(X) / torch.clamp(torch.square(D), min=1e-12)
+
+
+def cd(S: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Constructive/destructive product S*D."""
+    return S * D
+
+
 def _masked_mean_power(w: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """Mean of w^2 over the first ``length`` samples of each padded row."""
     mask = torch.arange(w.shape[-1], device=w.device) < length[..., None]
@@ -105,3 +115,15 @@ def snr_db(s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     P_s = torch.mean(torch.square(s), dim=-1)
     P_d = torch.mean(torch.square(d), dim=-1)
     return 10.0 * torch.log10(P_s / P_d)
+
+
+def spectral_distortion(instantaneous: torch.Tensor,
+                        estimate: torch.Tensor) -> torch.Tensor:
+    """Frame-wise RMS dB distance between an instantaneous SNR and its
+    estimate, averaged over frames, both floored at 1e-12. (The reference's
+    own function converts `instantaneous` twice, a copy-paste defect its
+    MATLAB scorer spectral_distortion_xi.m does not have; this is the
+    intended metric, as in the JAX package.)"""
+    inst_db = 10.0 * torch.log10(torch.clamp(instantaneous, min=1e-12))
+    est_db = 10.0 * torch.log10(torch.clamp(estimate, min=1e-12))
+    return torch.mean(torch.sqrt(torch.mean(torch.square(inst_db - est_db), dim=-1)))

@@ -1,0 +1,215 @@
+"""The port's command line (`python -m deepxi_tpu_torch`) against the JAX
+package's (`deepxi_tpu.cli`) on the CPU: the Config of each of a list of
+command lines, `--enhance` from the trained mhanet-1.1c artifact (wavs at
+16 kHz and one at 44.1 kHz in stereo, resampled), the resnet-1.1c
+artifact's missing meta.json, `--prelim`, a tiny `--train --infer --test
+--spect_dist` run, and the flags whose paths the port does not have."""
+
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+import wave
+
+import numpy as np
+import pytest
+
+from deepxi_tpu import cli as cli_j
+from deepxi_tpu.config import Config as ConfigJ
+from deepxi_tpu.data.wavio import read_wav as read_wav_j
+from deepxi_tpu_torch import cli
+from deepxi_tpu_torch.compat.artifact import FLAGSHIP_ROOT, MHANET_ROOT
+from deepxi_tpu_torch.config import Config
+from deepxi_tpu_torch.data.wavio import read_wav, save_wav
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+COMMAND_LINES = [
+    [],
+    ["--ver", "resnet-1.1c", "--train", "1", "--mbatch_size", "4"],
+    ["--ver", "mhanet-1.1c", "--infer", "true", "--test_epoch", "10,20",
+     "--gain", "mmse-lsa,srwf", "--out_type", "xi_hat"],
+    ["--ver", "mhanet-1.1c-vb", "--test", "1", "--metric_workers", "1",
+     "--test_s_path", "s", "--test_x_path", "x", "--log_path", "l"],
+    ["--ver", "resnet-1.1c-vb", "--spect_dist", "1", "--sd_snr_levels", "neg_5,0,5",
+     "--sd_target", "xi,gamma", "--test_d_path", "d"],
+    ["--ver", "mhanet-1.0c", "--prelim", "yes", "--causal", "0", "--attention_impl",
+     "stream", "--block_q", "128", "--mha_fused", "f", "--max_len", "1024"],
+    ["--ver", "tiny", "--network_type", "ResNetV2", "--d_model", "32", "--n_blocks", "3",
+     "--d_f", "16", "--k", "3", "--max_d_rate", "2", "--unit_type", "ReLU->LN->W+b",
+     "--min_snr", "0", "--max_snr", "10", "--snr_inter", "5", "--seed", "3"],
+    ["--ver", "resnet-1.1c", "--save_model", "0", "--save_every", "5", "--val_every", "2",
+     "--val_flag", "false", "--reset_inp_tgt", "1", "--reset_sample", "t",
+     "--eval_example", "1", "--log_iter", "1", "--resume_epoch", "3", "--max_epochs", "9",
+     "--tcn_fused_train", "0", "--loss_fnc", "MeanSquaredError", "--outp_act", "Sigmoid"],
+    ["--ver", "resnet-1.1c", "--f_s", "8000", "--T_d", "32", "--T_s", "16",
+     "--n_filters", "26", "--warmup_steps", "100", "--n_heads", "4",
+     "--map_type", "DBNormalCDF", "--dft_precision", "highest", "--tcn_fused", "1",
+     "--n_model_shards", "1", "--export_path", "e"],
+]
+
+
+@pytest.mark.parametrize("argv", COMMAND_LINES, ids=range(len(COMMAND_LINES)))
+def test_config_from_args_matches_jax(argv):
+    """Every field both Configs have takes the same value."""
+    cfg, cfg_j = cli.config_from_args(argv), cli_j.config_from_args(argv)
+    shared = {f.name for f in dataclasses.fields(Config)} & \
+        {f.name for f in dataclasses.fields(ConfigJ)}
+    assert shared == {f.name for f in dataclasses.fields(Config)}
+    for name in sorted(shared):
+        assert getattr(cfg, name) == getattr(cfg_j, name), name
+
+
+REFUSED = [
+    (["--export", "1"], "A7"), (["--n_data_shards", "2"], "A10"),
+    (["--n_model_shards", "2"], "A10"), (["--import_stats", "x.p"], "A9"),
+    (["--inp_tgt_type", "MagGamma"], "A9"), (["--map_type", "NormalCDF"], "A9"),
+    (["--attention_impl", "block"], "A9"), (["--out_type", "hybrid_omlsa"], "A11"),
+    (["--out_type", "pho"], "A11"), (["--out_type", "cd_hat"], "A9"),
+    (["--ver", "reslstm-1.0c"], "A9"), (["--length", "7"], "A9"),
+    (["--mixmax_stats", "g.npz"], "A11"), (["--lexicon_path", "lex"], "A11"),
+    (["--d_ff", "1024"], "d_ff"), (["--tcn_fused", "0"], "tcn_fused"),
+    (["--platform", "tpu"], "cuda"),
+]
+
+
+@pytest.mark.parametrize("argv,item", REFUSED, ids=[a[0] for a, _ in REFUSED])
+def test_unported_flags_raise(argv, item):
+    """A flag whose path the port lacks raises and names its ROADMAP item,
+    in `main` and in `config_from_args` (and before any work)."""
+    for fn in (cli.main, cli.config_from_args):
+        with pytest.raises(SystemExit, match=item):
+            fn(argv + ["--test", "1", "--platform", "cpu"]
+               if "--platform" not in argv else argv)
+
+
+def test_main_without_mode_and_help():
+    assert cli.main(["--platform", "cpu", "--ver", "tiny"]) == 1
+    r = subprocess.run([sys.executable, "-m", "deepxi_tpu_torch", "--help"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and "--dft_precision" in r.stdout and "float32" in r.stdout
+
+
+def test_prelim_converges(capsys):
+    """`--prelim 1` trains its small ResNetV2 for 60 steps toward 0.75 on the
+    CPU: mean |prediction - target| under 0.12 (the JAX test's limit;
+    measured 0.054)."""
+    assert cli.main(["--prelim", "1", "--platform", "cpu"]) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines() if "mean|pred-target|" in ln]
+    assert len(line) == 1 and float(line[0].split()[-1]) < 0.12
+
+
+def _stereo_44k(src, dst):
+    """`src` resampled to 44.1 kHz by linear interpolation, in two
+    channels of 32-bit PCM (left and half the right)."""
+    x = read_wav(src)[0].astype(np.float64) / 32768.0
+    t = np.arange(int(len(x) * 44100 / 16000)) * 16000 / 44100
+    y = np.interp(t, np.arange(len(x)), x)
+    raw = (np.stack([y, 0.5 * y], 1) * 2147483647.0 * 0.9).astype("<i4")
+    with wave.open(dst, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(4)
+        w.setframerate(44100)
+        w.writeframes(raw.tobytes())
+
+
+def test_enhance_matches_jax(tmp_path):
+    """`--enhance` from the mhanet-1.1c artifact on a directory: the 4 s
+    noisy utterance, its first 2.5 s, and the utterance at 44.1 kHz stereo
+    32-bit; each written wav within one int16 step of the JAX CLI's
+    (measured: at most one). Outputs keep the input's basename and are
+    written at the artifact's rate."""
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    noisy = os.path.join(MHANET_ROOT, "c012_white_5dB.wav")
+    shutil.copy(noisy, in_dir / "a.wav")
+    save_wav(str(in_dir / "b.wav"), read_wav(noisy)[0][:40000], 16000)
+    _stereo_44k(noisy, str(in_dir / "c.wav"))
+    out, out_j = tmp_path / "out", tmp_path / "out_j"
+    assert cli.main(["--enhance", MHANET_ROOT, "--in_wavs", str(in_dir),
+                     "--out_dir", str(out), "--platform", "cpu"]) == 0
+    assert cli_j.main(["--enhance", MHANET_ROOT, "--in_wavs", str(in_dir),
+                       "--out_dir", str(out_j), "--platform", "cpu"]) == 0
+    assert sorted(os.listdir(out)) == sorted(os.listdir(out_j)) == ["a.wav", "b.wav", "c.wav"]
+    for name in ("a.wav", "b.wav", "c.wav"):
+        with wave.open(str(out / name)) as w:
+            assert w.getframerate() == 16000 and w.getnchannels() == 1
+        y, y_j = read_wav(str(out / name))[0], read_wav_j(str(out_j / name))[0]
+        assert y.shape == y_j.shape and np.abs(y).max() > 1000
+        assert np.abs(y.astype(np.int32) - y_j).max() <= 1, name
+
+
+def test_enhance_needs_meta_json(tmp_path):
+    """The resnet-1.1c artifact holds no meta.json: both command lines raise."""
+    wav = os.path.join(FLAGSHIP_ROOT, "c012_white_5dB.wav")
+    for main in (cli.main, cli_j.main):
+        with pytest.raises(FileNotFoundError, match="meta.json"):
+            main(["--enhance", FLAGSHIP_ROOT, "--in_wavs", wav,
+                  "--out_dir", str(tmp_path), "--platform", "cpu"])
+
+
+def _dataset(root):
+    """tests/test_framework.py's tiny corpus layout: train, val and test
+    sets, and test noise as long as the test speech."""
+    rng = np.random.RandomState(0)
+
+    def noise(n):
+        return (rng.randn(n) * 2000).astype(np.int16)
+
+    def speech(n, seed):
+        t = np.arange(n) / 16000
+        return (np.random.RandomState(seed).randn(n) * 5000
+                * (0.55 + 0.45 * np.sin(2 * np.pi * 4.0 * t))).astype(np.int16)
+
+    for i in range(4):
+        save_wav(str(root / "train_clean_speech" / f"sp{i}.wav"), speech(8000 + 1000 * i, i),
+                 16000)
+        save_wav(str(root / "train_noise" / f"n{i}.wav"), noise(24000), 16000)
+    for i in range(2):
+        save_wav(str(root / "val_clean_speech" / f"v{i}_5dB.wav"), speech(8000, 10 + i), 16000)
+        save_wav(str(root / "val_noise" / f"v{i}_5dB.wav"), noise(8000), 16000)
+        s = speech(16000, 20 + i)
+        x = (s.astype(np.int32) + noise(16000)).clip(-32768, 32767).astype(np.int16)
+        save_wav(str(root / "test_clean_speech" / f"c{i}.wav"), s, 16000)
+        save_wav(str(root / "test_noisy_speech" / f"c{i}_white_5dB.wav"), x, 16000)
+        save_wav(str(root / "test_noise" / f"d{i}.wav"), noise(16000), 16000)
+
+
+def _written(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for top in ("log", "out") for d, _, fs in os.walk(os.path.join(root, top))
+                  for f in fs)
+
+
+def test_train_infer_test_spect_dist_write_the_jax_files(tmp_path):
+    """One command line of every mode on a tiny ResNetV2: both packages
+    write the same loss, result, spectral-distortion and enhanced-wav files,
+    the map statistics and a checkpoint of epoch 0."""
+    _dataset(tmp_path / "set")
+    argv = ["--ver", "tiny", "--network_type", "ResNetV2", "--d_model", "16",
+            "--n_blocks", "2", "--d_f", "8", "--k", "3", "--max_d_rate", "2",
+            "--unit_type", "ReLU->LN->W+b", "--mbatch_size", "2", "--sample_size", "4",
+            "--max_epochs", "1", "--test_epoch", "1", "--min_snr", "0", "--max_snr", "10",
+            "--snr_inter", "5", "--metric_workers", "1", "--sd_snr_levels", "0,5",
+            "--sd_target", "xi,gamma", "--train", "1", "--infer", "1", "--test", "1",
+            "--spect_dist", "1", "--platform", "cpu",
+            "--set_path", str(tmp_path / "set"),
+            "--test_x_path", str(tmp_path / "set" / "test_noisy_speech"),
+            "--test_s_path", str(tmp_path / "set" / "test_clean_speech"),
+            "--test_d_path", str(tmp_path / "set" / "test_noise")]
+    runs = {}
+    for name, main in (("port", cli.main), ("jax", cli_j.main)):
+        r = tmp_path / name
+        assert main(argv + [f"--{k}_path={r / k}" for k in ("data", "model", "log", "out")]
+                    ) == 0
+        runs[name] = r
+    files = _written(runs["port"])
+    assert files == _written(runs["jax"])
+    assert {"log/loss/tiny.csv", "log/results/tiny_e1_mmse-lsa.csv",
+            "log/results/average.csv", "log/results/results.txt",
+            "log/results/tiny_e1_spect_dist.csv", "log/results/tiny_e1_spect_dist_gamma.csv",
+            "out/tiny/e1/y/mmse-lsa/c0_white_5dB.wav"} <= set(files)
+    for r in runs.values():
+        assert os.path.exists(r / "data" / "tiny_stats.npz")
+        assert os.path.isdir(r / "model" / "tiny" / "epoch-0")

@@ -791,3 +791,88 @@ def test_streaming_mhanet_hop_replays_as_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     assert int(state.t) == 12
     assert torch.equal(torch.cat([y1, y2, y], 1), y_eager)
+
+
+@pytest.mark.cuda
+def test_enhance_and_test_on_the_card_match_the_plain_route(cuda, tmp_path):
+    """The mhanet-1.1c artifact on the card: `cli.main(["--enhance", ...])`
+    launches the fused blocks and writes the plain network's waveform within
+    one int16 step; `DeepXiTorch.test` scores the 4 s utterance as the plain
+    waveform scores (PESQ, MOS-LQO, composites, SegSNR and SNR within 0.01,
+    STOI and eSTOI within 0.1 %)."""
+    import numpy as np
+
+    from deepxi_tpu_torch import cli
+    from deepxi_tpu_torch.compat.artifact import MHANET_ROOT, load_artifact
+    from deepxi_tpu_torch.config import preset
+    from deepxi_tpu_torch.data.loader import bucket_length
+    from deepxi_tpu_torch.data.wavio import read_wav, save_wav
+    from deepxi_tpu_torch.enhance import make_enhancer
+    from deepxi_tpu_torch.framework import DeepXiTorch
+    from deepxi_tpu_torch.metrics.scoring import score_utterance
+    from deepxi_tpu_torch.ops.kernels import mha_block_fused
+
+    art = load_artifact(device=cuda)
+    plain = make_enhancer(art.inp_tgt, art.net, "mmse-lsa", device=cuda)
+    save_wav(str(tmp_path / "noisy" / "c012_white_5dB.wav"), art.noisy, 16000)
+    save_wav(str(tmp_path / "clean" / "c012.wav"), art.clean, 16000)
+    n0 = mha_block_fused.fused_transformer_block.launches
+    assert cli.main(["--enhance", MHANET_ROOT, "--in_wavs", str(tmp_path / "noisy"),
+                     "--out_dir", str(tmp_path / "enh")]) == 0
+    assert mha_block_fused.fused_transformer_block.launches > n0
+    xp = np.zeros((1, -(-len(art.noisy) // 256) * 256), np.int16)
+    xp[0, :len(art.noisy)] = art.noisy
+    y_plain = plain(art.params, xp)[0, :len(art.noisy)].cpu().numpy()
+    y = read_wav(str(tmp_path / "enh" / "c012_white_5dB.wav"))[0]
+    assert np.abs(y.astype(np.int32) - (y_plain * 32768.0).astype(np.int16)).max() <= 1
+
+    (tmp_path / "data").mkdir()
+    np.savez(tmp_path / "data" / "mhanet-1.1c_stats.npz",
+             **dict(np.load(os.path.join(MHANET_ROOT, "stats.npz"))))
+    dx = DeepXiTorch(preset("mhanet-1.1c", data_path=str(tmp_path / "data"),
+                            log_path=str(tmp_path / "log"), metric_workers=1,
+                            test_x_path=str(tmp_path / "noisy"),
+                            test_s_path=str(tmp_path / "clean")), device=cuda)
+    got = dx.test(params=art.params, epochs=[1])[(1, "mmse-lsa")]
+    xb = np.zeros((1, bucket_length(len(art.noisy))), np.int16)
+    xb[0, :len(art.noisy)] = art.noisy
+    ref = score_utterance(art.clean.astype(np.float32) / 32768.0,
+                          plain(art.params, xb)[0, :len(art.clean)].cpu().numpy(), 16000)
+    for m, v in ref.items():
+        assert abs(got[("white", 5, m)][0] - v) <= (0.1 if "STOI" in m else 0.01), m
+
+
+@pytest.mark.cuda
+def test_resampled_wav_feeds_the_card(cuda, tmp_path):
+    """A 44.1 kHz stereo 32-bit wav read at 16 kHz by `read_wav` (its length
+    `wav_length`'s) enhances on the card through the fused TCN as through the
+    plain network (waveform within 1e-3)."""
+    import wave
+
+    import numpy as np
+
+    from deepxi_tpu_torch.compat.artifact import load_flagship_artifact
+    from deepxi_tpu_torch.data.wavio import read_wav, wav_length
+    from deepxi_tpu_torch.enhance import make_enhancer
+
+    art = load_flagship_artifact(device=cuda)
+    x = art.noisy.astype(np.float64) / 32768.0
+    t = np.arange(int(len(x) * 44100 / 16000)) * 16000 / 44100
+    y = np.interp(t, np.arange(len(x)), x)
+    path = str(tmp_path / "x.wav")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(4)
+        w.setframerate(44100)
+        w.writeframes((np.stack([y, y], 1) * 2 ** 31 * 0.9).astype("<i4").tobytes())
+    wav, f_s = read_wav(path, 16000)
+    assert f_s == 16000 and len(wav) == wav_length(path, 16000)
+    assert abs(len(wav) - len(art.noisy)) <= 1
+    xp = np.zeros((1, -(-len(wav) // 256) * 256), np.int16)
+    xp[0, :len(wav)] = wav
+    n0 = tcn_fused.fused_block_group_whole.launches
+    y_k = make_enhancer(art.inp_tgt, art.net, "mmse-lsa",
+                        apply_fn=tcn_fused.resnetv2_apply_fused, device=cuda)(art.params, xp)
+    assert tcn_fused.fused_block_group_whole.launches > n0
+    y_p = make_enhancer(art.inp_tgt, art.net, "mmse-lsa", device=cuda)(art.params, xp)
+    assert torch.isfinite(y_k).all() and (y_k - y_p).abs().max().item() <= 1e-3
