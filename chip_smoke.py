@@ -121,6 +121,19 @@ Phases (any failure exits non-zero before the result line):
      a subprocess and through `cli.main` (B7 must launch), each within one
      int16 step of infer's wav; `cli.main(["--prelim", "1"])` on the card
      (mean |prediction - target| < 0.12 after 60 steps);
+  3j. serving on the card (tools/torch_serving.py): `export_enhancer` of
+     resnet-1.1c (batch 4, buckets 65,536 and 320,000: the per-block TCN
+     kernel 40 launches a call, the halo-tiled one 20) and of mhanet-1.1c
+     (65,536: the fused block 5 a call), each bundle against the live
+     enhancer on the same kernels (1e-6) and the plain route (1e-3), one
+     loaded by a fresh process importing only `deepxi_tpu_torch.serving`;
+     `export_streaming` of StreamingEnhancer (B=1), StreamingMHANet(fused=True)
+     (B=1 f32 caches, B=256 bf16 caches) and step_block of 2 hops, each
+     server streaming its 4 s utterance through one CUDA graph replayed a hop
+     (the KV-cache kernel 5 a captured hop) against the live eager steps
+     (1e-6) and bf16 against the f32 stream; `python3 -m deepxi_tpu_torch
+     --export 1` on resnet-1.1c set up as epoch 1; the server hop against the
+     16 ms budget, the server call beside the live enhancer, export seconds;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -1818,6 +1831,16 @@ def main():
     if rc != 0 or len(mae) != 1 or not mae[0] < 0.12:
         fail("--prelim did not converge on the card")
 
+    # 3j. serving on the card (tools/torch_serving.py): the exported enhancer
+    # of both artifacts (B1 40 and B4 20 launches a call for resnet-1.1c, B7
+    # 5 for mhanet-1.1c; against the live enhancer and the plain route; one
+    # bundle loaded by a fresh process), the streaming server of each
+    # (one CUDA graph a hop; B10 5 a captured hop; against the live eager
+    # steps, bf16 caches against the f32 stream), `--export 1`, and the
+    # server's hop and call times
+    import torch_serving
+    served = torch_serving.serving_phase(dev, fail)
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -2289,6 +2312,8 @@ def main():
     for row in kernels:
         if row["name"] in test_launches:
             row["test_launches"] = test_launches[row["name"]]
+        if row["name"] in served["launches"]:
+            row["serving_launches"] = served["launches"][row["name"]]
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -4,6 +4,7 @@
     python -m deepxi_tpu_torch --ver resnet-1.1c --infer 1 --test_epoch 200 --gain mmse-lsa
     python -m deepxi_tpu_torch --ver resnet-1.1c --test 1
     python -m deepxi_tpu_torch --enhance artifacts/mhanet-1.1c-big2400-e400 --in_wavs a.wav
+    python -m deepxi_tpu_torch --ver resnet-1.1c --export 1 --test_epoch 200
     python -m deepxi_tpu_torch --prelim 1 --platform cpu
 
 The parser takes every flag of the JAX package's, so a command line written
@@ -39,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test", type=str_to_bool, default=False)
     p.add_argument("--spect_dist", type=str_to_bool, default=False)
     p.add_argument("--export", type=str_to_bool, default=False,
-                   help="serving export: not in the port yet (ROADMAP item A7)")
+                   help="serving export: write the fused enhancer of --test_epoch "
+                        "as torch.export programs (deepxi_tpu_torch.serving)")
     p.add_argument("--export_path", type=str, default=None)
     p.add_argument("--prelim", type=str_to_bool, default=False)
     p.add_argument("--enhance", type=str, default=None,
@@ -123,7 +125,6 @@ def build_parser() -> argparse.ArgumentParser:
 # (flag, the values the port runs, the reason it refuses any other): flags
 # whose path the port does not have yet, each naming its ROADMAP item.
 _REFUSED = (
-    ("export", (False,), "the serving export is ROADMAP item A7"),
     ("n_data_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
     ("n_model_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
     ("import_stats", (None,), "importing reference statistics is ROADMAP item A9 "
@@ -152,8 +153,8 @@ _REFUSED = (
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise SystemExit naming the ROADMAP item for a flag whose path the
-    port does not have: a preset of another network, `--export 1`, more
-    than one shard, `--import_stats`,
+    port does not have: a preset of another network, more than one shard,
+    `--import_stats`,
     another input/target family or map, the hybrid and phoneme modes'
     inputs, RDLNet's, 'block' attention; and for `--d_b`, `--d_ff` (read by
     no network) and `--tcn_fused 0`."""
@@ -255,15 +256,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                                     device=device)
     cfg = config_from_args(argv)
     print(f"Version: {cfg.ver} ({cfg.network_type}, {cfg.inp_tgt_type})")
-    if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.prelim):
+    if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.prelim
+            or cfg.export):
         print("nothing to do: pass --train 1, --infer 1, --test 1, "
-              "--spect_dist 1 and/or --prelim 1")
+              "--spect_dist 1, --export 1 and/or --prelim 1")
         return 1
 
     if cfg.prelim:
         from deepxi_tpu_torch.prelim import run_prelim
         run_prelim(cfg.network_type, device=device)
-        if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist):
+        if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.export):
             return 0
 
     from deepxi_tpu_torch.data.listing import batch_list
@@ -288,6 +290,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         targets = cfg.sd_target if isinstance(cfg.sd_target, list) else [cfg.sd_target]
         for tgt in targets:
             deepxi.spectral_distortion(target=tgt)
+    if cfg.export:
+        written = deepxi.export_serving(out_dir=cfg.export_path)
+        print(f"exported {len(written)} serving artifacts")
     return 0
 
 

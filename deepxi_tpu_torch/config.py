@@ -52,7 +52,7 @@ class Config:
     test: bool = False
     spect_dist: bool = False
     prelim: bool = False
-    export: bool = False  # serving export: not in the port yet
+    export: bool = False  # serving export (serving.export_enhancer)
     export_path: Optional[str] = None
     sd_snr_levels: Any = dataclasses.field(default_factory=lambda: [-5, 0, 5, 10, 15])
     sd_target: Any = "xi"  # "xi", "gamma", or a list of both

@@ -1,7 +1,7 @@
 """Framework facade: map statistics, the training loop, offline
-inference, objective testing and the spectral-distortion study (follows
-deepxi_tpu/framework.py; `infer` writes every MagXi out_type; there is no
-device mesh, no serving export, no hybrid mode and no phoneme mode).
+inference, objective testing, the spectral-distortion study and the serving
+export (follows deepxi_tpu/framework.py; `infer` writes every MagXi
+out_type; there is no device mesh, no hybrid mode and no phoneme mode).
 
 Artifact layout as in the JAX package:
 
@@ -13,6 +13,7 @@ Artifact layout as in the JAX package:
                                    scores, spectral distortion
   out/<ver>/e<epoch>/y/<gain>/     enhanced wavs
   out/<ver>/e<epoch>/<out_type>/   the other outputs (.mat; d_hat: wavs)
+  out/<ver>/e<epoch>/serving/      the serving export (serving.export_enhancer)
 """
 
 from __future__ import annotations
@@ -432,6 +433,27 @@ class DeepXiTorch:
                 for r, i in enumerate(chunk):
                     ys[i] = y[r, :(-(-int(x_lens[i]) // N_s) + 1) * N_s]
         return ys
+
+    def export_serving(self, out_dir: Optional[str] = None,
+                       epoch: Optional[int] = None,
+                       gain: Optional[str] = None,
+                       batch: int = 32,
+                       buckets: Sequence[int] = (8192, 16384, 32768, 65536,
+                                                 131072, 262144)) -> List[str]:
+        """Serving export of a trained epoch: the batched enhancer through
+        `fast_apply` (the kernels as `deepxi::` ops) as one `torch.export`
+        program a bucket on this framework's device (`serving`); no model
+        code or re-trace at load time. Returns the written paths."""
+        from deepxi_tpu_torch.serving import export_enhancer
+        cfg = self.cfg
+        epoch = epoch or (cfg.test_epoch if isinstance(cfg.test_epoch, int)
+                          else cfg.test_epoch[0])
+        g = gain or (cfg.gain if isinstance(cfg.gain, str) else cfg.gain[0])
+        params = self.load_epoch(epoch)
+        out_dir = out_dir or os.path.join(cfg.out_path, cfg.ver, f"e{epoch}", "serving")
+        return export_enhancer(self.inp_tgt, self.network, params, out_dir, gain=g,
+                               batch=batch, buckets=buckets, apply_fn=self.fast_apply(),
+                               ver=cfg.ver, device=self.device)
 
     def xi_estimator(self) -> Callable:
         """The cached `make_xi_estimator` of `fast_apply` (the per-utterance

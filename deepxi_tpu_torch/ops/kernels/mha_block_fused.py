@@ -6,8 +6,11 @@ attention, output projection, residual, LN1, the 4x FFN, residual, LN2) as
 one call of `csrc/mha_block_fused.cu` (three launches: projections,
 attention, the per-row rest, the last as thread block clusters when rows
 are few; `block_grid` gives the launch shapes) for a CUDA tensor, and its plain version
-`fused_transformer_block_ref` for a CPU tensor. Its `launches` counter counts
-calls, one per block. The widths (heads, d_model, the FFN's) are read from
+`fused_transformer_block_ref` for a CPU tensor, both as the op
+`deepxi::fused_transformer_block` (`ops.kernels.kernel_op`; its weights a
+list of 12 tensors in `BlockWeights` order, so `torch.export` and CUDA graph
+capture go through the kernel). Its `launches` counter counts calls, one per
+block, in the CUDA implementation. The widths (heads, d_model, the FFN's) are read from
 the weights; the wrapper builds one library per set of widths that
 `kernel_takes` accepts, and raises ValueError on the card at any other.
 
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple
 
 import torch
 
@@ -37,7 +40,7 @@ from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
                                                layer_norm_two_pass,
                                                sequence_valid_mask)
 from deepxi_tpu_torch.models.tcn import output_activation
-from deepxi_tpu_torch.ops.kernels import (launch_context, raw_stream,
+from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
                                           refuse_autograd)
 from deepxi_tpu_torch.ops.kernels import mha_fused
 from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEADS,
@@ -170,21 +173,17 @@ def block_grid(B: int, T: int, n_heads: int = KERNEL_HEADS,
                      "post_ctas"), out))
 
 
-def fused_transformer_block(x: torch.Tensor, validf: torch.Tensor,
-                            weights: BlockWeights, causal: bool) -> torch.Tensor:
-    """One whole transformer block: x [B, Tp, C] -> [B, Tp, C], validf
-    [B, 1, Tp] float 1/0 frame validity from the network input."""
-    refuse_autograd([x, *weights], "fused_transformer_block")
-    if x.device.type == "cpu":
-        return fused_transformer_block_ref(x, validf, weights, causal)
-    H, dk, F = _check(x, validf, weights)
+def _block_cuda(x: torch.Tensor, validf: torch.Tensor, weights: List[torch.Tensor],
+                causal: bool) -> torch.Tensor:
+    bw = BlockWeights(*weights)
+    H, dk, F = _check(x, validf, bw)
     B, T, _ = x.shape
     vf = validf.to(torch.float32).contiguous()
     q, k, v, o, out = (torch.empty_like(x) for _ in range(5))
     lib = _lib(H, dk, F)
     with launch_context(x.device):
         rc = lib.mha_block_forward(
-            x.data_ptr(), vf.data_ptr(), *(t.data_ptr() for t in weights),
+            x.data_ptr(), vf.data_ptr(), *(t.data_ptr() for t in bw),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             out.data_ptr(), B, T, int(causal), float(dk) ** -0.5,
             raw_stream(x.device))
@@ -193,6 +192,20 @@ def fused_transformer_block(x: torch.Tensor, validf: torch.Tensor,
                            f"({lib.mha_block_error_string(rc).decode()})")
     fused_transformer_block.launches += 1
     return out
+
+
+_block_op = kernel_op(
+    "fused_transformer_block", _block_cuda,
+    lambda x, validf, weights, causal: fused_transformer_block_ref(
+        x, validf, BlockWeights(*weights), causal))
+
+
+def fused_transformer_block(x: torch.Tensor, validf: torch.Tensor,
+                            weights: BlockWeights, causal: bool) -> torch.Tensor:
+    """One whole transformer block: x [B, Tp, C] -> [B, Tp, C], validf
+    [B, 1, Tp] float 1/0 frame validity from the network input."""
+    refuse_autograd([x, *weights], "fused_transformer_block")
+    return _block_op(x, validf, list(weights), causal)
 
 
 fused_transformer_block.launches = 0

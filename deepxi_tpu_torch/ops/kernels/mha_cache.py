@@ -2,8 +2,10 @@
 deepxi_tpu/ops/kernels/mha_cache.py).
 
 `mha_cache_step` runs the CUDA kernel of `csrc/mha_cache.cu` for a CUDA
-tensor and its plain version `mha_cache_step_ref` for a CPU tensor; it has a
-plain-integer `launches` counter (one per call).
+tensor and its plain version `mha_cache_step_ref` for a CPU tensor, both as
+the op `deepxi::mha_cache_step` (`ops.kernels.kernel_op`), whose clock is
+always a tensor; it has a plain-integer `launches` counter (one per call,
+counted in the CUDA implementation, so a CUDA graph's replay counts none).
 
 Semantics, as the JAX function: q [B, H, d] float32, pre-scaled; key and
 value caches [B, L, H, d] in float32 or bfloat16, upcast to float32; the
@@ -48,7 +50,8 @@ import functools
 import torch
 
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
-from deepxi_tpu_torch.ops.kernels import launch_context, raw_stream, refuse_autograd
+from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
+                                          refuse_autograd)
 from deepxi_tpu_torch.ops.kernels.mha_fused import head_defines, kernel_takes
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
@@ -71,7 +74,8 @@ def mha_cache_step_ref(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return torch.einsum("bHL,bLHd->bHd", w, vc.to(torch.float32))
 
 
-def _check(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, t) -> None:
+def _check(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+           t: torch.Tensor) -> None:
     """Raise on what the kernel does not take (reading no device value)."""
     if q.dtype != torch.float32 or q.dim() != 3 or not kernel_takes(*q.shape[1:]):
         raise ValueError(f"q must be float32 [B, H, d] with heads the kernel "
@@ -88,13 +92,9 @@ def _check(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, t) -> None:
         if not x.is_contiguous() or x.device != q.device or x.data_ptr() % 16:
             raise ValueError("q, kc and vc must be contiguous, 16-byte aligned "
                              "and on one device")
-    if isinstance(t, torch.Tensor):
-        if t.dim() != 0 or t.dtype != torch.int32 or t.device != q.device:
-            raise ValueError(f"a tensor clock t must be 0-d int32 on {q.device}, not "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    elif not isinstance(t, int) or isinstance(t, bool) or t < 0:
-        raise ValueError(f"the clock t must be an int >= 0 or a 0-d int32 tensor, "
-                         f"not {t!r}")
+    if t.dim() != 0 or t.dtype != torch.int32 or t.device != q.device:
+        raise ValueError(f"a tensor clock t must be 0-d int32 on {q.device}, not "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
 def key_splits(B: int, L: int) -> int:
@@ -140,20 +140,11 @@ def _counters(device: torch.device, B: int) -> torch.Tensor:
     return _COUNTERS[key]
 
 
-def mha_cache_step(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                   t) -> torch.Tensor:
-    """One streaming attention step: q [B, H, d] against the caches' rows
-    written up to the clock t (an int, or a 0-d int32 tensor on q's device);
-    returns [B, H, d] float32. One kernel launch on the card, no host
-    synchronisation."""
-    refuse_autograd([q, kc, vc], "mha_cache_step")
-    if q.device.type == "cpu":
-        return mha_cache_step_ref(q, kc, vc, t)
+def _step_cuda(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+               t: torch.Tensor) -> torch.Tensor:
     _check(q, kc, vc, t)
     B, L = kc.shape[:2]
     H, d = q.shape[1:]
-    if not isinstance(t, torch.Tensor):
-        t = torch.full((), t, dtype=torch.int32, device=q.device)
     S = key_splits(B, L)
     part, counters = ((torch.empty(B, S, H, d + 2, device=q.device),
                        _counters(q.device, B)) if S > 1 else (None, None))
@@ -169,6 +160,24 @@ def mha_cache_step(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                            f"({lib.mha_cache_error_string(rc).decode()})")
     mha_cache_step.launches += 1
     return out
+
+
+_step_op = kernel_op("mha_cache_step", _step_cuda, mha_cache_step_ref)
+
+
+def mha_cache_step(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                   t) -> torch.Tensor:
+    """One streaming attention step: q [B, H, d] against the caches' rows
+    written up to the clock t (an int, or a 0-d int32 tensor on q's device);
+    returns [B, H, d] float32. One kernel launch on the card, no host
+    synchronisation."""
+    refuse_autograd([q, kc, vc], "mha_cache_step")
+    if not isinstance(t, torch.Tensor):
+        if not isinstance(t, int) or isinstance(t, bool) or t < 0:
+            raise ValueError(f"the clock t must be an int >= 0 or a 0-d int32 "
+                             f"tensor, not {t!r}")
+        t = torch.full((), t, dtype=torch.int32, device=q.device)
+    return _step_op(q, kc, vc, t)
 
 
 mha_cache_step.launches = 0

@@ -3,8 +3,9 @@ deepxi_tpu/ops/kernels/mha_flash_stream.py).
 
 `flash_attention_streaming` runs the CUDA kernel of `csrc/mha_attention.cu`
 (shared with `mha_fused.flash_attention`) for a CUDA tensor and its plain
-version `flash_attention_streaming_ref` for a CPU tensor; it has a
-plain-integer `launches` counter.
+version `flash_attention_streaming_ref` for a CPU tensor, both as the op
+`deepxi::flash_attention_streaming` (`ops.kernels.kernel_op`); it has a
+plain-integer `launches` counter, counted in the CUDA implementation.
 
 Semantics: the additive -1e10 mask and softmax of `mha_fused`, with the JAX
 kernel's key walk. Keys are padded to T rounded up to `block_k`; a causal
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from deepxi_tpu_torch.ops.kernels import refuse_autograd
+from deepxi_tpu_torch.ops.kernels import kernel_op, refuse_autograd
 from deepxi_tpu_torch.ops.kernels.mha_fused import (launch_attention,
                                                     masked_softmax_attention,
                                                     pad_keys)
@@ -56,17 +57,9 @@ def flash_attention_streaming_ref(qp: torch.Tensor, kp: torch.Tensor,
         n_visit=keys_visited(T, causal, block_q, block_k, qp.device))
 
 
-def flash_attention_streaming(qp: torch.Tensor, kp: torch.Tensor,
-                              vp: torch.Tensor, valid: torch.Tensor,
-                              causal: bool, block_q: int = 256,
-                              block_k: int = 512) -> torch.Tensor:
-    """Masked multi-head attention on [B, T, H, d] projected heads (q
-    pre-scaled) with valid [B, T] bool, walking key tiles with an online
-    softmax; returns [B, T, H, d]."""
-    refuse_autograd([qp, kp, vp], "flash_attention_streaming")
-    if qp.device.type == "cpu":
-        return flash_attention_streaming_ref(qp, kp, vp, valid, causal,
-                                             block_q, block_k)
+def _stream_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                 valid: torch.Tensor, causal: bool, block_q: int,
+                 block_k: int) -> torch.Tensor:
     if block_q < 1 or block_k < 1:
         raise ValueError("block_q and block_k must be positive")
     T = qp.shape[1]
@@ -76,6 +69,21 @@ def flash_attention_streaming(qp: torch.Tensor, kp: torch.Tensor,
                            skip_bk=block_k if causal else 0)
     flash_attention_streaming.launches += 1
     return out
+
+
+_stream_op = kernel_op("flash_attention_streaming", _stream_cuda,
+                       flash_attention_streaming_ref)
+
+
+def flash_attention_streaming(qp: torch.Tensor, kp: torch.Tensor,
+                              vp: torch.Tensor, valid: torch.Tensor,
+                              causal: bool, block_q: int = 256,
+                              block_k: int = 512) -> torch.Tensor:
+    """Masked multi-head attention on [B, T, H, d] projected heads (q
+    pre-scaled) with valid [B, T] bool, walking key tiles with an online
+    softmax; returns [B, T, H, d]."""
+    refuse_autograd([qp, kp, vp], "flash_attention_streaming")
+    return _stream_op(qp, kp, vp, valid, causal, block_q, block_k)
 
 
 flash_attention_streaming.launches = 0

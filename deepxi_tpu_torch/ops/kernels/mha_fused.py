@@ -2,8 +2,9 @@
 deepxi_tpu/ops/kernels/mha_fused.py).
 
 `flash_attention` runs the CUDA kernel of `csrc/mha_attention.cu` for a CUDA
-tensor and its plain version `flash_attention_ref` for a CPU tensor; it has
-a plain-integer `launches` counter. The kernel is shared with
+tensor and its plain version `flash_attention_ref` for a CPU tensor, both as
+the op `deepxi::flash_attention` (`ops.kernels.kernel_op`); it has a
+plain-integer `launches` counter, counted in the CUDA implementation. The kernel is shared with
 `mha_flash_stream.flash_attention_streaming`, which differs only in the keys
 a padded query row visits.
 
@@ -31,7 +32,7 @@ import functools
 import torch
 
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
-from deepxi_tpu_torch.ops.kernels import (launch_context, raw_stream,
+from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
                                           refuse_autograd)
 
 # mhanet-1.1c's heads, the default of `mha_block_fused.random_block_weights`.
@@ -138,17 +139,23 @@ def launch_attention(qp, kp, vp, valid, causal: bool, n_keys: int,
     return out
 
 
+def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                valid: torch.Tensor, causal: bool) -> torch.Tensor:
+    T = qp.shape[1]
+    out = launch_attention(qp, kp, vp, valid, causal, -(-T // 128) * 128)
+    flash_attention.launches += 1
+    return out
+
+
+_flash_op = kernel_op("flash_attention", _flash_cuda, flash_attention_ref)
+
+
 def flash_attention(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                     valid: torch.Tensor, causal: bool) -> torch.Tensor:
     """Masked multi-head attention on [B, T, H, d] projected heads (q
     pre-scaled) with valid [B, T] bool; returns [B, T, H, d]."""
     refuse_autograd([qp, kp, vp], "flash_attention")
-    if qp.device.type == "cpu":
-        return flash_attention_ref(qp, kp, vp, valid, causal)
-    T = qp.shape[1]
-    out = launch_attention(qp, kp, vp, valid, causal, -(-T // 128) * 128)
-    flash_attention.launches += 1
-    return out
+    return _flash_op(qp, kp, vp, valid, causal)
 
 
 flash_attention.launches = 0

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -83,10 +84,28 @@ _TABLES = {"analysis": _analysis_matrix, "synthesis": _synthesis_matrix,
            "twiddles": _twiddles}
 
 
-@functools.lru_cache(maxsize=None)
+_DEVICE_TABLES: Dict[Tuple[str, tuple, torch.device], torch.Tensor] = {}
+
+
 def _on_device(name: str, args: tuple, device: torch.device) -> torch.Tensor:
-    """One device copy of a host table per (table, arguments, device)."""
-    return torch.as_tensor(_TABLES[name](*args), device=device)
+    """One device copy of a host table per (table, arguments, device). A
+    table first made under a trace (a fake tensor) is not kept."""
+    key = (name, args, device)
+    if key not in _DEVICE_TABLES:
+        table = torch.as_tensor(_TABLES[name](*args), device=device)
+        if type(table) is not torch.Tensor:
+            return table
+        _DEVICE_TABLES[key] = table
+    return _DEVICE_TABLES[key]
+
+
+def dft_tables(N_d: int, N_s: int, K: int, device) -> None:
+    """Make the analysis and synthesis products' matrices on `device` now,
+    outside any trace, under the key a tensor's own device gives (with its
+    index): a trace (`torch.export`) then takes them as constants."""
+    device = torch.empty(0, device=device).device
+    _on_device("analysis", (N_d, K), device)
+    _on_device("synthesis", (N_d, N_s, K), device)
 
 
 def stft_reim(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:

@@ -12,9 +12,13 @@ kernels of the inference path:
   * `fused_block_group`: the halo-tiled group; one launch per group, each CTA
     carrying the shrinking window of its tile through all G blocks.
 
-Each wrapper launches its kernel for a CUDA tensor and takes its plain
-version (`*_ref`, the same arithmetic in PyTorch) for a CPU tensor. Each has
-a plain-integer `launches` counter that counts kernel launches.
+Each wrapper calls its `deepxi::` op (`ops.kernels.kernel_op`), which
+launches the kernel for a CUDA tensor and takes the plain version (`*_ref`,
+the same arithmetic in PyTorch) for a CPU tensor; an exported program calls
+the same ops. The op boundary takes the blocks' weights as one flat tensor
+list, six a block in `BlockWeights` order. Each wrapper has a plain-integer
+`launches` counter that counts kernel launches (in the CUDA implementation,
+so a CUDA graph's replay counts none).
 
 The kernels' widths (d_model, d_f, k) are compile-time constants: a wrapper
 builds one library per set of widths at first use, so every width that
@@ -40,7 +44,7 @@ import torch
 
 from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
-from deepxi_tpu_torch.ops.kernels import (launch_context, raw_stream,
+from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
                                           refuse_autograd)
 
 # resnet-1.1c's widths, the defaults of `random_block_weights`.
@@ -279,16 +283,19 @@ def whole_tile(lib: ctypes.CDLL, x: torch.Tensor, dilations: Sequence[int],
                        lib.tcn_max_window_rows(x.device.index or 0))
 
 
-def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
-                            dilations: Sequence[int],
-                            k: int = 3) -> torch.Tensor:
-    """Apply a group of causal ReLU->LN->W+b bottleneck blocks, one kernel
-    launch per block ([B, T, d_model] -> same)."""
-    _refuse_autograd([x, *(w for bw in weights for w in bw)],
-                     "fused_block_group_whole")
-    if x.device.type == "cpu":
-        return fused_block_group_whole_ref(x, weights, dilations, k)
-    packed, widths = _check(x, weights, dilations, k)
+def flat_weights(weights: Sequence[BlockWeights]) -> List[torch.Tensor]:
+    """The blocks' weights as the ops take them: six tensors a block."""
+    return [w for bw in weights for w in bw]
+
+
+def _blocks(flat: List[torch.Tensor]) -> List[BlockWeights]:
+    return [BlockWeights(*flat[i:i + 6]) for i in range(0, len(flat), 6)]
+
+
+def _whole_cuda(x: torch.Tensor, weights: List[torch.Tensor], dilations: List[int],
+                k: int) -> torch.Tensor:
+    blocks = _blocks(weights)
+    packed, widths = _check(x, blocks, dilations, k)
     lib = _lib(*widths)
     B, T, _ = x.shape
     tile = whole_tile(lib, x, dilations, k)
@@ -304,6 +311,21 @@ def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
             fused_block_group_whole.launches += 1
             src = dst
     return src
+
+
+_whole_op = kernel_op(
+    "fused_block_group_whole", _whole_cuda,
+    lambda x, weights, dilations, k: fused_block_group_whole_ref(
+        x, _blocks(weights), dilations, k))
+
+
+def fused_block_group_whole(x: torch.Tensor, weights: Sequence[BlockWeights],
+                            dilations: Sequence[int],
+                            k: int = 3) -> torch.Tensor:
+    """Apply a group of causal ReLU->LN->W+b bottleneck blocks, one kernel
+    launch per block ([B, T, d_model] -> same)."""
+    _refuse_autograd([x, *flat_weights(weights)], "fused_block_group_whole")
+    return _whole_op(x, flat_weights(weights), [int(d) for d in dilations], k)
 
 
 fused_block_group_whole.launches = 0
@@ -324,21 +346,9 @@ def _pack2_tile(x: torch.Tensor, reach: int, max_rows: int) -> int:
                 if tile <= 16 or -(-B // 2) * -(-T // tile) >= n_sm)
 
 
-def fused_block_group_whole_pack2(x: torch.Tensor,
-                                  weights: Sequence[BlockWeights],
-                                  dilations: Sequence[int], k: int = 3,
-                                  ln_mode: str = "slice") -> torch.Tensor:
-    """`fused_block_group_whole` with rows 2b and 2b+1 in one CTA (one
-    launch per block): each weight fragment feeds both rows' products. `ln_mode`
-    ("slice" or "matmul") picks the segmented LayerNorm as in the JAX
-    kernel. Raises ValueError when a CTA cannot hold two windows."""
-    _refuse_autograd([x, *(w for bw in weights for w in bw)],
-                     "fused_block_group_whole_pack2")
-    if ln_mode not in PACK2_LN_MODES:
-        raise ValueError(f"ln_mode must be one of {PACK2_LN_MODES}, not {ln_mode!r}")
-    if x.device.type == "cpu":
-        return fused_block_group_whole_pack2_ref(x, weights, dilations, k, ln_mode)
-    packed, widths = _check(x, weights, dilations, k)
+def _pack2_cuda(x: torch.Tensor, weights: List[torch.Tensor], dilations: List[int],
+                k: int, ln_mode: str) -> torch.Tensor:
+    packed, widths = _check(x, _blocks(weights), dilations, k)
     lib = _lib(*widths)
     B, T, _ = x.shape
     tile = _pack2_tile(x, (k - 1) * max(dilations),
@@ -357,27 +367,35 @@ def fused_block_group_whole_pack2(x: torch.Tensor,
     return src
 
 
+_pack2_op = kernel_op(
+    "fused_block_group_whole_pack2", _pack2_cuda,
+    lambda x, weights, dilations, k, ln_mode: fused_block_group_whole_pack2_ref(
+        x, _blocks(weights), dilations, k, ln_mode))
+
+
+def fused_block_group_whole_pack2(x: torch.Tensor,
+                                  weights: Sequence[BlockWeights],
+                                  dilations: Sequence[int], k: int = 3,
+                                  ln_mode: str = "slice") -> torch.Tensor:
+    """`fused_block_group_whole` with rows 2b and 2b+1 in one CTA (one
+    launch per block): each weight fragment feeds both rows' products. `ln_mode`
+    ("slice" or "matmul") picks the segmented LayerNorm as in the JAX
+    kernel. Raises ValueError when a CTA cannot hold two windows."""
+    _refuse_autograd([x, *flat_weights(weights)], "fused_block_group_whole_pack2")
+    if ln_mode not in PACK2_LN_MODES:
+        raise ValueError(f"ln_mode must be one of {PACK2_LN_MODES}, not {ln_mode!r}")
+    return _pack2_op(x, flat_weights(weights), [int(d) for d in dilations], k, ln_mode)
+
+
 fused_block_group_whole_pack2.launches = 0
 
 
-def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
-                      dilations: Sequence[int], k: int = 3,
-                      tile_t: int = TILED_TILE_T) -> torch.Tensor:
-    """Apply a group of causal ReLU->LN->W+b bottleneck blocks tiled over
-    time with a causal halo of sum (k-1)d rounded up to 8, one kernel launch
-    per group. Raises ValueError when the halo exceeds the tile (as the JAX
-    kernel does) or, on the card, when the window does not fit a CTA."""
-    _refuse_autograd([x, *(w for bw in weights for w in bw)], "fused_block_group")
-    halo = _halo(dilations, k)
-    if halo > tile_t:
-        raise ValueError(f"group dilation reach {halo} exceeds tile_t "
-                         f"{tile_t}; reduce the group size or grow the tile")
-    if x.device.type == "cpu":
-        return fused_block_group_ref(x, weights, dilations, k, tile_t)
-    packed, widths = _check(x, weights, dilations, k)
+def _group_cuda(x: torch.Tensor, weights: List[torch.Tensor], dilations: List[int],
+                k: int, tile_t: int) -> torch.Tensor:
+    packed, widths = _check(x, _blocks(weights), dilations, k)
     lib = _lib(*widths)
     B, T, _ = x.shape
-    G = len(dilations)
+    G, halo = len(dilations), _halo(dilations, k)
     out = torch.empty_like(x)
     dil = (ctypes.c_int * G)(*dilations)
     with launch_context(x.device):
@@ -392,6 +410,27 @@ def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
             "tcn_group_forward")
         fused_block_group.launches += 1
     return out
+
+
+_group_op = kernel_op(
+    "fused_block_group", _group_cuda,
+    lambda x, weights, dilations, k, tile_t: fused_block_group_ref(
+        x, _blocks(weights), dilations, k, tile_t))
+
+
+def fused_block_group(x: torch.Tensor, weights: Sequence[BlockWeights],
+                      dilations: Sequence[int], k: int = 3,
+                      tile_t: int = TILED_TILE_T) -> torch.Tensor:
+    """Apply a group of causal ReLU->LN->W+b bottleneck blocks tiled over
+    time with a causal halo of sum (k-1)d rounded up to 8, one kernel launch
+    per group. Raises ValueError when the halo exceeds the tile (as the JAX
+    kernel does) or, on the card, when the window does not fit a CTA."""
+    _refuse_autograd([x, *flat_weights(weights)], "fused_block_group")
+    halo = _halo(dilations, k)
+    if halo > tile_t:
+        raise ValueError(f"group dilation reach {halo} exceeds tile_t "
+                         f"{tile_t}; reduce the group size or grow the tile")
+    return _group_op(x, flat_weights(weights), [int(d) for d in dilations], k, tile_t)
 
 
 fused_block_group.launches = 0

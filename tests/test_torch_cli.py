@@ -62,7 +62,7 @@ def test_config_from_args_matches_jax(argv):
 
 
 REFUSED = [
-    (["--export", "1"], "A7"), (["--n_data_shards", "2"], "A10"),
+    (["--export", "1", "--n_data_shards", "2"], "A10"), (["--n_data_shards", "2"], "A10"),
     (["--n_model_shards", "2"], "A10"), (["--import_stats", "x.p"], "A9"),
     (["--inp_tgt_type", "MagGamma"], "A9"), (["--map_type", "NormalCDF"], "A9"),
     (["--attention_impl", "block"], "A9"), (["--out_type", "hybrid_omlsa"], "A11"),

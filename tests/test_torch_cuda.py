@@ -876,3 +876,128 @@ def test_resampled_wav_feeds_the_card(cuda, tmp_path):
     assert tcn_fused.fused_block_group_whole.launches > n0
     y_p = make_enhancer(art.inp_tgt, art.net, "mmse-lsa", device=cuda)(art.params, xp)
     assert torch.isfinite(y_k).all() and (y_k - y_p).abs().max().item() <= 1e-3
+
+
+# -- the kernels as `deepxi::` ops, and the servers on the card ----------------
+
+@pytest.mark.cuda
+def test_kernel_ops_equal_their_wrappers(cuda):
+    """Each `deepxi::` op called directly (as an exported program calls it)
+    gives its public wrapper's output bitwise, and both count the same
+    launches: one a block for the per-block TCN kernels, one a call for the
+    others."""
+    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_cache,
+                                              mha_flash_stream, mha_fused)
+    ops = torch.ops.deepxi
+    gen = torch.Generator().manual_seed(0)
+    w = tcn_fused.random_block_weights(4, gen, cuda)
+    flat, dil = tcn_fused.flat_weights(w), [1, 2, 4, 8]
+    x = torch.relu(torch.randn(3, 100, 256, generator=gen)).to(cuda)
+    q, k, v, valid = _heads(2, 100, [100, 61], gen, cuda)
+    bw = mha_block_fused.random_block_weights(gen, cuda)
+    h = torch.randn(2, 128, 256, generator=gen).to(cuda)
+    vf = torch.nn.functional.pad(valid, (0, 28))[:, None, :].float()
+    qc = (torch.randn(3, 8, 32, generator=gen) * 32 ** -0.5).to(cuda)
+    kc, vc = (torch.randn(3, 2048, 8, 32, generator=gen).to(cuda) for _ in range(2))
+    t = torch.tensor(700, dtype=torch.int32, device=cuda)
+    cases = (
+        (tcn_fused.fused_block_group_whole, (x, w, dil),
+         ops.fused_block_group_whole, (x, flat, dil, 3), 4),
+        (tcn_fused.fused_block_group, (x, w[:2], dil[:2]),
+         ops.fused_block_group, (x, flat[:12], dil[:2], 3, tcn_fused.TILED_TILE_T), 1),
+        (tcn_fused.fused_block_group_whole_pack2, (x, w, dil, 3, "matmul"),
+         ops.fused_block_group_whole_pack2, (x, flat, dil, 3, "matmul"), 4),
+        (mha_block_fused.fused_transformer_block, (h, vf, bw, True),
+         ops.fused_transformer_block, (h, vf, list(bw), True), 1),
+        (mha_fused.flash_attention, (q, k, v, valid, True),
+         ops.flash_attention, (q, k, v, valid, True), 1),
+        (mha_flash_stream.flash_attention_streaming, (q, k, v, valid, True, 64, 128),
+         ops.flash_attention_streaming, (q, k, v, valid, True, 64, 128), 1),
+        (mha_cache.mha_cache_step, (qc, kc, vc, t), ops.mha_cache_step, (qc, kc, vc, t), 1))
+    for wrapper, args, op, op_args, n in cases:
+        n0 = wrapper.launches
+        y = wrapper(*args)
+        n1 = wrapper.launches
+        y_op = op(*op_args)
+        torch.cuda.synchronize()
+        assert (n1 - n0, wrapper.launches - n1) == (n, n), wrapper.__name__
+        assert torch.equal(y, y_op), wrapper.__name__
+
+
+def _small_streamers(device, gen):
+    """A StreamingEnhancer (d_model 32, d_f 16, 4 blocks) and a fused
+    StreamingMHANet (d_model 32, 4 heads of 8, 2 blocks) with random
+    weights (nonzero biases) and map statistics, on `device`."""
+    from deepxi_tpu_torch.inp_tgt import MagXi
+    from deepxi_tpu_torch.models.attention import MHANetV3
+    from deepxi_tpu_torch.ops.maps import NormalCDF
+    from deepxi_tpu_torch.streaming import StreamingEnhancer, StreamingMHANet
+
+    def rnd(net):
+        return {name: torch.randn(p.shape, generator=gen) * 0.2 + name.endswith(".scale")
+                for name, p in net.state_dict().items()}
+
+    it = MagXi(xi_map=NormalCDF(use_db=True, mu=torch.randn(257, generator=gen).to(device),
+                                sigma=torch.full((257,), 10.0, device=device)))
+    tcn = ResNetV2(257, 257, d_model=32, n_blocks=4, d_f=16, k=3, max_d_rate=4)
+    mha = MHANetV3(257, 257, d_model=32, n_blocks=2, n_heads=4, max_len=128)
+    return {"resnet": StreamingEnhancer(it, tcn, rnd(tcn), device=device),
+            "mhanet": StreamingMHANet(it, mha, rnd(mha), fused=True, device=device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["resnet", "mhanet"])
+def test_streaming_server_replays_the_eager_hop(cuda, tmp_path, net):
+    """The streaming server on the card (one CUDA graph captured at its
+    first step, replayed every step) against the live streamer's eager steps
+    on the same chunks: bitwise expected, held to 1e-6 of the output's
+    scale; one replay a step; the KV-cache kernel launches only at capture
+    (the warm-ups and the captured step, one a block each)."""
+    from deepxi_tpu_torch import serving
+    from deepxi_tpu_torch.ops.kernels import mha_cache
+    gen = torch.Generator().manual_seed(3)
+    sm = _small_streamers(cuda, gen)[net]
+    serving.export_streaming(sm, str(tmp_path), batch=2)
+    srv = serving.load_streaming_server(str(tmp_path))
+    chunks = [(torch.randn(2, 256, generator=gen) * 3000).to(torch.int16) for _ in range(6)]
+    n0 = mha_cache.mha_cache_step.launches
+    state, ys = srv.init_state(), []
+    for c in chunks:
+        state, y = srv.step(state, c.numpy())
+        ys.append(y)
+    n_server = mha_cache.mha_cache_step.launches - n0
+    state_l, ys_l = sm.init_state(2), []
+    for c in chunks:
+        state_l, y = sm.step(state_l, c.to(cuda))
+        ys_l.append(y)
+    y, y_l = torch.cat(ys, 1), torch.cat(ys_l, 1)
+    assert srv.replays == len(chunks)
+    assert torch.isfinite(y).all() and (y - y_l).abs().max().item() <= 1e-6 * y_l.abs().max()
+    assert n_server == (0 if net == "resnet" else (serving.WARMUPS + 1) * 2)
+
+
+@pytest.mark.cuda
+def test_enhancer_server_runs_the_kernels(cuda, tmp_path):
+    """A bundle exported on the card runs the fused TCN (one launch a block
+    a call) and gives the live enhancer's output (1e-6 of its scale)."""
+    import numpy as np
+
+    from deepxi_tpu_torch import serving
+    from deepxi_tpu_torch.enhance import make_enhancer
+    gen = torch.Generator().manual_seed(4)
+    sm = _small_streamers(cuda, gen)["resnet"]
+    net = ResNetV2(257, 257, d_model=32, n_blocks=4, d_f=16, k=3, max_d_rate=4)
+    params = {k: v.to(cuda) for k, v in zip(net.state_dict(), (
+        torch.randn(p.shape, generator=gen) * 0.2 for p in net.state_dict().values()))}
+    apply = lambda p, m: tcn_fused.resnetv2_apply_fused(p, m, n_blocks=4, max_d_rate=4)  # noqa: E731
+    serving.export_enhancer(sm.it, net, params, str(tmp_path), batch=2, buckets=(8192,),
+                            apply_fn=apply)
+    srv = serving.load_server(str(tmp_path))
+    x = (torch.randn(2, 8000, generator=gen) * 3000).to(torch.int16).numpy()
+    n0 = tcn_fused.fused_block_group_whole.launches
+    y = srv(x)
+    assert tcn_fused.fused_block_group_whole.launches - n0 == 4
+    xp = np.zeros((2, 8192), np.int16)
+    xp[:, :8000] = x
+    y_l = make_enhancer(sm.it, net, apply_fn=apply)(params, xp).cpu().numpy()[:, :y.shape[1]]
+    assert np.isfinite(y).all() and np.abs(y - y_l).max() <= 1e-6 * np.abs(y_l).max()
