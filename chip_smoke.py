@@ -134,6 +134,21 @@ Phases (any failure exits non-zero before the result line):
      (1e-6) and bf16 against the f32 stream; `python3 -m deepxi_tpu_torch
      --export 1` on resnet-1.1c set up as epoch 1; the server hop against the
      16 ms budget, the server call beside the live enhancer, export seconds;
+  3k. the families (tools/torch_families.py): at resnet-1.1c's widths, for
+     MagGamma, MagXiGamma, MagGain (mmse-lsa and ibm), MagMag, MagSMM,
+     MagPhaXiPha, STDCTXiCD, MagXi with a LaplaceCDF map and MagXi at
+     N_s = 128: statistics from a synthetic corpus, three train steps at
+     B=8 x 4.096 s through B5/B6 (the first step's gradients on 2 x 32
+     frames, the output layer out of the sigmoid's saturation, against
+     float64 autograd of the plain network along B5's trajectory, 2e-4;
+     B5's block inputs against the plain network's, 1e-3), the kernels'
+     network output against the plain network (1e-3), and `infer` of `y`
+     and every out_type the family has on the resnet artifact's 4 s
+     utterance and the same tiled 5x against the same `infer` with no
+     spectral kernel (1e-3); each
+     call's B1-B4 launches printed with its ms (B2/B3 none at N_s = 128);
+     resnet-1.1n through `make_enhancer` on its plain network at B=1 x 4 s
+     and B=96 x 10 s beside resnet-1.1c's kernel route;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -238,6 +253,10 @@ MHA_BLOCK_FLOPS_PER_ROW = 2 * (3 * 256 * 256 + 256 * 256 + 2 * 256 * 1024)
 MHA_BLOCK_FLOATS = 4 * 8 * 256 * 32 + 4 * 256 + 256 * 1024 + 1024 + 1024 * 256 + 256
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 3k's names (tools/torch_families.py) of the kernels of its path
+FAMILY_KERNELS = {"fused_block_group_whole": "B1", "stft_mag_fused": "B2",
+                  "enhance_frames_fused": "B3", "fused_block_group": "B4",
+                  "fused_block_group_whole_saved": "B5", "fused_block_group_bwd": "B6"}
 
 
 def fail(msg):
@@ -1841,6 +1860,15 @@ def main():
     import torch_serving
     served = torch_serving.serving_phase(dev, fail)
 
+    # 3k. every input/target family, a LaplaceCDF map, N_s = 128 and resnet-1.1n
+    # (tools/torch_families.py): statistics, three train steps through B5/B6 and
+    # every out_type of each family at resnet-1.1c's widths, against the plain
+    # route; each infer call's launches counted (zeroed just before it)
+    import torch_families
+    t0 = time.perf_counter()
+    fams = torch_families.families_phase(dev, fail)
+    print(f"[3k] phase wall time {time.perf_counter() - t0:.1f} s")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -1992,11 +2020,11 @@ def main():
         print(f"[4] resnet-1.1c {k}, median of 10 a turn: " + "; ".join(
             f"{name} {', '.join(f'{t:.3f}' for t in ts)} ms" for name, ts in e2e.items()))
     # the per-utterance routes of DeepXiTorch.infer on each artifact's 4 s
-    # utterance (padded to its bucket, as infer runs it): the xi_hat
-    # out_types' |X| -> network -> xi_hat (stft_mag_fused), and d_hat's
-    # synthesis (enhance_frames_fused)
+    # utterance (padded to its bucket, as infer runs it): the .mat out_types'
+    # |X| -> network (`estimator`: stft_mag_fused), and d_hat's synthesis
+    # (enhance_frames_fused)
     for ver, (dx_i, p_i, xp, n_i) in per_utt.items():
-        t_xi = host_times(lambda: dx_i.xi_estimator()(p_i, xp, with_mag=True))  # noqa: B023
+        t_xi = host_times(lambda: dx_i.estimator()(p_i, xp))  # noqa: B023
         t_d = host_times(lambda: dx_i.gain_synthesiser("d_hat")(p_i, xp, n_i))  # noqa: B023
         print(f"[4] {ver} per-utterance infer route, 4 s (T={n_i}, padded to "
               f"{xp.shape[1] // 256}): xi_hat median {np.median(t_xi):.3f} ms (10 calls, min "
@@ -2314,6 +2342,9 @@ def main():
             row["test_launches"] = test_launches[row["name"]]
         if row["name"] in served["launches"]:
             row["serving_launches"] = served["launches"][row["name"]]
+        family_key = FAMILY_KERNELS.get(row["name"])
+        if family_key in fams["launches"]:
+            row["families_launches"] = fams["launches"][family_key]
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -129,11 +129,6 @@ _REFUSED = (
     ("n_model_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
     ("import_stats", (None,), "importing reference statistics is ROADMAP item A9 "
                               "(compat/tf_import)"),
-    ("inp_tgt_type", (None, "MagXi"), "the other input/target families are ROADMAP "
-                                      "item A9"),
-    ("map_type", (None, "DBNormalCDF"), "the other maps are ROADMAP item A9"),
-    ("map_params", (None,), "the other maps are ROADMAP item A9"),
-    ("saved_data_path", (None,), "MagGamma's saved xi_hat is ROADMAP item A9"),
     ("length", (None,), "RDLNet is ROADMAP item A9"),
     ("m_1", (None,), "RDLNet is ROADMAP item A9"),
     ("attention_impl", (None, "full", "fused", "stream"),
@@ -153,14 +148,16 @@ _REFUSED = (
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise SystemExit naming the ROADMAP item for a flag whose path the
-    port does not have: a preset of another network, more than one shard,
-    `--import_stats`,
-    another input/target family or map, the hybrid and phoneme modes'
-    inputs, RDLNet's, 'block' attention; and for `--d_b`, `--d_ff` (read by
-    no network) and `--tcn_fused 0`."""
+    port does not have: a preset of another network (RDLNet, ResLSTM), more
+    than one shard, `--import_stats`, MagPhonemes, the hybrid and phoneme
+    modes' inputs, RDLNet's, 'block' attention; and for `--d_b`, `--d_ff`
+    (read by no network) and `--tcn_fused 0`."""
     if args.ver in UNPORTED_PRESETS:
         raise SystemExit(f"--ver {args.ver}: not in the port yet: its network is "
                          "ROADMAP item A9")
+    if args.inp_tgt_type in ("MagPhonemes", "MagPhonme"):
+        raise SystemExit(f"--inp_tgt_type {args.inp_tgt_type}: not in the port yet: the "
+                         "phoneme classifier is ROADMAP item A11")
     for flag, allowed, why in _REFUSED:
         v = getattr(args, flag)
         if v not in allowed:

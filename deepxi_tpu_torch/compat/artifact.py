@@ -6,7 +6,8 @@ deepxi_tpu/compat/artifact.py).
 map statistics as `stats.npz`, and a 5 dB white-noise test pair.
 `artifacts/mhanet-1.1c-big2400-e400/` is laid out the same way, with a
 `meta.json` that names its preset, leaf count and test pair
-(`load_artifact`).
+(`load_artifact`, which builds the preset's family and network and restores
+every map's statistics).
 """
 
 from __future__ import annotations
@@ -21,9 +22,8 @@ import torch
 
 from deepxi_tpu_torch import resolve_device
 from deepxi_tpu_torch.data.wavio import read_wav
-from deepxi_tpu_torch.inp_tgt import MagXi
+from deepxi_tpu_torch.inp_tgt import MAP_ATTRS, inp_tgt_selector
 from deepxi_tpu_torch.models.tcn import ResNetV2
-from deepxi_tpu_torch.ops.maps import NormalCDF
 
 ARTIFACTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -36,7 +36,7 @@ PRESET_PARAMS = {"mhanet-1.1c": 4_600_321, "resnet-1.1c": FLAGSHIP_PARAMS}
 
 
 class Artifact(NamedTuple):
-    inp_tgt: MagXi
+    inp_tgt: object          # the family, with its maps' statistics
     net: torch.nn.Module     # weights loaded, on the device
     params: Dict[str, torch.Tensor]  # net's state dict
     noisy: np.ndarray        # int16, 16 kHz
@@ -59,11 +59,27 @@ def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
             for mod, leaves in p.items() for leaf, arr in leaves.items()}
 
 
-def _load(root: str, net: torch.nn.Module, n_params: int, dev: torch.device,
-          noisy: str, clean: str, it: MagXi) -> Artifact:
+def restore_stats(it, stats: Mapping, device=None):
+    """`it` with every map's fields replaced by a stats file's keys
+    `<map attribute>.<field>` (e.g. `xi_map.mu`), as tensors on `device`; a
+    key for a map the family lacks raises."""
+    for m in MAP_ATTRS:
+        updates = {k.split(".", 1)[1]: torch.as_tensor(np.array(stats[k]), device=device)
+                   for k in stats.keys() if k.startswith(m + ".")}
+        if updates:
+            mp = getattr(it, m, None)
+            if mp is None:
+                raise ValueError(f"the statistics carry {m} but {type(it).__name__} "
+                                 f"has no {m}")
+            it = replace(it, **{m: replace(mp, **updates)})
+    return it
+
+
+def _load(root: str, net: torch.nn.Module, n_params, dev: torch.device,
+          noisy: str, clean: str, it) -> Artifact:
     """`net` with the weights of `root/params.npz` (leaf i = the i-th key in
-    Flax order, each shape asserted), `it` with the map statistics, and the
-    test pair read at `it.f_s`, on `dev`."""
+    Flax order, each shape asserted; `n_params` parameters unless None), `it`
+    with the map statistics, and the test pair read at `it.f_s`, on `dev`."""
     shapes = {k: v.shape for k, v in net.state_dict().items()}
     z = np.load(os.path.join(root, "params.npz"))
     keys = flax_order(shapes)
@@ -77,16 +93,12 @@ def _load(root: str, net: torch.nn.Module, n_params: int, dev: torch.device,
                              f"expected {tuple(shapes[key])}")
         state[key] = torch.as_tensor(arr)
     n = sum(v.numel() for v in state.values())
-    if n != n_params:
+    if n_params is not None and n != n_params:
         raise ValueError(f"{n} parameters, expected {n_params}")
     net.load_state_dict(state)
     net.to(dev).eval()
 
-    stats = np.load(os.path.join(root, "stats.npz"))
-    xi_map = NormalCDF(use_db=True,
-                       mu=torch.as_tensor(stats["xi_map.mu"], device=dev),
-                       sigma=torch.as_tensor(stats["xi_map.sigma"], device=dev))
-    it = replace(it, xi_map=xi_map)
+    it = restore_stats(it, np.load(os.path.join(root, "stats.npz")), dev)
     noisy_wav, _ = read_wav(os.path.join(root, noisy), it.f_s)
     clean_wav, _ = read_wav(os.path.join(root, clean), it.f_s)
     return Artifact(it, net, dict(net.state_dict()), noisy_wav, clean_wav)
@@ -97,8 +109,9 @@ def load_flagship_artifact(root: str = None, device=None) -> Artifact:
     pair, on `device` (the card unless ``device="cpu"``)."""
     net = ResNetV2(257, 257, n_blocks=40, d_model=256, d_f=64, k=3,
                    max_d_rate=16, outp_act="Sigmoid")
+    it = inp_tgt_selector("MagXi", 512, 256, 512, 16000, map_type="DBNormalCDF")
     return _load(root or FLAGSHIP_ROOT, net, FLAGSHIP_PARAMS,
-                 resolve_device(device), "c012_white_5dB.wav", "c012.wav", MagXi())
+                 resolve_device(device), "c012_white_5dB.wav", "c012.wav", it)
 
 
 def artifact_meta(root: str = None):
@@ -115,16 +128,20 @@ def artifact_meta(root: str = None):
 
 def load_artifact(root: str = None, device=None) -> Artifact:
     """A `meta.json` artifact (by default the checked-in trained
-    mhanet-1.1c): the preset named in `meta["ver"]` builds the network
-    (MagXi with the DBNormalCDF map), whose Flax-ordered leaves must number
-    `meta["n_leaves"]`; the test pair is the one meta names."""
+    mhanet-1.1c): the preset named in `meta["ver"]` builds the family (its
+    `inp_tgt_type`, maps and gain) and the network, whose Flax-ordered
+    leaves must number `meta["n_leaves"]`; every map's statistics come from
+    `stats.npz`; the test pair is the one meta names."""
     from deepxi_tpu_torch.framework import build_network
 
     root = root or MHANET_ROOT
     meta, cfg = artifact_meta(root)
-    net = build_network(cfg, 257, 257)
+    it = inp_tgt_selector(cfg.inp_tgt_type, cfg.N_d, cfg.N_s, cfg.K, cfg.f_s,
+                          map_type=cfg.map_type, map_params=cfg.map_params,
+                          gain=cfg.gain if isinstance(cfg.gain, str) else cfg.gain[0])
+    net = build_network(cfg, it.n_feat, it.n_outp)
     if len(net.state_dict()) != meta["n_leaves"]:
         raise ValueError(f"{root}: meta.json has {meta['n_leaves']} leaves, "
                          f"{cfg.ver} has {len(net.state_dict())}")
-    return _load(root, net, PRESET_PARAMS[cfg.ver], resolve_device(device),
-                 meta["noisy"], meta["clean"], MagXi(cfg.N_d, cfg.N_s, cfg.K, f_s=cfg.f_s))
+    return _load(root, net, PRESET_PARAMS.get(cfg.ver), resolve_device(device),
+                 meta["noisy"], meta["clean"], it)

@@ -1,9 +1,10 @@
 """Typed configuration, the command line's flag parsers and the presets the
 port runs (follows deepxi_tpu/config.py; the fields of the modes the port
 has: training, offline inference, objective testing, spectral distortion
-and the prelim harness): resnet-1.1c, mhanet-1.1c and mhanet-1.0c, and
-their DEMAND VoiceBank variants (`-vb`: SNR 0..15 dB in steps of 5, no
-validation set, test epoch 125)."""
+and the prelim harness): resnet-1.1c, resnet-1.1n, resnet-1.0c,
+resnet-1.0n, mhanet-1.1c and mhanet-1.0c, and their DEMAND VoiceBank
+variants (`-vb`: SNR 0..15 dB in steps of 5, no validation set, test epoch
+125)."""
 
 from __future__ import annotations
 
@@ -110,10 +111,14 @@ class Config:
 
     # map
     map_type: Any = "DBNormalCDF"
+    map_params: Any = None
 
     # inference
     out_type: str = "y"
     gain: Union[str, List[str]] = "mmse-lsa"
+    # MagGamma's `y`: a directory of saved xi_hat .mat files (`infer` of a
+    # MagXi model), one per test utterance
+    saved_data_path: Optional[str] = None
 
     # paths
     model_path: str = "model"
@@ -165,6 +170,15 @@ VERSION_PRESETS: Dict[str, Dict[str, Any]] = {
                         d_f=64, k=3, max_d_rate=16, causal=True,
                         unit_type="ReLU->LN->W+b", test_epoch=200,
                         tcn_fused_train=True, **_COMMON),
+    "resnet-1.1n": dict(network_type="ResNetV2", d_model=256, n_blocks=40,
+                        d_f=64, k=3, max_d_rate=16, causal=False,
+                        unit_type="ReLU->LN->W+b", test_epoch=180, **_COMMON),
+    "resnet-1.0c": dict(network_type="ResNet", d_model=256, n_blocks=40,
+                        d_f=64, k=3, max_d_rate=16, causal=True,
+                        test_epoch=100, **_COMMON),
+    "resnet-1.0n": dict(network_type="ResNet", d_model=256, n_blocks=40,
+                        d_f=64, k=3, max_d_rate=16, causal=False,
+                        test_epoch=180, **_COMMON),
 }
 
 # DEMAND VoiceBank training variants.
@@ -176,8 +190,7 @@ for _ver in list(VERSION_PRESETS):
 
 # The JAX package's presets whose networks the port does not have yet
 # (ROADMAP item A9), and their -vb variants.
-UNPORTED_PRESETS = tuple(v + sfx for v in ("resnet-1.1n", "rdlnet-1.0n", "resnet-1.0c",
-                                           "resnet-1.0n", "reslstm-1.0c")
+UNPORTED_PRESETS = tuple(v + sfx for v in ("rdlnet-1.0n", "reslstm-1.0c")
                          for sfx in ("", "-vb"))
 
 

@@ -1,13 +1,19 @@
-"""Host-side training batch loader: wav reads and bucketed padding
-(follows deepxi_tpu/data/loader.py, on its Python decode path).
+"""Host-side training batch loader: wav reads, bucketed padding and a
+prefetch thread (follows deepxi_tpu/data/loader.py, on its Python decode
+path).
 
 Shuffles and noise draws come from a seeded ``np.random.Generator`` in the
 JAX package's order, so one seed and file list give the same batches in
-both packages. Batches are read in the caller's thread (no prefetch).
+both packages. A background thread reads up to `prefetch` batches ahead of
+the train step. Where a read raises, the worker hands the exception to the
+consumer, which raises it (the JAX package's worker ends the epoch early
+without a word).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -15,15 +21,19 @@ import numpy as np
 from deepxi_tpu_torch.data.wavio import read_wav
 
 
-# Buckets of padded lengths: multiples of 32 frames, at least 32.
-_BUCKET_FRAMES = 32
-
-
-def bucket_length(n: int, N_s: int = 256) -> int:
-    """Pad length: the frame count rounded up to a multiple of 32 frames (at
-    least 32), back in samples."""
+def bucket_length(n: int, N_s: int = 256, frames_per_bucket: int = 32,
+                  min_frames: int = 32) -> int:
+    """Pad length: the frame count rounded up to a multiple of
+    `frames_per_bucket` (at least `min_frames`), back in samples."""
     frames = -(-n // N_s)
-    return max(_BUCKET_FRAMES, -(-frames // _BUCKET_FRAMES) * _BUCKET_FRAMES) * N_s
+    return max(min_frames, -(-frames // frames_per_bucket) * frames_per_bucket) * N_s
+
+
+class _Failed:
+    """A worker's exception, carried to the consumer."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
 
 
 class MiniBatchLoader:
@@ -36,19 +46,22 @@ class MiniBatchLoader:
 
     def __init__(self, train_s_list: List[Dict], train_d_list: List[Dict],
                  mbatch_size: int, snr_levels: List[int], seed: int = 0,
-                 N_s: int = 256):
+                 N_s: int = 256, frames_per_bucket: int = 32, prefetch: int = 4):
         self.s_list = list(train_s_list)
         self.d_list = list(train_d_list)
         self.mbatch_size = mbatch_size
         self.snr_levels = list(snr_levels)
         self.rng = np.random.default_rng(seed)
         self.N_s = N_s
+        self.frames_per_bucket = frames_per_bucket
+        self.prefetch = prefetch
         self.n_examples = len(self.s_list)
         self.n_iter = -(-self.n_examples // mbatch_size)
 
     def _load_batch(self, s_items: List[Dict]) -> Tuple[np.ndarray, ...]:
         B = len(s_items)
-        L = bucket_length(max(it["wav_len"] for it in s_items), self.N_s)
+        L = bucket_length(max(it["wav_len"] for it in s_items), self.N_s,
+                          self.frames_per_bucket)
         s = np.zeros((B, L), np.int16)
         d = np.zeros((B, L), np.int16)
         s_len = np.zeros(B, np.int32)
@@ -78,8 +91,10 @@ class MiniBatchLoader:
         return s, d, s_len, d_len, snr
 
     def epoch(self, epoch_idx: int) -> Iterator[Tuple[np.ndarray, ...]]:
-        """One epoch of mini-batches. Items shuffle globally, then sort by
-        length within chunks of 8 mini-batches whose order is shuffled."""
+        """One epoch of mini-batches, read on a background thread. Items
+        shuffle globally, then sort by length within chunks of 8
+        mini-batches whose order is shuffled. A read that raises ends the
+        epoch with that exception in the consumer."""
         order = self.rng.permutation(self.n_examples)
         items = [self.s_list[i] for i in order]
         chunk = self.mbatch_size * 8
@@ -87,8 +102,41 @@ class MiniBatchLoader:
                   for i in range(0, len(items), chunk)]
         self.rng.shuffle(chunks)
         items = [it for c in chunks for it in c]
-        for i in range(self.n_iter):
-            batch = items[i * self.mbatch_size:(i + 1) * self.mbatch_size]
-            if not batch:
-                break
-            yield self._load_batch(batch)
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        done = object()
+        stop = threading.Event()
+
+        def put(v) -> bool:
+            """Queue v unless the consumer has gone; whether it went in."""
+            while not stop.is_set():
+                try:
+                    q.put(v, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for i in range(self.n_iter):
+                    batch = items[i * self.mbatch_size:(i + 1) * self.mbatch_size]
+                    if not batch or not put(self._load_batch(batch)):
+                        break
+            except BaseException as e:  # noqa: BLE001 -- raised in the consumer
+                put(_Failed(e))
+                return
+            put(done)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is done:
+                    break
+                if isinstance(b, _Failed):
+                    raise b.error
+                yield b
+        finally:
+            stop.set()
+            t.join()

@@ -1,7 +1,8 @@
 """Framework facade: map statistics, the training loop, offline
 inference, objective testing, the spectral-distortion study and the serving
-export (follows deepxi_tpu/framework.py; `infer` writes every MagXi
-out_type; there is no device mesh, no hybrid mode and no phoneme mode).
+export (follows deepxi_tpu/framework.py; every input/target family but
+MagPhonemes, every map; there is no device mesh, no hybrid mode and no
+phoneme mode).
 
 Artifact layout as in the JAX package:
 
@@ -32,12 +33,12 @@ from deepxi_tpu_torch.config import Config
 from deepxi_tpu_torch.data.listing import test_batch, val_wav_batch
 from deepxi_tpu_torch.data.loader import MiniBatchLoader, bucket_length
 from deepxi_tpu_torch.data.wavio import save_wav
-from deepxi_tpu_torch.inp_tgt import MagXi
+from deepxi_tpu_torch.inp_tgt import MAP_ATTRS, MagXi, inp_tgt_selector
 from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
                                                init_flax_like as init_mhanet_flax_like)
-from deepxi_tpu_torch.models.tcn import ResNetV2, init_flax_like
+from deepxi_tpu_torch.models.tcn import ResNet, ResNetV2, ResNetV3, init_flax_like
 from deepxi_tpu_torch.ops.gains import gfunc
-from deepxi_tpu_torch.ops.maps import NormalCDF
+from deepxi_tpu_torch.ops.maps import STATS_FIELDS
 from deepxi_tpu_torch.sig import mix as sig_mix
 from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
                                        checkpoint_params, frame_mask,
@@ -45,12 +46,11 @@ from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
                                        make_train_step, restore_checkpoint,
                                        save_checkpoint)
 
-# The MagXi out_types `infer` writes; the other families' and modes' are
-# named in its error with the ROADMAP item that ports them.
-OUT_TYPES = ("y", "xi_hat", "gamma_hat", "deepmmse", "ibm_hat",
-             "subband_ibm_hat", "d_hat")
-UNPORTED_OUT_TYPES = {"mag_hat": "A9", "cd_hat": "A9", "pho": "A11",
-                      "hybrid_omlsa": "A11", "hybrid_mixmax": "A11",
+# The MagXi out_types `infer` writes (each family's are its `out_types`);
+# the modes' are named in its error with the ROADMAP item that ports them.
+OUT_TYPES = MagXi.out_types
+FAMILY_OUT_TYPES = OUT_TYPES + ("mag_hat", "cd_hat")
+UNPORTED_OUT_TYPES = {"pho": "A11", "hybrid_omlsa": "A11", "hybrid_mixmax": "A11",
                       "tracking_hist": "A11", "tracking_vts": "A11"}
 
 
@@ -62,15 +62,17 @@ def _save_mat(path: str, data: np.ndarray, name: str) -> None:
 
 
 def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
-    """The configured network: the causal ReLU->LN->W+b ResNetV2, MHANetV2
-    or MHANetV3."""
-    if cfg.network_type == "ResNetV2":
-        if not cfg.causal or cfg.unit_type != "ReLU->LN->W+b":
-            raise ValueError("the port's ResNetV2 is causal with ReLU->LN->W+b units "
-                             "(the others are ROADMAP item A9)")
-        return ResNetV2(n_feat, n_outp, n_blocks=cfg.n_blocks, d_model=cfg.d_model,
-                        d_f=cfg.d_f, k=cfg.k, max_d_rate=cfg.max_d_rate,
-                        outp_act=cfg.outp_act)
+    """The configured network: ResNet, ResNetV2 (causal or not, either unit
+    order), ResNetV3, MHANetV2 or MHANetV3."""
+    # as the JAX package's selector: a field left None takes the module's default
+    tcn = {k: v for k, v in dict(n_blocks=cfg.n_blocks, d_model=cfg.d_model, d_f=cfg.d_f,
+                                 k=cfg.k, max_d_rate=cfg.max_d_rate, outp_act=cfg.outp_act,
+                                 causal=cfg.causal).items() if v is not None}
+    if cfg.network_type == "ResNet":
+        return ResNet(n_feat, n_outp, **tcn)
+    if cfg.network_type in ("ResNetV2", "ResNetV3"):
+        cls = ResNetV2 if cfg.network_type == "ResNetV2" else ResNetV3
+        return cls(n_feat, n_outp, unit_type=cfg.unit_type or "ReLU->LN->W+b", **tcn)
     kw = dict(d_model=cfg.d_model, n_blocks=cfg.n_blocks, n_heads=cfg.n_heads,
               causal=cfg.causal, outp_act=cfg.outp_act,
               attention_impl=cfg.attention_impl, block_q=cfg.block_q)
@@ -81,12 +83,21 @@ def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
     raise ValueError(f"the port has no {cfg.network_type} yet (ROADMAP item A9)")
 
 
+def tcn_fused_takes(cfg: Config) -> bool:
+    """Whether the fused TCN kernels compute `cfg`'s network: the causal
+    ResNetV2 with ReLU->LN->W+b units (the others run their plain network,
+    as they run plain XLA in the JAX package)."""
+    return (cfg.network_type == "ResNetV2" and cfg.causal
+            and cfg.unit_type == "ReLU->LN->W+b")
+
+
 def fast_apply_fn(cfg: Config) -> Optional[Callable]:
     """The network forward of the inference fast path for `cfg`: the fused
-    TCN groups for ResNetV2, or for MHANetV2/V3 with `cfg.mha_fused` and
-    "full" attention the fused transformer blocks; None for the network's
-    own forward (whose attention follows `cfg.attention_impl`)."""
-    if cfg.network_type == "ResNetV2":
+    TCN groups where `tcn_fused_takes`, or for MHANetV2/V3 with
+    `cfg.mha_fused` and "full" attention the fused transformer blocks; None
+    for the network's own forward (whose attention follows
+    `cfg.attention_impl`)."""
+    if tcn_fused_takes(cfg):
         from deepxi_tpu_torch.ops.kernels.tcn_fused import resnetv2_apply_fused
         return (lambda p, m: resnetv2_apply_fused(
             p, m, n_blocks=cfg.n_blocks, max_d_rate=cfg.max_d_rate, k=cfg.k,
@@ -103,21 +114,21 @@ def fast_apply_fn(cfg: Config) -> Optional[Callable]:
 
 
 class DeepXiTorch:
-    """Deep Xi on one device (the card unless ``device="cpu"``): the MagXi
-    target with the DBNormalCDF map, and the causal ReLU->LN->W+b ResNetV2
-    or MHANetV2/V3, for training, inference, objective testing and the
-    spectral-distortion study."""
+    """Deep Xi on one device (the card unless ``device="cpu"``): the
+    configured input/target family and maps (`inp_tgt_selector`), and a
+    ResNet, ResNetV2, ResNetV3 or MHANetV2/V3, for training, inference,
+    objective testing and the spectral-distortion study."""
 
     def __init__(self, cfg: Config, train_s_list: Optional[List[Dict]] = None,
                  train_d_list: Optional[List[Dict]] = None, device=None):
-        if (cfg.inp_tgt_type, cfg.map_type) != ("MagXi", "DBNormalCDF"):
-            raise ValueError("the port runs MagXi / DBNormalCDF so far, not "
-                             f"{cfg.inp_tgt_type} / {cfg.map_type}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_s_list = train_s_list
         self.train_d_list = train_d_list
-        self.inp_tgt = MagXi(cfg.N_d, cfg.N_s, cfg.K, NormalCDF(use_db=True), cfg.f_s)
+        self.inp_tgt = inp_tgt_selector(
+            cfg.inp_tgt_type, cfg.N_d, cfg.N_s, cfg.K, cfg.f_s, map_type=cfg.map_type,
+            map_params=cfg.map_params,
+            gain=cfg.gain if isinstance(cfg.gain, str) else cfg.gain[0])
 
         stats_path = os.path.join(cfg.data_path, f"{cfg.ver}_stats.npz")
         if os.path.exists(stats_path) and not cfg.reset_inp_tgt:
@@ -132,21 +143,39 @@ class DeepXiTorch:
 
     # -- statistics ---------------------------------------------------------
 
+    def _map_attrs(self) -> List[str]:
+        """The family's maps, in the stats file's order."""
+        return [m for m in MAP_ATTRS if getattr(self.inp_tgt, m, None) is not None]
+
     def _needs_stats(self) -> bool:
-        return self.inp_tgt.xi_map.mu is None
+        """Whether the family has a map to fit (a sample is drawn even for a
+        map without statistics, as in the JAX package)."""
+        return bool(self._map_attrs())
 
     def _save_stats(self, path: str) -> None:
+        """Every map's statistics under the JAX package's keys
+        `<map attribute>.<field>`, field one of mu, sigma, b, min, max."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        m = self.inp_tgt.xi_map
-        np.savez(path, **{"xi_map.mu": m.mu.cpu().numpy(),
-                          "xi_map.sigma": m.sigma.cpu().numpy()})
+        payload = {}
+        for m in self._map_attrs():
+            mp = getattr(self.inp_tgt, m)
+            for field in STATS_FIELDS:
+                v = getattr(mp, field, None)
+                if v is not None:
+                    payload[f"{m}.{field}"] = (v.cpu().numpy() if torch.is_tensor(v)
+                                               else np.asarray(v))
+        np.savez(path, **payload)
 
-    def _load_stats(self, path: str) -> MagXi:
+    def _load_stats(self, path: str):
+        """The family with each map's fields replaced by the stats file's."""
         z = np.load(path)
-        xi_map = NormalCDF(use_db=True,
-                           mu=torch.as_tensor(z["xi_map.mu"], device=self.device),
-                           sigma=torch.as_tensor(z["xi_map.sigma"], device=self.device))
-        return replace(self.inp_tgt, xi_map=xi_map)
+        it = self.inp_tgt
+        for m in self._map_attrs():
+            updates = {k.split(".", 1)[1]: torch.as_tensor(z[k], device=self.device)
+                       for k in z.files if k.startswith(m + ".")}
+            if updates:
+                it = replace(it, **{m: replace(getattr(it, m), **updates)})
+        return it
 
     def sample(self, sample_size: int):
         """Training-set sample for the map statistics, cached as
@@ -189,19 +218,19 @@ class DeepXiTorch:
     def init_params(self) -> Dict[str, torch.Tensor]:
         """Seeded initial parameters (flax's scheme, `cfg.seed`) on the
         device."""
-        init = init_flax_like if self.cfg.network_type == "ResNetV2" \
-            else init_mhanet_flax_like
+        init = init_mhanet_flax_like if "MHA" in self.cfg.network_type \
+            else init_flax_like
         init(self.network.to("cpu"), torch.Generator().manual_seed(self.cfg.seed))
         self.network.to(self.device)
         return {k: v.detach().clone() for k, v in self.network.state_dict().items()}
 
     def apply_fn(self):
-        """The network forward of the train step: the fused stack for
-        ResNetV2 with `cfg.tcn_fused_train`, else None (the plain network
-        under autograd; for MHANet "full" attention, as in the JAX
+        """The network forward of the train step: the fused stack with
+        `cfg.tcn_fused_train` where `tcn_fused_takes`, else None (the plain
+        network under autograd; for MHANet "full" attention, as in the JAX
         package)."""
         cfg = self.cfg
-        if not cfg.tcn_fused_train or cfg.network_type != "ResNetV2":
+        if not (cfg.tcn_fused_train and tcn_fused_takes(cfg)):
             return None
         from deepxi_tpu_torch.ops.kernels.tcn_fused_train import \
             resnetv2_apply_fused_train
@@ -215,7 +244,7 @@ class DeepXiTorch:
         """The training loop; returns the per-epoch mean losses. The final
         state is kept as `self._state`."""
         cfg = self.cfg
-        if cfg.network_type != "ResNetV2" and cfg.attention_impl != "full":
+        if "MHA" in cfg.network_type and cfg.attention_impl != "full":
             raise ValueError(f"attention_impl {cfg.attention_impl!r} is inference-only "
                              "(its kernels have no backward): train MHANet with 'full'")
         model_dir = os.path.join(cfg.model_path, cfg.ver)
@@ -332,6 +361,10 @@ class DeepXiTorch:
         its own forward) reads |X| of the STFT."""
         if target not in ("xi", "gamma"):
             raise ValueError(f"spectral_distortion target must be xi|gamma, got {target!r}")
+        it = self.inp_tgt
+        if not it.mag_input or not hasattr(it, f"{target}_hat"):
+            raise ValueError(f"spectral_distortion({target!r}) takes a family that reads "
+                             f"|X| and estimates {target}, not {type(it).__name__}")
         cfg = self.cfg
         dev = self.device
         snr_levels = snr_levels or cfg.sd_snr_levels
@@ -341,7 +374,6 @@ class DeepXiTorch:
         d_batch, d_lens, _, d_names = test_batch(cfg.test_d_path)
         apply = self.fast_apply() or (
             lambda p, m: functional_call(self.network, p, (m,)))
-        it = self.inp_tgt
         estimate = it.xi_hat if target == "xi" else it.gamma_hat
         res_dir = os.path.join(cfg.log_path, "results")
         os.makedirs(res_dir, exist_ok=True)
@@ -412,11 +444,15 @@ class DeepXiTorch:
     def enhance_all(self, params: Dict[str, torch.Tensor], x_batch: np.ndarray,
                     x_lens: np.ndarray, gain: str,
                     max_batch: int = 32) -> List[np.ndarray]:
-        """Enhanced waveform of each utterance, trimmed to its own
-        (n_frames + 1) * N_s samples: utterances are grouped by padded
-        length (`bucket_length`) and enhanced at most `max_batch` at a
-        time."""
+        """Enhanced waveform of each utterance. A gain-form family's are
+        trimmed to (n_frames + 1) * N_s samples: utterances are grouped by
+        padded length (`bucket_length`) and enhanced at most `max_batch` at
+        a time. The other families' (MagGamma, MagPhaXiPha, STDCTXiCD) come
+        from `enhanced_speech`, an utterance at a time."""
         N_s = self.cfg.N_s
+        if not self.inp_tgt.gain_form:
+            return [self._utterance_y(params, x_batch[i], int(n), gain)
+                    for i, n in enumerate(x_lens)]
         enhance = self.fast_enhancer(gain)
         ys: List[Optional[np.ndarray]] = [None] * len(x_lens)
         buckets: Dict[int, List[int]] = {}
@@ -455,29 +491,34 @@ class DeepXiTorch:
                                batch=batch, buckets=buckets, apply_fn=self.fast_apply(),
                                ver=cfg.ver, device=self.device)
 
-    def xi_estimator(self) -> Callable:
-        """The cached `make_xi_estimator` of `fast_apply` (the per-utterance
-        route of the xi_hat-type out_types)."""
-        key = ("estimate",)
+    def estimator(self, kernels: bool = True) -> Callable:
+        """The cached `make_estimator` of `fast_apply` (the per-utterance
+        route of the .mat out_types and of `enhanced_speech`): (network
+        output, network input); ``kernels=False`` takes no spectral
+        kernel."""
+        key = ("estimate", kernels)
         if key not in self._enhancers:
-            from deepxi_tpu_torch.enhance import make_xi_estimator
-            self._enhancers[key] = make_xi_estimator(
+            from deepxi_tpu_torch.enhance import make_estimator
+            self._enhancers[key] = make_estimator(
                 self.inp_tgt, self.network, apply_fn=self.fast_apply(),
-                device=self.device)
+                device=self.device, kernels=kernels)
         return self._enhancers[key]
 
-    def gain_synthesiser(self, gain: str) -> Callable:
-        """The cached `make_gain_synthesiser` of `fast_apply` for a gain
-        function, or for the noise estimate when `gain` is "d_hat" (the
-        per-utterance route of `y` with ``fast=False`` and of `d_hat`)."""
-        key = ("synthesis", gain)
+    def gain_synthesiser(self, gain: str, kernels: bool = True) -> Callable:
+        """The cached `make_gain_synthesiser` of `fast_apply` for the
+        family's gain with a gain function, or for the noise estimate when
+        `gain` is "d_hat" (the per-utterance route of `y` with
+        ``fast=False`` and of `d_hat`); ``kernels=False`` takes no spectral
+        kernel."""
+        key = ("synthesis", gain, kernels)
         if key not in self._enhancers:
             from deepxi_tpu_torch.enhance import make_gain_synthesiser, noise_gain
-            fn = noise_gain if gain == "d_hat" else (
-                lambda xi: gfunc(xi, xi + 1.0, gain))
+            it = self.inp_tgt
+            fn, reader = (noise_gain, None) if gain == "d_hat" else (
+                lambda t: it.synthesis_gain(t, gain), lambda t: t)
             self._enhancers[key] = make_gain_synthesiser(
-                self.inp_tgt, self.network, fn, apply_fn=self.fast_apply(),
-                device=self.device)
+                it, self.network, fn, apply_fn=self.fast_apply(), device=self.device,
+                reader=reader, kernels=kernels)
         return self._enhancers[key]
 
     def infer(self, params: Optional[Dict[str, torch.Tensor]] = None,
@@ -486,23 +527,30 @@ class DeepXiTorch:
               epochs: Optional[Sequence[int]] = None, fast: bool = True) -> List[str]:
         """Write `out_type` of every wav of the test directory for each epoch
         and gain under `out/<ver>/e<epoch>/`: `y` (16-bit wavs under
-        `y/<gain>/`), `d_hat` (wavs), and `xi_hat`, `gamma_hat`, `deepmmse`
-        (key `d_psd_hat`), `ibm_hat` and `subband_ibm_hat` (.mat). `params`
-        replaces the saved epochs' weights. Returns the written paths.
+        `y/<gain>/`, or `y/` for MagGain and MagMag), `d_hat` (wavs), and
+        `xi_hat`, `gamma_hat`, `mag_hat`, `cd_hat`, `deepmmse` (key
+        `d_psd_hat`), `ibm_hat` and `subband_ibm_hat` (.mat), each where the
+        family has it (its `out_types`). `params` replaces the saved epochs'
+        weights. Returns the written paths.
 
-        `y` with ``fast=True`` enhances utterances batched by length
-        (`enhance_all`); every other out_type, and `y` with ``fast=False``,
-        runs each utterance alone, padded to its `bucket_length` and cut to
-        its frames."""
+        `y` of a gain-form family with ``fast=True`` enhances utterances
+        batched by length (`enhance_all`); every other output runs each
+        utterance alone, padded to its `bucket_length` and cut to its
+        frames. MagGamma's `y` takes the saved `xi_hat` .mat of each
+        utterance from `cfg.saved_data_path` when it is set."""
         cfg = self.cfg
+        it = self.inp_tgt
         out_type = out_type or cfg.out_type
         if out_type in UNPORTED_OUT_TYPES:
             raise ValueError(f"out_type {out_type!r} belongs to a family or mode the "
                              f"port does not have yet (ROADMAP item "
                              f"{UNPORTED_OUT_TYPES[out_type]}); it writes "
-                             f"{', '.join(OUT_TYPES)}")
-        if out_type not in OUT_TYPES:
+                             f"{', '.join(FAMILY_OUT_TYPES)}")
+        if out_type not in FAMILY_OUT_TYPES:
             raise ValueError(f"Invalid output type: {out_type!r}")
+        if out_type not in it.out_types:
+            raise ValueError(f"{type(it).__name__} has no out_type {out_type!r}; it writes "
+                             f"{', '.join(it.out_types)}")
         gains = list(gains) if gains else (
             cfg.gain if isinstance(cfg.gain, list) else [cfg.gain])
         epochs = list(epochs) if epochs else (
@@ -518,9 +566,11 @@ class DeepXiTorch:
                 raise ValueError("test_epoch must be greater than 0")
             p = params if params is not None else self.load_epoch(e)
             for g in gains:
-                sub = os.path.join("y", g) if out_type == "y" else out_type
+                sub = out_type
+                if out_type == "y":
+                    sub = os.path.join("y", g) if it.y_per_gain else "y"
                 out_dir = os.path.join(cfg.out_path, cfg.ver, f"e{e}", sub)
-                if out_type == "y" and fast:
+                if out_type == "y" and fast and it.gain_form:
                     ys = self.enhance_all(p, x_batch, x_lens, g)
                     for name, y in zip(names, ys):
                         path = os.path.join(out_dir, name + ".wav")
@@ -533,35 +583,69 @@ class DeepXiTorch:
                         mel_bank))
         return written
 
+    def _padded(self, wav: np.ndarray, length: int) -> np.ndarray:
+        """[1, bucket_length] int16: one utterance padded as infer pads it."""
+        w = np.zeros((1, bucket_length(length, self.cfg.N_s)), np.int16)
+        w[0, :length] = wav[:length]
+        return w
+
+    def _utterance_y(self, params: Dict[str, torch.Tensor], wav: np.ndarray,
+                     length: int, gain: str, xi_hat: Optional[np.ndarray] = None
+                     ) -> np.ndarray:
+        """One utterance through the family's `enhanced_speech`: the
+        network output of `estimator` and its input, with the noisy phase
+        (of the observation) for the families that read |X|, cut to the
+        utterance's frames; MagGamma takes `xi_hat` (a saved estimate) when
+        it is given."""
+        it = self.inp_tgt
+        w = self._padded(wav, length)
+        n = it.n_frames(length)
+        tgt_hat, inp = self.estimator()(params, w)
+        tgt_hat, inp = tgt_hat[0, :n], inp[0, :n]
+        if it.mag_input:
+            with torch.no_grad():
+                sup = it.observation(torch.as_tensor(w, device=self.device))[1][0, :n]
+        else:
+            sup = inp
+        kw = {} if xi_hat is None else {
+            "xi_hat": torch.as_tensor(xi_hat, dtype=torch.float32, device=self.device)}
+        with torch.no_grad():
+            return it.enhanced_speech(inp, sup, tgt_hat, gain, **kw).cpu().numpy()
+
     def _write_output(self, out_dir: str, name: str, out_type: str, gain: str,
                       params: Dict[str, torch.Tensor], wav: np.ndarray, length: int,
                       mel_bank: Optional[np.ndarray]) -> str:
         """One utterance's output on the per-utterance route: the waveform
         padded to `bucket_length` at B=1, the outputs cut to its frames."""
         cfg = self.cfg
-        w = np.zeros((1, bucket_length(length, cfg.N_s)), np.int16)
-        w[0, :length] = wav[:length]
-        n = self.inp_tgt.n_frames(length)
-        if out_type in ("y", "d_hat"):
+        it = self.inp_tgt
+        n = it.n_frames(length)
+        if out_type == "d_hat" or (out_type == "y" and it.gain_synthesis):
             y = self.gain_synthesiser("d_hat" if out_type == "d_hat" else gain)(
-                params, w, n)
+                params, self._padded(wav, length), n)[0].cpu().numpy()
+        elif out_type == "y":
+            xi_hat = None
+            if it.saved_xi_hat and cfg.saved_data_path is not None:
+                from scipy.io import loadmat
+                xi_hat = loadmat(os.path.join(cfg.saved_data_path, name + ".mat"))["xi_hat"]
+            y = self._utterance_y(params, wav, length, gain, xi_hat)
+        if out_type in ("y", "d_hat"):
             path = os.path.join(out_dir, name + ".wav")
-            save_wav(path, y[0].cpu().numpy(), cfg.f_s)
+            save_wav(path, y, cfg.f_s)
             return path
-        xi_hat, mag = self.xi_estimator()(params, w, with_mag=True)
-        xi_hat, mag = xi_hat[0, :n], mag[0, :n]
+        tgt_hat, inp = self.estimator()(params, self._padded(wav, length))
+        tgt_hat, inp = tgt_hat[0, :n], inp[0, :n]
         key = out_type
-        if out_type == "xi_hat":
-            data = xi_hat
-        elif out_type == "gamma_hat":
-            data = xi_hat + 1.0
+        if out_type in ("xi_hat", "gamma_hat", "mag_hat", "cd_hat"):
+            data = getattr(it, out_type)(tgt_hat)
         elif out_type == "deepmmse":
             key = "d_psd_hat"
-            data = torch.square(mag) * gfunc(xi_hat, xi_hat + 1.0, "deepmmse")
+            xi_hat = it.xi_hat(tgt_hat)
+            data = torch.square(inp) * gfunc(xi_hat, xi_hat + 1.0, "deepmmse")
         elif out_type == "ibm_hat":
-            data = xi_hat > 1.0
+            data = it.xi_hat(tgt_hat) > 1.0
         else:
-            data = (xi_hat.cpu().numpy() @ mel_bank.T) > 1.0
+            data = (it.xi_hat(tgt_hat).cpu().numpy() @ mel_bank.T) > 1.0
         path = os.path.join(out_dir, name + ".mat")
         _save_mat(path, data.cpu().numpy() if torch.is_tensor(data) else data, key)
         return path

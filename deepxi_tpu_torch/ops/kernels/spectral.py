@@ -22,8 +22,11 @@ the DFT matrices:
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 version (`*_ref`, the matrix products: the definition) for a CPU tensor;
 each has a plain-integer `launches` counter and, like `pallas_call`, no
-backward. Both take N_d = 2 N_s and K a power of two with
-N_d <= K and 64 <= K <= 4096 (every K `Config.K` gives), on every device.
+backward. Both take N_d = 2 N_s (they read the hop-row layout) and K a
+power of two with N_d <= K and 64 <= K <= 4096 (every K `Config.K` gives),
+on every device: `kernel_takes`. A framing outside it takes the matrix
+products, chosen by the callers (`enhance`) from (N_d, N_s, K) before any
+launch, as the JAX package's `stft_mag` is always the product.
 """
 
 from __future__ import annotations
@@ -37,8 +40,7 @@ import torch
 
 from deepxi_tpu_torch.ops.kernels import refuse_autograd
 from deepxi_tpu_torch.sig.stft import (_hamming_np, _synthesis_window_np,
-                                       _two_rows, frame, hop_rows,
-                                       overlap_and_add)
+                                       frame, overlap_and_add)
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,8 +125,7 @@ def _magnitude(Y: torch.Tensor, K: int) -> torch.Tensor:
 
 def stft_mag(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:
     """Short-time magnitude spectrum via the matmul DFT."""
-    _two_rows(N_d, N_s)
-    return stft_mag_fused_ref(hop_rows(x, N_s), N_d, K)
+    return _magnitude(stft_reim(x, N_d, N_s, K), K)
 
 
 def _synthesis_frames(Y: torch.Tensor, N_d: int, N_s: int,
@@ -154,11 +155,18 @@ def stft_mag_fused_ref(x2d: torch.Tensor, N_d: int, K: int) -> torch.Tensor:
     return _magnitude(torch.matmul(fr, _on_device("analysis", (N_d, K), x2d.device)), K)
 
 
+def gained_frames(Y: torch.Tensor, G: torch.Tensor, N_d: int, N_s: int,
+                  K: int) -> torch.Tensor:
+    """Synthesis frames [..., T, N_d] of a real gain G on [re || im] spectra
+    Y at any framing: the gain into both halves, then the inverse-DFT
+    product."""
+    return _synthesis_frames(apply_gain_reim(Y, G, K), N_d, N_s, K)
+
+
 def enhance_frames_fused_ref(Y: torch.Tensor, G: torch.Tensor, N_d: int,
                              N_s: int, K: int) -> torch.Tensor:
-    """Plain version of `enhance_frames_fused`: the gain into both halves of
-    [re || im], then the inverse-DFT product."""
-    return _synthesis_frames(apply_gain_reim(Y, G, K), N_d, N_s, K)
+    """Plain version of `enhance_frames_fused`: `gained_frames`."""
+    return gained_frames(Y, G, N_d, N_s, K)
 
 
 def _check(x: torch.Tensor, shape: tuple, what: str) -> None:
@@ -170,12 +178,17 @@ def _check(x: torch.Tensor, shape: tuple, what: str) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
 
 
-def _check_domain(N_d: int, K: int) -> None:
-    """The kernels' domain, held on every device: K a power of two with
-    N_d <= K and 64 <= K <= 4096."""
-    if not (64 <= K <= 4096 and K & (K - 1) == 0 and N_d <= K):
-        raise ValueError(f"the spectral kernels take K a power of two in [64, 4096] "
-                         f"and N_d <= K, not N_d {N_d}, K {K}")
+def kernel_takes(N_d: int, N_s: int, K: int) -> bool:
+    """Whether the spectral kernels take a framing: N_d = 2 N_s, and K a
+    power of two with N_d <= K and 64 <= K <= 4096."""
+    return N_d == 2 * N_s and 64 <= K <= 4096 and K & (K - 1) == 0 and N_d <= K
+
+
+def _check_domain(N_d: int, N_s: int, K: int) -> None:
+    """`kernel_takes`, held on every device."""
+    if not kernel_takes(N_d, N_s, K):
+        raise ValueError(f"the spectral kernels take N_d = 2 N_s and K a power of two "
+                         f"in [64, 4096] with N_d <= K, not N_d {N_d}, N_s {N_s}, K {K}")
 
 
 def _check_card(tensors) -> None:
@@ -229,8 +242,7 @@ def stft_mag_fused(x2d: torch.Tensor, N_d: int, K: int) -> torch.Tensor:
     of length K and |X| in one kernel (replaces `stft_mag_pallas`)."""
     refuse_autograd([x2d], "stft_mag_fused")
     _check(x2d, (None, None, N_d // 2), "x2d")
-    _two_rows(N_d, x2d.shape[2])
-    _check_domain(N_d, K)
+    _check_domain(N_d, x2d.shape[2], K)
     if x2d.shape[1] < 2:
         raise ValueError("x2d needs T+1 >= 2 hop rows")
     if x2d.device.type == "cpu":
@@ -261,8 +273,7 @@ def enhance_frames_fused(Y: torch.Tensor, G: torch.Tensor, N_d: int, N_s: int,
     `enhance_frames_pallas`); overlap-add them with
     `sig.stft.overlap_and_add`."""
     refuse_autograd([Y, G], "enhance_frames_fused")
-    _two_rows(N_d, N_s)
-    _check_domain(N_d, K)
+    _check_domain(N_d, N_s, K)
     nb = K // 2 + 1
     _check(Y, (None, None, 2 * nb), "Y")
     _check(G, (Y.shape[0], Y.shape[1], nb), "G")

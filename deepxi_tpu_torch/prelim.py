@@ -19,7 +19,7 @@ from deepxi_tpu_torch.models.attention import init_flax_like as init_mhanet_flax
 from deepxi_tpu_torch.models.tcn import init_flax_like
 from deepxi_tpu_torch.training import TrainState, make_optimizer, masked_loss
 
-PRELIM_NETWORKS = ("ResNetV2", "MHANetV2", "MHANetV3")
+PRELIM_NETWORKS = ("ResNet", "ResNetV2", "ResNetV3", "MHANetV2", "MHANetV3")
 
 
 def run_prelim(network_type: str = "ResNetV2", n_steps: int = 60,
@@ -45,10 +45,10 @@ def run_prelim(network_type: str = "ResNetV2", n_steps: int = 60,
     fields = {f.name for f in dataclasses.fields(Config)}
     cfg = Config(network_type=network_type,
                  **{k: v for k, v in kw.items() if v is not None and k in fields})
-    if cfg.n_heads is None and network_type != "ResNetV2":
+    if cfg.n_heads is None and "MHA" in network_type:
         cfg = cfg.replace(n_heads=8)
     net = build_network(cfg, n_feat, n_feat)
-    init = init_flax_like if network_type == "ResNetV2" else init_mhanet_flax_like
+    init = init_mhanet_flax_like if "MHA" in network_type else init_flax_like
     init(net, torch.Generator().manual_seed(seed))
     net.to(dev)
     tx = make_optimizer(network_type, cfg.d_model or 32, 4000)

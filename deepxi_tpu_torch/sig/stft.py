@@ -12,7 +12,10 @@
     inverse `inverse_stft` / `polar_synthesis` (``torch.fft.irfft``), the
     plain definition of the per-utterance synthesis.
 
-Framing and overlap-add take Deep Xi's 50% overlap (N_d = 2 N_s) only.
+Framing and overlap-add take any hop: Deep Xi's 50% overlap (N_d = 2 N_s)
+as a reshape into hop rows (`hop_rows`, the layout the spectral kernels
+read) and a shift-and-add, any other as a gather of the frames and a
+scatter-add (``index_add_``) of them.
 """
 
 from __future__ import annotations
@@ -40,11 +43,6 @@ def n_frames(n_samples: int, N_s: int) -> int:
     return -(-int(n_samples) // int(N_s))
 
 
-def _two_rows(N_d: int, N_s: int) -> None:
-    if N_d != 2 * N_s:
-        raise ValueError(f"framing takes N_d = 2 N_s only, not {N_d}/{N_s}")
-
-
 def hop_rows(x: torch.Tensor, N_s: int) -> torch.Tensor:
     """[..., n] -> [..., T+1, N_s] hop rows, T = ceil(n / N_s), zero-padded
     to (T+1) N_s samples: with N_d = 2 N_s, frame i is rows (i, i+1)."""
@@ -55,11 +53,17 @@ def hop_rows(x: torch.Tensor, N_s: int) -> torch.Tensor:
 
 def frame(x: torch.Tensor, N_d: int, N_s: int) -> torch.Tensor:
     """[..., n] -> [..., T, N_d] frames with ``pad_end=True``
-    (``tf.signal.frame``), T = ceil(n / N_s): frame i is rows (i, i+1) of
-    `hop_rows`."""
-    _two_rows(N_d, N_s)
-    x2 = hop_rows(x, N_s)
-    return torch.cat([x2[..., :-1, :], x2[..., 1:, :]], dim=-1)
+    (``tf.signal.frame``), T = ceil(n / N_s), zero-padded to (T-1) N_s + N_d
+    samples. With N_d = 2 N_s frame i is rows (i, i+1) of `hop_rows`; any
+    other hop gathers samples i N_s .. i N_s + N_d - 1."""
+    if N_d == 2 * N_s:
+        x2 = hop_rows(x, N_s)
+        return torch.cat([x2[..., :-1, :], x2[..., 1:, :]], dim=-1)
+    T = n_frames(x.shape[-1], N_s)
+    x = F.pad(x, (0, max((T - 1) * N_s + N_d - x.shape[-1], 0)))
+    idx = (torch.arange(T, device=x.device)[:, None] * N_s
+           + torch.arange(N_d, device=x.device)[None, :])
+    return x[..., idx]
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,11 +80,19 @@ def _synthesis_window_np(N_d: int, N_s: int) -> np.ndarray:
 def overlap_and_add(frames: torch.Tensor, N_s: int) -> torch.Tensor:
     """[..., T, N_d] -> [..., (T-1)*N_s + N_d], ``tf.signal.overlap_and_add``."""
     T, N_d = frames.shape[-2], frames.shape[-1]
-    _two_rows(N_d, N_s)
-    # out row i = first half of frame i + second half of frame i-1
-    h1 = F.pad(frames[..., :N_s], (0, 0, 0, 1))
-    h2 = F.pad(frames[..., N_s:], (0, 0, 1, 0))
-    return (h1 + h2).reshape(frames.shape[:-2] + ((T - 1) * N_s + N_d,))
+    n_out = (T - 1) * N_s + N_d
+    if N_d == 2 * N_s:
+        # out row i = first half of frame i + second half of frame i-1
+        h1 = F.pad(frames[..., :N_s], (0, 0, 0, 1))
+        h2 = F.pad(frames[..., N_s:], (0, 0, 1, 0))
+        return (h1 + h2).reshape(frames.shape[:-2] + (n_out,))
+    # any other hop: each frame's samples added in at its offset
+    lead = frames.shape[:-2]
+    flat = frames.reshape(-1, T * N_d)
+    idx = (torch.arange(T, device=frames.device)[:, None] * N_s
+           + torch.arange(N_d, device=frames.device)[None, :]).reshape(-1)
+    out = torch.zeros(flat.shape[0], n_out, dtype=frames.dtype, device=frames.device)
+    return out.index_add_(1, idx, flat).reshape(lead + (n_out,))
 
 
 def stft(x: torch.Tensor, N_d: int, N_s: int, K: int) -> torch.Tensor:

@@ -130,10 +130,12 @@ class StreamingEnhancer(_Hops):
     Each block's dilated conv keeps the last (k-1)*d inputs of its conv,
     oldest first: tap j reads row j*d and the line rolls one frame a hop.
     LayerNorms as the JAX streaming step: two-pass variance, `ff_ln` with a
-    scale only. The port's ResNetV2 is causal with ReLU->LN->W+b units; the
-    guards read the `causal` and `unit_type` a module may state."""
+    scale only. The network must be a causal ResNetV2 with ReLU->LN->W+b
+    units and a Sigmoid head."""
 
     def __init__(self, inp_tgt, net, params, gtype: str = "mmse-lsa", device=None):
+        if type(net).__name__ != "ResNetV2":
+            raise ValueError(f"streaming takes a ResNetV2, not a {type(net).__name__}")
         if not getattr(net, "causal", True):
             raise ValueError("streaming requires a causal network")
         if getattr(net, "unit_type", "ReLU->LN->W+b") != "ReLU->LN->W+b":

@@ -64,9 +64,10 @@ def test_config_from_args_matches_jax(argv):
 REFUSED = [
     (["--export", "1", "--n_data_shards", "2"], "A10"), (["--n_data_shards", "2"], "A10"),
     (["--n_model_shards", "2"], "A10"), (["--import_stats", "x.p"], "A9"),
-    (["--inp_tgt_type", "MagGamma"], "A9"), (["--map_type", "NormalCDF"], "A9"),
+    (["--inp_tgt_type", "MagPhonemes"], "A11"),
+    (["--map_type", "NormalCDF", "--inp_tgt_type", "MagPhonme"], "A11"),
     (["--attention_impl", "block"], "A9"), (["--out_type", "hybrid_omlsa"], "A11"),
-    (["--out_type", "pho"], "A11"), (["--out_type", "cd_hat"], "A9"),
+    (["--out_type", "pho"], "A11"), (["--out_type", "tracking_vts"], "A11"),
     (["--ver", "reslstm-1.0c"], "A9"), (["--length", "7"], "A9"),
     (["--mixmax_stats", "g.npz"], "A11"), (["--lexicon_path", "lex"], "A11"),
     (["--d_ff", "1024"], "d_ff"), (["--tcn_fused", "0"], "tcn_fused"),

@@ -1001,3 +1001,130 @@ def test_enhancer_server_runs_the_kernels(cuda, tmp_path):
     xp[:, :8000] = x
     y_l = make_enhancer(sm.it, net, apply_fn=apply)(params, xp).cpu().numpy()[:, :y.shape[1]]
     assert np.isfinite(y).all() and np.abs(y - y_l).max() <= 1e-6 * np.abs(y_l).max()
+
+
+def _family(inp_tgt_type, device, **kw):
+    """A family with seeded statistics on `device` (JAX-free: the port's own
+    `with_stats` on a seeded sample)."""
+    import numpy as np
+
+    from deepxi_tpu_torch.inp_tgt import inp_tgt_selector
+    it = inp_tgt_selector(inp_tgt_type, 512, kw.pop("N_s", 256), 512, 16000,
+                          gain=kw.pop("gain", "mmse-lsa"), **kw)
+    rng = np.random.RandomState(8)
+    s, d = rng.randn(3, 6000) * 0.3, rng.randn(3, 6000) * 0.1
+    return it.with_stats(*(a.astype(np.float32) for a in (s, d, s + d)),
+                         np.array([6000, 4500, 3000]), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N_s,kernel", [(256, True), (128, False)])
+def test_spectral_route_by_framing_on_the_card(cuda, N_s, kernel):
+    """The estimator and the gain synthesiser launch stft_mag_fused and
+    enhance_frames_fused once a call at N_s = 256 and never at N_s = 128
+    (the matmul route, chosen by the framing), with the CPU route's results
+    (1e-4 of the scale)."""
+    from deepxi_tpu_torch.enhance import make_gain_synthesiser, make_xi_estimator, noise_gain
+    from deepxi_tpu_torch.ops.kernels import spectral
+    gen = torch.Generator().manual_seed(9)
+    net = init_flax_like(ResNetV2(257, 257, n_blocks=3, d_model=32, d_f=16), gen)
+    params = {k: v.detach() for k, v in net.state_dict().items()}
+    x = (torch.randn(1, 7000, generator=gen) * 3000).to(torch.int16)
+    out = {}
+    for dev in ("cpu", cuda):
+        it = _family("MagXi", dev, map_type="DBNormalCDF", N_s=N_s)
+        n = spectral.stft_mag_fused.launches, spectral.enhance_frames_fused.launches
+        p = {k: v.to(dev) for k, v in params.items()}
+        xi = make_xi_estimator(it, net.to(dev), device=dev)(p, x)
+        y = make_gain_synthesiser(it, net, noise_gain, device=dev)(p, x)
+        out[str(dev)] = (xi.cpu(), y.cpu(), (spectral.stft_mag_fused.launches - n[0],
+                                             spectral.enhance_frames_fused.launches - n[1]))
+    (xi_c, y_c, n_c), (xi_g, y_g, n_g) = out["cpu"], out[str(cuda)]
+    assert n_c == (0, 0) and n_g == ((1, 1) if kernel else (0, 0))
+    keep = xi_c > 1e-6
+    assert ((xi_g - xi_c).abs() / xi_c)[keep].max().item() <= 1e-3
+    assert (y_g - y_c).abs().max().item() <= 1e-4 * y_c.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_plain_spectral_route_launches_no_spectral_kernel(cuda):
+    """With ``kernels=False`` the estimator and the gain synthesiser take the
+    matrix products at N_s = 256 too (the reference route of the card
+    checks): no stft_mag_fused or enhance_frames_fused launch, and the
+    kernel route's results (1e-3 relative on xi, 1e-4 of the scale on y)."""
+    from deepxi_tpu_torch.enhance import make_gain_synthesiser, make_xi_estimator, noise_gain
+    from deepxi_tpu_torch.ops.kernels import spectral
+    gen = torch.Generator().manual_seed(9)
+    net = init_flax_like(ResNetV2(257, 257, n_blocks=3, d_model=32, d_f=16), gen).to(cuda)
+    params = {k: v.detach() for k, v in net.state_dict().items()}
+    x = (torch.randn(1, 7000, generator=gen) * 3000).to(torch.int16)
+    it = _family("MagXi", cuda, map_type="DBNormalCDF", N_s=256)
+    out = {}
+    for kernels in (True, False):
+        n = spectral.stft_mag_fused.launches, spectral.enhance_frames_fused.launches
+        xi = make_xi_estimator(it, net, device=cuda, kernels=kernels)(params, x)
+        y = make_gain_synthesiser(it, net, noise_gain, device=cuda, kernels=kernels)(params, x)
+        out[kernels] = (xi.cpu(), y.cpu(), (spectral.stft_mag_fused.launches - n[0],
+                                            spectral.enhance_frames_fused.launches - n[1]))
+    (xi_k, y_k, n_k), (xi_p, y_p, n_p) = out[True], out[False]
+    assert n_k == (1, 1) and n_p == (0, 0)
+    keep = xi_p > 1e-6
+    assert ((xi_k - xi_p).abs() / xi_p)[keep].max().item() <= 1e-3
+    assert (y_k - y_p).abs().max().item() <= 1e-4 * y_p.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kw", [
+    ("MagXiGamma", dict(map_type=["DBNormalCDF", "DBNormalCDF"])),
+    ("MagGain", dict(gain="mmse-lsa")), ("MagSMM", {}), ("MagMag", dict(map_type="DBNormalCDF")),
+    ("MagXi", dict(map_type="DBLaplaceCDF", map_params=[0.0]))])
+def test_family_enhancers_run_the_kernels(cuda, family, kw):
+    """Each gain-form family's batched enhancer on the card through the fused
+    TCN (a launch a block) against the plain route on the CPU, at small
+    widths: 1e-4 of the waveform's scale (MagMag's magnitudes through the
+    same network output on both, as its map's inverse magnifies the
+    routes' float32 differences near 0 and 1)."""
+    from deepxi_tpu_torch.enhance import make_enhancer
+    gen = torch.Generator().manual_seed(10)
+    it_c = _family(family, "cpu", **dict(kw))
+    it_g = _family(family, cuda, **dict(kw))
+    net = init_flax_like(ResNetV2(257, it_c.n_outp, n_blocks=4, d_model=32, d_f=16,
+                                  max_d_rate=4), gen)
+    params = {k: v.detach() for k, v in net.state_dict().items()}
+    apply = lambda p, m: tcn_fused.resnetv2_apply_fused(p, m, n_blocks=4, max_d_rate=4)  # noqa: E731
+    x = (torch.randn(2, 8192, generator=gen) * 3000).to(torch.int16)
+    n0 = tcn_fused.fused_block_group_whole.launches
+    y = make_enhancer(it_g, net, apply_fn=apply, device=cuda)(
+        {k: v.to(cuda) for k, v in params.items()}, x).cpu()
+    assert tcn_fused.fused_block_group_whole.launches - n0 == 4
+    y_c = make_enhancer(it_c, net.cpu(), device="cpu")(params, x)
+    if family == "MagMag":
+        with torch.no_grad():
+            from deepxi_tpu_torch.ops.kernels.spectral import stft_mag
+            t = apply({k: v.to(cuda) for k, v in params.items()},
+                      stft_mag(x.to(cuda) / 32768.0, 512, 256, 512)).cpu()
+        y_c = make_enhancer(it_c, None, apply_fn=lambda p, m: t, device="cpu")(None, x)
+    assert torch.isfinite(y).all() and y.shape == y_c.shape
+    assert (y - y_c).abs().max().item() <= 1e-4 * y_c.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ver", ["resnet-1.1n", "resnet-1.0c", "resnet-1.0n"])
+def test_plain_resnets_on_the_card(cuda, ver):
+    """resnet-1.1n, resnet-1.0c and resnet-1.0n at small widths: their
+    plain networks (the fused kernels compute only the causal ReLU->LN->W+b
+    ResNetV2) on the card against the CPU, 1e-4, and no TCN kernel
+    launches."""
+    from deepxi_tpu_torch.config import preset
+    from deepxi_tpu_torch.framework import build_network, fast_apply_fn
+    cfg = preset(ver, d_model=32, n_blocks=5, d_f=16, max_d_rate=4)
+    assert fast_apply_fn(cfg) is None
+    net = init_flax_like(build_network(cfg, 257, 257), torch.Generator().manual_seed(12))
+    x = torch.rand(2, 300, 257, generator=torch.Generator().manual_seed(13))
+    with torch.no_grad():
+        y_c = net(x)
+        n = tcn_fused.fused_block_group_whole.launches, tcn_fused.fused_block_group.launches
+        y = net.to(cuda)(x.to(cuda)).cpu()
+    assert (tcn_fused.fused_block_group_whole.launches,
+            tcn_fused.fused_block_group.launches) == n
+    assert (y - y_c).abs().max().item() <= 1e-4

@@ -1,0 +1,66 @@
+"""The command line takes the families, maps, framings and networks of the
+port (`deepxi_tpu_torch.cli` against `deepxi_tpu.cli`, on the CPU): every
+Config field both packages have takes the same value for command lines with
+`--inp_tgt_type` of each family, `--map_type`/`--map_params`,
+`--saved_data_path`, `--T_s` with N_d != 2 N_s and the presets
+resnet-1.1n, resnet-1.0c and resnet-1.0n; `--prelim 1` trains ResNet and
+ResNetV3; MagPhonemes still raises and names A11."""
+
+import dataclasses
+
+import pytest
+
+from deepxi_tpu import cli as cli_j
+from deepxi_tpu.config import Config as ConfigJ
+from deepxi_tpu_torch import cli
+from deepxi_tpu_torch.config import Config
+
+COMMAND_LINES = [
+    ["--inp_tgt_type", "MagGamma", "--map_type", "DBNormalCDF"],
+    ["--inp_tgt_type", "MagXiGamma", "--map_type", "DBNormalCDF,DBNormalCDF"],
+    ["--inp_tgt_type", "MagGain", "--gain", "ibm"],
+    ["--inp_tgt_type", "MagMag", "--map_type", "DBMinMaxScaling"],
+    ["--inp_tgt_type", "MagSMM", "--loss_fnc", "MeanSquaredError", "--outp_act", "ReLU"],
+    ["--inp_tgt_type", "MagPhaXiPha", "--map_type", "DBNormalCDF,UniformCDF",
+     "--map_params", "None;neg_pi,pi"],
+    ["--inp_tgt_type", "STDCTXiCD", "--map_type", "DBNormalCDF,TruncatedLaplaceCDF",
+     "--map_params", "None;0,neg_40,40"],
+    ["--map_type", "DBLaplaceCDF", "--map_params", "0"],
+    ["--map_type", "Logistic", "--map_params", "0.5,1.0"],
+    ["--inp_tgt_type", "MagGamma", "--infer", "1", "--saved_data_path", "out/xi_hat"],
+    ["--T_s", "8", "--T_d", "32"],
+    ["--T_s", "12", "--T_d", "25", "--f_s", "16000"],
+    ["--ver", "resnet-1.1n"], ["--ver", "resnet-1.0c", "--test", "1"],
+    ["--ver", "resnet-1.0n-vb", "--train", "1"], ["--ver", "resnet-1.1n-vb"],
+    ["--network_type", "ResNetV3", "--unit_type", "LN->ReLU->W+b", "--causal", "0"],
+]
+
+
+@pytest.mark.parametrize("argv", COMMAND_LINES, ids=range(len(COMMAND_LINES)))
+def test_config_from_args_matches_jax(argv):
+    cfg, cfg_j = cli.config_from_args(argv), cli_j.config_from_args(argv)
+    shared = {f.name for f in dataclasses.fields(Config)} & \
+        {f.name for f in dataclasses.fields(ConfigJ)}
+    assert shared == {f.name for f in dataclasses.fields(Config)}
+    for name in sorted(shared):
+        assert getattr(cfg, name) == getattr(cfg_j, name), name
+
+
+@pytest.mark.parametrize("network_type", ["ResNet", "ResNetV3"])
+def test_prelim_trains_the_other_resnets(capsys, network_type):
+    """`--prelim 1 --network_type ResNet|ResNetV3` trains its small network
+    toward 0.75: mean |prediction - target| under 0.12 (the prelim test's
+    limit)."""
+    assert cli.main(["--prelim", "1", "--platform", "cpu", "--network_type",
+                     network_type]) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines() if "mean|pred-target|" in ln]
+    assert len(line) == 1 and float(line[0].split()[-1]) < 0.12
+
+
+@pytest.mark.parametrize("argv", [["--inp_tgt_type", "MagPhonemes"],
+                                  ["--inp_tgt_type", "MagPhonme", "--train", "1"],
+                                  ["--out_type", "pho"], ["--ver", "rdlnet-1.0n"]])
+def test_what_remains_refused_names_its_item(argv):
+    item = "A9" if "rdlnet-1.0n" in argv else "A11"
+    with pytest.raises(SystemExit, match=item):
+        cli.main(argv + ["--platform", "cpu"])

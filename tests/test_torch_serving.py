@@ -291,24 +291,32 @@ def test_streaming_graphs_call_the_cache_op(its, mha, tmp_path):
         assert int(new[4]) == 1 and new[4].dtype == torch.int32
 
 
-def test_fresh_interpreter_loads_a_bundle(tcn_bundles, tmp_path):
+def test_fresh_interpreter_loads_a_bundle(its, tcn, tmp_path):
     """A process that imports only `deepxi_tpu_torch.serving` loads the
     bundle and gives the same output; one that registers no `deepxi::` op
-    cannot load it."""
-    out, _, paths = tcn_bundles
+    cannot load it. The bundle is this test's own (no other test's files),
+    and each child process is given the import path of this checkout
+    explicitly rather than through its working directory, as the other
+    fresh-interpreter checks do (tests/test_torch_metrics.py)."""
+    _, _, net, params = tcn
+    out = str(tmp_path / "bundle")
+    paths = serving.export_enhancer(its[1], net, params, out, batch=BATCH, buckets=BUCKETS,
+                                    apply_fn=_tcn_apply(), ver="test-tiny", device="cpu")
     x = _noisy(5, 3, 7000)
     np.save(tmp_path / "x.npy", x)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     code = ("import sys, numpy as np\n"
             "from deepxi_tpu_torch.serving import load_server\n"
             "y = load_server(sys.argv[1])(np.load(sys.argv[2]))\n"
             "np.save(sys.argv[3], y)\n")
     r = subprocess.run([sys.executable, "-c", code, out, str(tmp_path / "x.npy"),
-                        str(tmp_path / "y.npy")], cwd=ROOT, capture_output=True, text=True,
-                       timeout=300)
+                        str(tmp_path / "y.npy")], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     np.testing.assert_array_equal(np.load(tmp_path / "y.npy"), serving.load_server(out)(x))
     r = subprocess.run([sys.executable, "-c", "import sys, torch; "
-                        "torch.export.load(sys.argv[1])", paths[0]], cwd=ROOT,
+                        "torch.export.load(sys.argv[1])", paths[0]], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "not registered" in r.stderr
 
