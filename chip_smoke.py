@@ -149,6 +149,19 @@ Phases (any failure exits non-zero before the result line):
      call's B1-B4 launches printed with its ms (B2/B3 none at N_s = 128);
      resnet-1.1n through `make_enhancer` on its plain network at B=1 x 4 s
      and B=96 x 10 s beside resnet-1.1c's kernel route;
+  3l. the remaining networks (tools/torch_networks.py): rdlnet-1.0n,
+     reslstm-1.0c, ResBiLSTM at its widths, MHANet V1 at mhanet-1.1c's widths
+     and mhanet-1.1c with the "block" attention, on seeded weights and the
+     resnet artifact's statistics, TF32 off: three `DeepXiTorch.train` steps
+     at B=8 x 4.096 s (finite losses; the first step's gradients on 2 x 32
+     frames, the output layer out of saturation, against float64 autograd,
+     2e-4), the network output against float64 on the card (1e-4 of its
+     scale on valid frames; "block" also against "full" at 4 s and "stream"
+     at 36 s), `infer` of `y`, `xi_hat` and `d_hat` on the resnet artifact's
+     4 s utterance and the same tiled 5x against the same `infer` with no
+     spectral kernel (1e-3; B2 one an utterance on xi_hat, B3 on d_hat, none
+     on the batched `y`, counted a call), and `make_enhancer` at B=1 x 4 s
+     and B=96 x 10 s timed beside the predictions;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -253,7 +266,8 @@ MHA_BLOCK_FLOPS_PER_ROW = 2 * (3 * 256 * 256 + 256 * 256 + 2 * 256 * 1024)
 MHA_BLOCK_FLOATS = 4 * 8 * 256 * 32 + 4 * 256 + 256 * 1024 + 1024 + 1024 * 256 + 256
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# phase 3k's names (tools/torch_families.py) of the kernels of its path
+# phase 3k's names (tools/torch_families.py) of the kernels of its path, which
+# phase 3l (tools/torch_networks.py) shares
 FAMILY_KERNELS = {"fused_block_group_whole": "B1", "stft_mag_fused": "B2",
                   "enhance_frames_fused": "B3", "fused_block_group": "B4",
                   "fused_block_group_whole_saved": "B5", "fused_block_group_bwd": "B6"}
@@ -1869,6 +1883,16 @@ def main():
     fams = torch_families.families_phase(dev, fail)
     print(f"[3k] phase wall time {time.perf_counter() - t0:.1f} s")
 
+    # 3l. the remaining networks (tools/torch_networks.py): RDLNet, ResLSTM,
+    # ResBiLSTM, MHANet V1 and the "block" attention at full width through
+    # train, the network output against float64, infer (B2/B3 on the
+    # per-utterance routes, counted a call: zeroed just before it) and
+    # make_enhancer times
+    import torch_networks
+    t0 = time.perf_counter()
+    nets = torch_networks.networks_phase(dev, fail, card)
+    print(f"[3l] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -2345,6 +2369,8 @@ def main():
         family_key = FAMILY_KERNELS.get(row["name"])
         if family_key in fams["launches"]:
             row["families_launches"] = fams["launches"][family_key]
+        if family_key in ("B2", "B3") and family_key in nets["launches"]:
+            row["networks_launches"] = nets["launches"][family_key]
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

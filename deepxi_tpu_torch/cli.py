@@ -23,8 +23,8 @@ import os
 import sys
 from typing import List, Optional
 
-from deepxi_tpu_torch.config import (UNPORTED_PRESETS, VERSION_PRESETS, Config, preset,
-                                     str_to_bool, str_to_list)
+from deepxi_tpu_torch.config import (VERSION_PRESETS, Config, preset, str_to_bool,
+                                     str_to_list)
 
 PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 
@@ -103,8 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platform", type=str, default=None,
                    help="cpu, or cuda (alias gpu; the default): the device to run on")
     p.add_argument("--attention_impl", type=str, default=None,
-                   help="MHANet attention: 'full', 'fused' (flash_attention) or "
-                        "'stream' (key tiles; long audio)")
+                   help="MHANetV2/V3 attention: 'full', 'block' (query blocks of "
+                        "--block_q), 'fused' (flash_attention) or 'stream' (key tiles; "
+                        "long audio)")
     p.add_argument("--block_q", type=int, default=None)
     p.add_argument("--mha_fused", type=str_to_bool, default=None,
                    help="the fused transformer-block kernels in MHANet inference")
@@ -117,8 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a TPU matmul-precision knob of the JAX package; accepted and "
                         "ignored: the port's DFT is float32 throughout")
     p.add_argument("--import_stats", type=str, default=None,
-                   help="reference statistics pickle: not in the port yet (ROADMAP "
-                        "item A9, compat/tf_import)")
+                   help="a reference <ver>_inp_tgt.p statistics pickle to adopt "
+                        "(reading it needs TensorFlow)")
     return p
 
 
@@ -127,12 +128,6 @@ def build_parser() -> argparse.ArgumentParser:
 _REFUSED = (
     ("n_data_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
     ("n_model_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
-    ("import_stats", (None,), "importing reference statistics is ROADMAP item A9 "
-                              "(compat/tf_import)"),
-    ("length", (None,), "RDLNet is ROADMAP item A9"),
-    ("m_1", (None,), "RDLNet is ROADMAP item A9"),
-    ("attention_impl", (None, "full", "fused", "stream"),
-     "the 'block' attention is ROADMAP item A9"),
     ("Noutp", (None,), "MagPhonemes is ROADMAP item A11"),
     ("ali_path", (None,), "MagPhonemes is ROADMAP item A11"),
     ("lexicon_path", (None,), "MagPhonemes is ROADMAP item A11"),
@@ -148,13 +143,9 @@ _REFUSED = (
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise SystemExit naming the ROADMAP item for a flag whose path the
-    port does not have: a preset of another network (RDLNet, ResLSTM), more
-    than one shard, `--import_stats`, MagPhonemes, the hybrid and phoneme
-    modes' inputs, RDLNet's, 'block' attention; and for `--d_b`, `--d_ff`
-    (read by no network) and `--tcn_fused 0`."""
-    if args.ver in UNPORTED_PRESETS:
-        raise SystemExit(f"--ver {args.ver}: not in the port yet: its network is "
-                         "ROADMAP item A9")
+    port does not have: more than one shard, MagPhonemes, the hybrid and
+    phoneme modes' inputs and out_types; and for `--d_b`, `--d_ff` (read by
+    no network) and `--tcn_fused 0`."""
     if args.inp_tgt_type in ("MagPhonemes", "MagPhonme"):
         raise SystemExit(f"--inp_tgt_type {args.inp_tgt_type}: not in the port yet: the "
                          "phoneme classifier is ROADMAP item A11")
@@ -276,6 +267,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   "noise", cfg.data_path)
 
     deepxi = DeepXiTorch(cfg, train_s_list, train_d_list, device=device)
+    if cfg.import_stats:
+        print(f"adopted reference statistics from {cfg.import_stats}")
     if cfg.train:
         deepxi.train()
     if cfg.infer:

@@ -44,19 +44,28 @@ class Artifact(NamedTuple):
 
 
 def flax_order(keys) -> list:
-    """State-dict keys `module.leaf` in Flax tree-flatten order, which sorts
-    dict keys at every level: `block10_*` before `block2_*`, `bias` before
-    `kernel`."""
-    return sorted(keys, key=lambda k: tuple(k.rsplit(".", 1)))
+    """State-dict keys (`module.leaf`, or deeper as `block0_lstm.cell.hi.kernel`)
+    in Flax tree-flatten order, which sorts dict keys at every level:
+    `block10_*` before `block2_*`, `bias` before `kernel`."""
+    return sorted(keys, key=lambda k: tuple(k.split(".")))
 
 
 def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's parameters, as nested dicts of numpy arrays
-    ({'params': {module: {leaf: array}}}), as a flat `module.leaf` dict of
-    CPU tensors. Layouts are shared, so no array is transposed."""
-    p = tree.get("params", tree)
-    return {f"{mod}.{leaf}": torch.as_tensor(np.array(arr))
-            for mod, leaves in p.items() for leaf, arr in leaves.items()}
+    ({'params': {module: {leaf: array}}}, nested to any depth), as a flat
+    dict of CPU tensors keyed by the dotted path (`module.leaf`). Layouts
+    are shared, so no array is transposed."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[prefix + k] = torch.as_tensor(np.array(v))
+
+    walk(tree.get("params", tree), "")
+    return out
 
 
 def restore_stats(it, stats: Mapping, device=None):

@@ -1,10 +1,10 @@
 """Typed configuration, the command line's flag parsers and the presets the
 port runs (follows deepxi_tpu/config.py; the fields of the modes the port
 has: training, offline inference, objective testing, spectral distortion
-and the prelim harness): resnet-1.1c, resnet-1.1n, resnet-1.0c,
-resnet-1.0n, mhanet-1.1c and mhanet-1.0c, and their DEMAND VoiceBank
-variants (`-vb`: SNR 0..15 dB in steps of 5, no validation set, test epoch
-125)."""
+and the prelim harness): every preset of the JAX package, resnet-1.1c,
+resnet-1.1n, resnet-1.0c, resnet-1.0n, mhanet-1.1c, mhanet-1.0c,
+rdlnet-1.0n and reslstm-1.0c, and their DEMAND VoiceBank variants (`-vb`:
+SNR 0..15 dB in steps of 5, no validation set, test epoch 125)."""
 
 from __future__ import annotations
 
@@ -95,10 +95,13 @@ class Config:
     max_d_rate: Optional[int] = None
     causal: bool = True
     warmup_steps: int = 40000
+    length: Optional[int] = None   # RDLNet's lattice length
+    m_1: Optional[int] = None      # RDLNet's filters at height 0
     unit_type: Optional[str] = None
     outp_act: str = "Sigmoid"
     max_len: Optional[int] = None
-    # MHANet attention: "full" (the plain [B, H, T, T] reference), "fused"
+    # MHANet attention: "full" (the plain [B, H, T, T] reference), "block"
+    # (query blocks of block_q, plain; O(T block_q) memory), "fused"
     # (ops/kernels/mha_fused.py) or "stream" (ops/kernels/mha_flash_stream.py)
     attention_impl: str = "full"
     block_q: int = 256
@@ -108,6 +111,10 @@ class Config:
     # the fused transformer block of ops/kernels/mha_block_fused.py in
     # MHANetV2/V3 inference when attention_impl is "full"
     mha_fused: bool = True
+
+    # a reference `<ver>_inp_tgt.p` statistics pickle to adopt
+    # (compat.tf_import.load_inp_tgt_stats; reading it needs TensorFlow)
+    import_stats: Optional[str] = None
 
     # map
     map_type: Any = "DBNormalCDF"
@@ -149,6 +156,13 @@ class Config:
     def snr_levels(self) -> List[int]:
         return list(range(self.min_snr, self.max_snr + 1, self.snr_inter))
 
+    def network_kwargs(self) -> Dict[str, Any]:
+        """The fields `models.network_selector` reads."""
+        return {k: getattr(self, k) for k in
+                ("d_model", "n_blocks", "n_heads", "d_f", "k", "max_d_rate",
+                 "causal", "unit_type", "outp_act", "max_len", "length", "m_1",
+                 "attention_impl", "block_q")}
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
@@ -179,6 +193,11 @@ VERSION_PRESETS: Dict[str, Dict[str, Any]] = {
     "resnet-1.0n": dict(network_type="ResNet", d_model=256, n_blocks=40,
                         d_f=64, k=3, max_d_rate=16, causal=False,
                         test_epoch=180, **_COMMON),
+    "rdlnet-1.0n": dict(network_type="RDLNet", n_blocks=18, length=7, m_1=32,
+                        causal=False, unit_type="ReLU->LN->W+b",
+                        test_epoch=180, **_COMMON),
+    "reslstm-1.0c": dict(network_type="ResLSTM", d_model=512, n_blocks=5,
+                         causal=True, test_epoch=200, **_COMMON),
 }
 
 # DEMAND VoiceBank training variants.
@@ -186,12 +205,6 @@ for _ver in list(VERSION_PRESETS):
     VERSION_PRESETS[_ver + "-vb"] = dict(VERSION_PRESETS[_ver], min_snr=0,
                                          max_snr=15, snr_inter=5,
                                          val_flag=False, test_epoch=125)
-
-
-# The JAX package's presets whose networks the port does not have yet
-# (ROADMAP item A9), and their -vb variants.
-UNPORTED_PRESETS = tuple(v + sfx for v in ("rdlnet-1.0n", "reslstm-1.0c")
-                         for sfx in ("", "-vb"))
 
 
 def preset(ver: str, **overrides: Any) -> Config:

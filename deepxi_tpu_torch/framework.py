@@ -1,8 +1,8 @@
 """Framework facade: map statistics, the training loop, offline
 inference, objective testing, the spectral-distortion study and the serving
-export (follows deepxi_tpu/framework.py; every input/target family but
-MagPhonemes, every map; there is no device mesh, no hybrid mode and no
-phoneme mode).
+export (follows deepxi_tpu/framework.py; every network of the JAX
+selector, every input/target family but MagPhonemes, every map; there is no
+device mesh, no hybrid mode and no phoneme mode).
 
 Artifact layout as in the JAX package:
 
@@ -34,9 +34,7 @@ from deepxi_tpu_torch.data.listing import test_batch, val_wav_batch
 from deepxi_tpu_torch.data.loader import MiniBatchLoader, bucket_length
 from deepxi_tpu_torch.data.wavio import save_wav
 from deepxi_tpu_torch.inp_tgt import MAP_ATTRS, MagXi, inp_tgt_selector
-from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
-                                               init_flax_like as init_mhanet_flax_like)
-from deepxi_tpu_torch.models.tcn import ResNet, ResNetV2, ResNetV3, init_flax_like
+from deepxi_tpu_torch.models import init_flax_like, network_selector
 from deepxi_tpu_torch.ops.gains import gfunc
 from deepxi_tpu_torch.ops.maps import STATS_FIELDS
 from deepxi_tpu_torch.sig import mix as sig_mix
@@ -62,25 +60,10 @@ def _save_mat(path: str, data: np.ndarray, name: str) -> None:
 
 
 def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
-    """The configured network: ResNet, ResNetV2 (causal or not, either unit
-    order), ResNetV3, MHANetV2 or MHANetV3."""
-    # as the JAX package's selector: a field left None takes the module's default
-    tcn = {k: v for k, v in dict(n_blocks=cfg.n_blocks, d_model=cfg.d_model, d_f=cfg.d_f,
-                                 k=cfg.k, max_d_rate=cfg.max_d_rate, outp_act=cfg.outp_act,
-                                 causal=cfg.causal).items() if v is not None}
-    if cfg.network_type == "ResNet":
-        return ResNet(n_feat, n_outp, **tcn)
-    if cfg.network_type in ("ResNetV2", "ResNetV3"):
-        cls = ResNetV2 if cfg.network_type == "ResNetV2" else ResNetV3
-        return cls(n_feat, n_outp, unit_type=cfg.unit_type or "ReLU->LN->W+b", **tcn)
-    kw = dict(d_model=cfg.d_model, n_blocks=cfg.n_blocks, n_heads=cfg.n_heads,
-              causal=cfg.causal, outp_act=cfg.outp_act,
-              attention_impl=cfg.attention_impl, block_q=cfg.block_q)
-    if cfg.network_type == "MHANetV3":
-        return MHANetV3(n_feat, n_outp, max_len=cfg.max_len or 2048, **kw)
-    if cfg.network_type == "MHANetV2":
-        return MHANetV2(n_feat, n_outp, **kw)
-    raise ValueError(f"the port has no {cfg.network_type} yet (ROADMAP item A9)")
+    """The configured network (`models.network_selector` of
+    `cfg.network_type` with `cfg.network_kwargs()`; a field left None takes
+    the module's default)."""
+    return network_selector(cfg.network_type, n_feat, n_outp, **cfg.network_kwargs())
 
 
 def tcn_fused_takes(cfg: Config) -> bool:
@@ -95,7 +78,8 @@ def fast_apply_fn(cfg: Config) -> Optional[Callable]:
     """The network forward of the inference fast path for `cfg`: the fused
     TCN groups where `tcn_fused_takes`, or for MHANetV2/V3 with
     `cfg.mha_fused` and "full" attention the fused transformer blocks; None
-    for the network's own forward (whose attention follows
+    for the network's own forward (the other ResNets, RDLNet, ResLSTM,
+    ResBiLSTM, MHANet V1, and MHANetV2/V3 whose attention follows
     `cfg.attention_impl`)."""
     if tcn_fused_takes(cfg):
         from deepxi_tpu_torch.ops.kernels.tcn_fused import resnetv2_apply_fused
@@ -115,9 +99,11 @@ def fast_apply_fn(cfg: Config) -> Optional[Callable]:
 
 class DeepXiTorch:
     """Deep Xi on one device (the card unless ``device="cpu"``): the
-    configured input/target family and maps (`inp_tgt_selector`), and a
-    ResNet, ResNetV2, ResNetV3 or MHANetV2/V3, for training, inference,
-    objective testing and the spectral-distortion study."""
+    configured input/target family and maps (`inp_tgt_selector`), and any
+    network of `models.network_selector`, for training, inference,
+    objective testing and the spectral-distortion study. With
+    `cfg.import_stats` the maps take a reference statistics pickle's
+    values (`import_reference_stats`), which are saved as the stats file."""
 
     def __init__(self, cfg: Config, train_s_list: Optional[List[Dict]] = None,
                  train_d_list: Optional[List[Dict]] = None, device=None):
@@ -131,7 +117,10 @@ class DeepXiTorch:
             gain=cfg.gain if isinstance(cfg.gain, str) else cfg.gain[0])
 
         stats_path = os.path.join(cfg.data_path, f"{cfg.ver}_stats.npz")
-        if os.path.exists(stats_path) and not cfg.reset_inp_tgt:
+        if cfg.import_stats:
+            self.import_reference_stats(cfg.import_stats)
+            self._save_stats(stats_path)
+        elif os.path.exists(stats_path) and not cfg.reset_inp_tgt:
             self.inp_tgt = self._load_stats(stats_path)
         elif self._needs_stats():
             s, d, x, wl = self.sample(cfg.sample_size)
@@ -177,6 +166,21 @@ class DeepXiTorch:
                 it = replace(it, **{m: replace(getattr(it, m), **updates)})
         return it
 
+    def import_reference_stats(self, pickle_path: str) -> None:
+        """Adopt the statistics of a reference `<ver>_inp_tgt.p` pickle
+        (`compat.tf_import.load_inp_tgt_stats`, which needs TensorFlow to
+        read the pickle's tensors): each of the family's maps takes the
+        pickle's mu, sigma, b, min and max where it has them."""
+        from deepxi_tpu_torch.compat.tf_import import load_inp_tgt_stats
+        st = load_inp_tgt_stats(pickle_path)
+        it = self.inp_tgt
+        for m in self._map_attrs():
+            if m in st:
+                updates = {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+                           for k, v in st[m].items() if k in STATS_FIELDS}
+                it = replace(it, **{m: replace(getattr(it, m), **updates)})
+        self.inp_tgt = it
+
     def sample(self, sample_size: int):
         """Training-set sample for the map statistics, cached as
         ``data/sample.npz``: utterances drawn with replacement, each mixed
@@ -218,9 +222,7 @@ class DeepXiTorch:
     def init_params(self) -> Dict[str, torch.Tensor]:
         """Seeded initial parameters (flax's scheme, `cfg.seed`) on the
         device."""
-        init = init_mhanet_flax_like if "MHA" in self.cfg.network_type \
-            else init_flax_like
-        init(self.network.to("cpu"), torch.Generator().manual_seed(self.cfg.seed))
+        init_flax_like(self.network.to("cpu"), torch.Generator().manual_seed(self.cfg.seed))
         self.network.to(self.device)
         return {k: v.detach().clone() for k, v in self.network.state_dict().items()}
 
@@ -228,7 +230,7 @@ class DeepXiTorch:
         """The network forward of the train step: the fused stack with
         `cfg.tcn_fused_train` where `tcn_fused_takes`, else None (the plain
         network under autograd; for MHANet "full" attention, as in the JAX
-        package)."""
+        package; "block" attention, RDLNet and the LSTMs likewise)."""
         cfg = self.cfg
         if not (cfg.tcn_fused_train and tcn_fused_takes(cfg)):
             return None
@@ -244,9 +246,10 @@ class DeepXiTorch:
         """The training loop; returns the per-epoch mean losses. The final
         state is kept as `self._state`."""
         cfg = self.cfg
-        if "MHA" in cfg.network_type and cfg.attention_impl != "full":
+        if "MHA" in cfg.network_type and cfg.attention_impl in ("fused", "stream"):
             raise ValueError(f"attention_impl {cfg.attention_impl!r} is inference-only "
-                             "(its kernels have no backward): train MHANet with 'full'")
+                             "(its kernels have no backward): train MHANet with 'full' "
+                             "or 'block'")
         model_dir = os.path.join(cfg.model_path, cfg.ver)
         os.makedirs(model_dir, exist_ok=True)
         tx = make_optimizer(cfg.network_type, cfg.d_model or 256, cfg.warmup_steps)
@@ -479,8 +482,10 @@ class DeepXiTorch:
         """Serving export of a trained epoch: the batched enhancer through
         `fast_apply` (the kernels as `deepxi::` ops) as one `torch.export`
         program a bucket on this framework's device (`serving`); no model
-        code or re-trace at load time. Returns the written paths."""
-        from deepxi_tpu_torch.serving import export_enhancer
+        code or re-trace at load time. Returns the written paths. A ResLSTM
+        or ResBiLSTM raises (`serving.refuse_unexportable`)."""
+        from deepxi_tpu_torch.serving import export_enhancer, refuse_unexportable
+        refuse_unexportable(self.network)
         cfg = self.cfg
         epoch = epoch or (cfg.test_epoch if isinstance(cfg.test_epoch, int)
                           else cfg.test_epoch[0])

@@ -15,11 +15,8 @@ from torch.func import functional_call
 from deepxi_tpu_torch import resolve_device
 from deepxi_tpu_torch.config import Config
 from deepxi_tpu_torch.framework import build_network
-from deepxi_tpu_torch.models.attention import init_flax_like as init_mhanet_flax_like
-from deepxi_tpu_torch.models.tcn import init_flax_like
+from deepxi_tpu_torch.models import init_flax_like
 from deepxi_tpu_torch.training import TrainState, make_optimizer, masked_loss
-
-PRELIM_NETWORKS = ("ResNet", "ResNetV2", "ResNetV3", "MHANetV2", "MHANetV3")
 
 
 def run_prelim(network_type: str = "ResNetV2", n_steps: int = 60,
@@ -33,11 +30,10 @@ def run_prelim(network_type: str = "ResNetV2", n_steps: int = 60,
     masked mean squared error). Returns (final loss, mean |prediction -
     target| over the valid frames of a last draw). The network defaults to
     d_model 32, 4 blocks, d_f 16, k 3, dilations up to 4, causal, Sigmoid
-    output, as the JAX harness's; its default of 50 steps is 60 here, the
-    count its convergence test runs."""
-    if network_type not in PRELIM_NETWORKS:
-        raise ValueError(f"the port has no {network_type} yet (ROADMAP item A9); "
-                         f"prelim runs {', '.join(PRELIM_NETWORKS)}")
+    output, as the JAX harness's (each network reads the keys it takes: RDLNet
+    its 4 blocks at its default length and m_1, the LSTMs d_model and the
+    blocks); its default of 50 steps is 60 here, the count its convergence
+    test runs. An unknown `network_type` raises ValueError."""
     dev = resolve_device(device)
     kw = dict(d_model=32, n_blocks=4, d_f=16, k=3, max_d_rate=4, causal=True,
               unit_type="ReLU->LN->W+b", outp_act="Sigmoid")
@@ -48,8 +44,7 @@ def run_prelim(network_type: str = "ResNetV2", n_steps: int = 60,
     if cfg.n_heads is None and "MHA" in network_type:
         cfg = cfg.replace(n_heads=8)
     net = build_network(cfg, n_feat, n_feat)
-    init = init_mhanet_flax_like if "MHA" in network_type else init_flax_like
-    init(net, torch.Generator().manual_seed(seed))
+    init_flax_like(net, torch.Generator().manual_seed(seed))
     net.to(dev)
     tx = make_optimizer(network_type, cfg.d_model or 32, 4000)
     state = TrainState.create(dict(net.state_dict()), tx)

@@ -51,6 +51,19 @@ def _refuse_mesh(mesh) -> None:
                                   "the port serves on one card")
 
 
+def refuse_unexportable(network) -> None:
+    """Raise for a ResLSTM or ResBiLSTM: `torch.export` would unroll its
+    recurrence, T x n_blocks steps of plain operations at every bucket (T =
+    1025 at 262,144 samples); the recurrence as one `deepxi::` op is ROADMAP
+    item A9b."""
+    from deepxi_tpu_torch.models.rnn import ResLSTM
+    if isinstance(network, ResLSTM):
+        raise NotImplementedError(
+            f"no serving export of a {type(network).__name__}: torch.export would unroll "
+            "its recurrence step by step at every bucket; the LSTM recurrence as one "
+            "deepxi:: op is ROADMAP item A9b")
+
+
 class _Enhancer(torch.nn.Module):
     """`enhance(params, x)` with the weights held as buffers, so that the
     exported program carries them."""
@@ -75,11 +88,13 @@ def export_enhancer(inp_tgt, network, params, out_dir: str,
     `resnetv2_apply_fused`) at each bucket length on `device` (the card
     unless ``device="cpu"``); returns the written paths. There is no
     `precision`: the port's DFT is float32. `mesh` raises
-    NotImplementedError (ROADMAP item A10)."""
+    NotImplementedError (ROADMAP item A10), and so does a ResLSTM or
+    ResBiLSTM network (`refuse_unexportable`, ROADMAP item A9b)."""
     from deepxi_tpu_torch.enhance import make_enhancer
     from deepxi_tpu_torch.ops.kernels.spectral import dft_tables
 
     _refuse_mesh(mesh)
+    refuse_unexportable(network)
     dev = resolve_device(device)
     dft_tables(inp_tgt.N_d, inp_tgt.N_s, inp_tgt.K, dev)
     module = _Enhancer(make_enhancer(inp_tgt, network, gain, apply_fn=apply_fn, device=dev),

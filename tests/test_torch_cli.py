@@ -1,9 +1,11 @@
 """The port's command line (`python -m deepxi_tpu_torch`) against the JAX
 package's (`deepxi_tpu.cli`) on the CPU: the Config of each of a list of
-command lines, `--enhance` from the trained mhanet-1.1c artifact (wavs at
-16 kHz and one at 44.1 kHz in stereo, resampled), the resnet-1.1c
-artifact's missing meta.json, `--prelim`, a tiny `--train --infer --test
---spect_dist` run, and the flags whose paths the port does not have."""
+command lines (the rdlnet-1.0n and reslstm-1.0c presets among them),
+`--enhance` from the trained mhanet-1.1c artifact (wavs at 16 kHz and one at
+44.1 kHz in stereo, resampled), the resnet-1.1c artifact's missing
+meta.json, `--prelim` (of every network type the port added last), a tiny
+`--train --infer --test --spect_dist` run, `--infer` with the "block"
+attention, and the flags whose paths the port does not have."""
 
 import dataclasses
 import os
@@ -47,6 +49,10 @@ COMMAND_LINES = [
      "--n_filters", "26", "--warmup_steps", "100", "--n_heads", "4",
      "--map_type", "DBNormalCDF", "--dft_precision", "highest", "--tcn_fused", "1",
      "--n_model_shards", "1", "--export_path", "e"],
+    ["--ver", "rdlnet-1.0n", "--train", "1", "--length", "5", "--m_1", "16",
+     "--import_stats", "data/rdlnet-1.0n_inp_tgt.p"],
+    ["--ver", "reslstm-1.0c", "--infer", "1", "--network_type", "ResBiLSTM",
+     "--attention_impl", "block", "--block_q", "64"],
 ]
 
 
@@ -63,12 +69,11 @@ def test_config_from_args_matches_jax(argv):
 
 REFUSED = [
     (["--export", "1", "--n_data_shards", "2"], "A10"), (["--n_data_shards", "2"], "A10"),
-    (["--n_model_shards", "2"], "A10"), (["--import_stats", "x.p"], "A9"),
+    (["--n_model_shards", "2"], "A10"),
     (["--inp_tgt_type", "MagPhonemes"], "A11"),
     (["--map_type", "NormalCDF", "--inp_tgt_type", "MagPhonme"], "A11"),
-    (["--attention_impl", "block"], "A9"), (["--out_type", "hybrid_omlsa"], "A11"),
+    (["--out_type", "hybrid_omlsa"], "A11"),
     (["--out_type", "pho"], "A11"), (["--out_type", "tracking_vts"], "A11"),
-    (["--ver", "reslstm-1.0c"], "A9"), (["--length", "7"], "A9"),
     (["--mixmax_stats", "g.npz"], "A11"), (["--lexicon_path", "lex"], "A11"),
     (["--d_ff", "1024"], "d_ff"), (["--tcn_fused", "0"], "tcn_fused"),
     (["--platform", "tpu"], "cuda"),
@@ -99,6 +104,26 @@ def test_prelim_converges(capsys):
     assert cli.main(["--prelim", "1", "--platform", "cpu"]) == 0
     line = [ln for ln in capsys.readouterr().out.splitlines() if "mean|pred-target|" in ln]
     assert len(line) == 1 and float(line[0].split()[-1]) < 0.12
+
+
+@pytest.mark.parametrize("network_type", ["MHANet", "ResLSTM", "ResBiLSTM", "RDLNet"])
+def test_prelim_trains_the_new_networks(capsys, network_type):
+    """`--prelim 1 --network_type <type>` on the CPU. The LSTMs and RDLNet
+    reach the prelim test's 0.12 (measured 0.047, 0.038, 0.073). MHANet V1
+    takes the Noam schedule (4000 warmup steps: a rate of 4e-5 at step 60),
+    so it moves little, as the JAX harness's (0.267 after its 50 steps;
+    the port's 0.244): its loss must fall from step 0 to step 50 and its
+    distance stay under 0.3."""
+    assert cli.main(["--prelim", "1", "--platform", "cpu", "--network_type",
+                     network_type]) == 0
+    out = capsys.readouterr().out.splitlines()
+    mae = [float(ln.split()[-1]) for ln in out if "mean|pred-target|" in ln]
+    loss = {ln.split()[2]: float(ln.split()[-1]) for ln in out if ln.startswith("prelim step")}
+    assert len(mae) == 1 and np.isfinite(mae[0])
+    if network_type == "MHANet":
+        assert loss["50:"] < loss["0:"] and mae[0] < 0.3
+    else:
+        assert mae[0] < 0.12
 
 
 def _stereo_44k(src, dst):
@@ -214,3 +239,36 @@ def test_train_infer_test_spect_dist_write_the_jax_files(tmp_path):
     for r in runs.values():
         assert os.path.exists(r / "data" / "tiny_stats.npz")
         assert os.path.isdir(r / "model" / "tiny" / "epoch-0")
+
+
+def test_infer_with_block_attention(tmp_path):
+    """`--train 1 --infer 1 --attention_impl block` on a tiny MHANetV3 (the
+    "block" attention trains and infers, as in the JAX package): the same
+    files as the JAX command line's; each wav within one int16 step of
+    `--infer 1 --attention_impl full` from the same checkpoint."""
+    _dataset(tmp_path / "set")
+    argv = ["--ver", "tiny", "--network_type", "MHANetV3", "--d_model", "16",
+            "--n_blocks", "1", "--n_heads", "4", "--max_len", "128", "--mbatch_size", "2",
+            "--sample_size", "4", "--max_epochs", "1", "--test_epoch", "1", "--min_snr", "0",
+            "--max_snr", "10", "--snr_inter", "5", "--val_flag", "0", "--platform", "cpu",
+            "--block_q", "16", "--set_path", str(tmp_path / "set"),
+            "--test_x_path", str(tmp_path / "set" / "test_noisy_speech")]
+    runs = {}
+    for name, main in (("port", cli.main), ("jax", cli_j.main)):
+        r = tmp_path / name
+        paths = [f"--{k}_path={r / k}" for k in ("data", "model", "log", "out")]
+        assert main(argv + paths + ["--train", "1", "--infer", "1",
+                                    "--attention_impl", "block"]) == 0
+        runs[name] = r
+    assert _written(runs["port"]) == _written(runs["jax"])
+    r = runs["port"]
+    full = [f"--{k}_path={r / k}" for k in ("data", "model", "log")] + \
+        [f"--out_path={r / 'out_full'}", "--infer", "1", "--attention_impl", "full"]
+    assert cli.main(argv + full) == 0
+    wavs = sorted(os.listdir(r / "out" / "tiny" / "e1" / "y" / "mmse-lsa"))
+    assert wavs == ["c0_white_5dB.wav", "c1_white_5dB.wav"]
+    for w in wavs:
+        y = read_wav(str(r / "out" / "tiny" / "e1" / "y" / "mmse-lsa" / w))[0]
+        y_f = read_wav(str(r / "out_full" / "tiny" / "e1" / "y" / "mmse-lsa" / w))[0]
+        assert y.shape == y_f.shape and np.abs(y_f).max() > 30
+        assert np.abs(y.astype(np.int32) - y_f).max() <= 1

@@ -1128,3 +1128,35 @@ def test_plain_resnets_on_the_card(cuda, ver):
     assert (tcn_fused.fused_block_group_whole.launches,
             tcn_fused.fused_block_group.launches) == n
     assert (y - y_c).abs().max().item() <= 1e-4
+
+
+NEW_NETWORKS = [("MHANet", dict(d_model=64, n_blocks=2, n_heads=8)),
+                ("ResLSTM", dict(d_model=64, n_blocks=2)),
+                ("ResBiLSTM", dict(d_model=64, n_blocks=2)),
+                ("RDLNet", dict(n_blocks=3, length=5, m_1=16)),
+                ("MHANetV3", dict(d_model=64, n_blocks=2, n_heads=8, max_len=256,
+                                  attention_impl="block", block_q=64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt,kw", NEW_NETWORKS, ids=[n for n, _ in NEW_NETWORKS])
+def test_new_networks_on_the_card_match_the_cpu(cuda, monkeypatch, nt, kw):
+    """MHANet V1, ResLSTM, ResBiLSTM, RDLNet and the "block" attention at
+    small widths, f32 on the card (TF32 off) against the same network in
+    float64 on the CPU, on two rows of 200 frames, one padded after 130 and
+    the other with an all-zero frame inside: within 1e-4 of the output's
+    scale on the valid frames. (A masked frame's V2/V3 attention row is
+    -1e10 on every key: f32 rounds each logit away, float64 keeps it.)"""
+    from deepxi_tpu_torch.models import init_flax_like as init_any, network_selector
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = init_any(network_selector(nt, 257, 257, **kw), torch.Generator().manual_seed(14))
+    x = torch.rand(2, 200, 257, generator=torch.Generator().manual_seed(15)) + 1e-3
+    x[0, 130:] = 0.0
+    x[1, 60] = 0.0
+    with torch.no_grad():
+        y64 = net.double()(x.double())
+        y = net.float().to(cuda)(x.to(cuda)).cpu().double()
+    valid = (x != 0).any(-1)
+    assert torch.isfinite(y).all() and y.shape == y64.shape
+    assert (y - y64)[valid].abs().max().item() <= 1e-4 * y64[valid].abs().max().item()

@@ -4,7 +4,7 @@ Config field both packages have takes the same value for command lines with
 `--inp_tgt_type` of each family, `--map_type`/`--map_params`,
 `--saved_data_path`, `--T_s` with N_d != 2 N_s and the presets
 resnet-1.1n, resnet-1.0c and resnet-1.0n; `--prelim 1` trains ResNet and
-ResNetV3; MagPhonemes still raises and names A11."""
+ResNetV3; MagPhonemes still raises and names A11, more than one shard A10."""
 
 import dataclasses
 
@@ -59,8 +59,8 @@ def test_prelim_trains_the_other_resnets(capsys, network_type):
 
 @pytest.mark.parametrize("argv", [["--inp_tgt_type", "MagPhonemes"],
                                   ["--inp_tgt_type", "MagPhonme", "--train", "1"],
-                                  ["--out_type", "pho"], ["--ver", "rdlnet-1.0n"]])
+                                  ["--out_type", "pho"], ["--n_data_shards", "2"]])
 def test_what_remains_refused_names_its_item(argv):
-    item = "A9" if "rdlnet-1.0n" in argv else "A11"
+    item = "A10" if "--n_data_shards" in argv else "A11"
     with pytest.raises(SystemExit, match=item):
         cli.main(argv + ["--platform", "cpu"])
