@@ -162,6 +162,23 @@ Phases (any failure exits non-zero before the result line):
      spectral kernel (1e-3; B2 one an utterance on xi_hat, B3 on d_hat, none
      on the batched `y`, counted a call), and `make_enhancer` at B=1 x 4 s
      and B=96 x 10 s timed beside the predictions;
+  3m. the hybrid and classical modes and the phoneme classifier
+     (tools/torch_hybrid.py), at resnet-1.1c's widths with 98 classes, the
+     MixMax Gaussians of 98 classes and VTS with K = 98, L = 2 built from a
+     labelled synthetic corpus (tools/torch_build_gaussians.py): three
+     MagPhonemes `DeepXiTorch.train` steps at B=8 x 4.096 s through B5/B6
+     (losses finite and falling; first-step gradients against float64
+     autograd along B5's trajectory, 2e-4), the kernels' network output
+     against the plain network (1e-3), `infer` of `pho` (against the plain
+     route, 1e-3), `y` with OM-LSA, `hybrid_mixmax` with the network's
+     posteriors (B1, B2, B4 counted a call), `hybrid_omlsa`,
+     `tracking_hist` and `tracking_vts` (no kernel) on the resnet artifact's
+     4 s utterance and the same tiled 5x, every mode's waveform (and
+     OM-LSA with MCRA-2 and IMCRA, the histogram's variants 0 and 2, MixMax
+     with and without posteriors and noise tracking) against the same call
+     on the CPU in float64 (1e-4 of its scale), `--infer 1 --out_type
+     tracking_hist` on the card, the trackers under sync-debug "error", and
+     each mode's ms and device operations at B=1 x 4 s;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -1893,6 +1910,17 @@ def main():
     nets = torch_networks.networks_phase(dev, fail, card)
     print(f"[3l] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
 
+    # 3m. the hybrid and classical modes and the phoneme classifier
+    # (tools/torch_hybrid.py): MagPhonemes trained three steps through B5/B6,
+    # `infer` of pho, y (OM-LSA) and hybrid_mixmax with the network's
+    # posteriors (B1, B2, B4 counted a call: zeroed just before it), every
+    # mode against the CPU in float64, `--infer`, the trackers under
+    # sync-debug "error", each mode's time at B=1 x 4 s
+    import torch_hybrid
+    t0 = time.perf_counter()
+    hyb = torch_hybrid.hybrid_phase(dev, fail, card)
+    print(f"[3m] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -2371,6 +2399,8 @@ def main():
             row["families_launches"] = fams["launches"][family_key]
         if family_key in ("B2", "B3") and family_key in nets["launches"]:
             row["networks_launches"] = nets["launches"][family_key]
+        if family_key in hyb["launches"]:
+            row["hybrid_launches"] = hyb["launches"][family_key]
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,9 @@
     python -m deepxi_tpu_torch --enhance artifacts/mhanet-1.1c-big2400-e400 --in_wavs a.wav
     python -m deepxi_tpu_torch --ver resnet-1.1c --export 1 --test_epoch 200
     python -m deepxi_tpu_torch --prelim 1 --platform cpu
+    python -m deepxi_tpu_torch --inp_tgt_type MagPhonemes --train 1 --ali_path a.ali \
+        --lexicon_path lexicon.txt
+    python -m deepxi_tpu_torch --infer 1 --out_type hybrid_mixmax --mixmax_stats g.npz
 
 The parser takes every flag of the JAX package's, so a command line written
 for one parses in the other, and gives the same Config values for every
@@ -128,11 +131,6 @@ def build_parser() -> argparse.ArgumentParser:
 _REFUSED = (
     ("n_data_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
     ("n_model_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
-    ("Noutp", (None,), "MagPhonemes is ROADMAP item A11"),
-    ("ali_path", (None,), "MagPhonemes is ROADMAP item A11"),
-    ("lexicon_path", (None,), "MagPhonemes is ROADMAP item A11"),
-    ("mixmax_stats", (None,), "hybrid inference is ROADMAP item A11"),
-    ("vts_stats", (None,), "hybrid inference is ROADMAP item A11"),
     ("d_b", (None,), "no network of either package reads d_b"),
     ("d_ff", (None,), "no network of either package reads d_ff (MHANet's FFN is "
                       "4 d_model)"),
@@ -143,22 +141,12 @@ _REFUSED = (
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise SystemExit naming the ROADMAP item for a flag whose path the
-    port does not have: more than one shard, MagPhonemes, the hybrid and
-    phoneme modes' inputs and out_types; and for `--d_b`, `--d_ff` (read by
-    no network) and `--tcn_fused 0`."""
-    if args.inp_tgt_type in ("MagPhonemes", "MagPhonme"):
-        raise SystemExit(f"--inp_tgt_type {args.inp_tgt_type}: not in the port yet: the "
-                         "phoneme classifier is ROADMAP item A11")
+    port does not have: more than one shard (A10); and for `--d_b`, `--d_ff`
+    (read by no network) and `--tcn_fused 0`."""
     for flag, allowed, why in _REFUSED:
         v = getattr(args, flag)
         if v not in allowed:
             raise SystemExit(f"--{flag} {v}: not in the port yet: {why}")
-    out_type = args.out_type
-    if out_type is not None:
-        from deepxi_tpu_torch.framework import UNPORTED_OUT_TYPES
-        if out_type in UNPORTED_OUT_TYPES:
-            raise SystemExit(f"--out_type {out_type}: not in the port yet: ROADMAP item "
-                             f"{UNPORTED_OUT_TYPES[out_type]}")
     if args.platform is not None and args.platform not in PLATFORMS:
         raise SystemExit(f"--platform {args.platform}: the port runs on "
                          f"{', '.join(PLATFORMS)}")
@@ -256,13 +244,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.export):
             return 0
 
-    from deepxi_tpu_torch.data.listing import batch_list
-    from deepxi_tpu_torch.framework import DeepXiTorch
+    from deepxi_tpu_torch.data.listing import batch_list, batch_list_labelled
+    from deepxi_tpu_torch.framework import PHONEME_TYPES, DeepXiTorch
 
     train_s_list = train_d_list = None
     if cfg.train:
-        train_s_list = batch_list(os.path.join(cfg.set_path, "train_clean_speech"),
-                                  "clean_speech", cfg.data_path)
+        clean_dir = os.path.join(cfg.set_path, "train_clean_speech")
+        if cfg.inp_tgt_type in PHONEME_TYPES:
+            # the labelled list of a forced alignment and a lexicon
+            if not (cfg.ali_path and cfg.lexicon_path):
+                print("MagPhonemes training needs --ali_path and --lexicon_path")
+                return 1
+            train_s_list = batch_list_labelled(clean_dir, cfg.ali_path, cfg.lexicon_path,
+                                               "clean_speech", cfg.data_path,
+                                               frame_ms=cfg.T_s)
+        else:
+            train_s_list = batch_list(clean_dir, "clean_speech", cfg.data_path)
         train_d_list = batch_list(os.path.join(cfg.set_path, "train_noise"),
                                   "noise", cfg.data_path)
 

@@ -1,7 +1,8 @@
 """Typed configuration, the command line's flag parsers and the presets the
 port runs (follows deepxi_tpu/config.py; the fields of the modes the port
-has: training, offline inference, objective testing, spectral distortion
-and the prelim harness): every preset of the JAX package, resnet-1.1c,
+has: training, offline inference with the hybrid and phoneme modes,
+objective testing, spectral distortion and the prelim harness; not the
+device mesh's): every preset of the JAX package, resnet-1.1c,
 resnet-1.1n, resnet-1.0c, resnet-1.0n, mhanet-1.1c, mhanet-1.0c,
 rdlnet-1.0n and reslstm-1.0c, and their DEMAND VoiceBank variants (`-vb`:
 SNR 0..15 dB in steps of 5, no validation set, test epoch 125)."""
@@ -100,6 +101,7 @@ class Config:
     unit_type: Optional[str] = None
     outp_act: str = "Sigmoid"
     max_len: Optional[int] = None
+    Noutp: Optional[int] = None    # MagPhonemes' class count (default 98)
     # MHANet attention: "full" (the plain [B, H, T, T] reference), "block"
     # (query blocks of block_q, plain; O(T block_q) memory), "fused"
     # (ops/kernels/mha_fused.py) or "stream" (ops/kernels/mha_flash_stream.py)
@@ -126,6 +128,16 @@ class Config:
     # MagGamma's `y`: a directory of saved xi_hat .mat files (`infer` of a
     # MagXi model), one per test utterance
     saved_data_path: Optional[str] = None
+
+    # the phoneme classifier (MagPhonemes): the forced alignment and the
+    # lexicon of the labelled training list (data.listing.batch_list_labelled)
+    ali_path: Optional[str] = None
+    lexicon_path: Optional[str] = None
+
+    # the hybrid modes' Gaussians (tools/torch_build_gaussians.py): the
+    # per-phoneme log-STMS statistics of hybrid_mixmax and tracking_vts
+    mixmax_stats: Optional[str] = None
+    vts_stats: Optional[str] = None
 
     # paths
     model_path: str = "model"

@@ -2,7 +2,8 @@
 deepxi_tpu/data/listing.py; wav files only).
 
   * training lists are ``{file_path, wav_len}`` dicts gathered by glob over
-    ``*.wav``, pickle-cached per hostname under ``data_path``;
+    ``*.wav``, pickle-cached per hostname under ``data_path``; a labelled
+    list's items also carry per-frame phoneme `labels` (MagPhonemes);
   * validation pairs are identically named clean/noise files whose basename
     ends in ``_<snr>dB``, mixed at the filename SNR;
   * the test set is every ``*.wav`` of a directory, padded to the longest.
@@ -32,6 +33,41 @@ def batch_list(file_dir: str, list_name: str, data_path: str = "data") -> List[D
             return cached
     out = [{"file_path": p, "wav_len": wav_length(p)}
            for p in sorted(glob.glob(os.path.join(file_dir, "*.wav")))]
+    os.makedirs(data_path, exist_ok=True)
+    with open(cache, "wb") as f:
+        pickle.dump(out, f)
+    return out
+
+
+def batch_list_labelled(file_dir: str, ali_path: str, lexicon_path: str,
+                        list_name: str, data_path: str = "data", frame_ms: float = 16.0
+                        ) -> List[Dict]:
+    """The training list of `file_dir` with per-frame phoneme labels from a
+    forced alignment (`dsp.labels.read_alignment`) and a lexicon
+    (`dsp.phoneme.Phoneme`): each utterance the alignment has gets
+    `labels`, int32 token ids at the STFT hop of `frame_ms` (16 samples a
+    ms; uncovered frames take the '|' token); the others are left out.
+    Pickle-cached per hostname as `batch_list` is."""
+    from deepxi_tpu_torch.dsp.labels import frame_labels, read_alignment
+    from deepxi_tpu_torch.dsp.phoneme import Phoneme
+
+    cache = os.path.join(data_path, f"{list_name}_labelled_list_{platform.node()}.p")
+    if os.path.exists(cache):
+        with open(cache, "rb") as f:
+            cached = pickle.load(f)
+        if cached and cached[0]["file_path"].find(file_dir) != -1:
+            return cached
+    ph = Phoneme(lexicon_path)
+    ali = read_alignment(ali_path)
+    out = []
+    for item in batch_list(file_dir, list_name, data_path):
+        key = os.path.splitext(os.path.basename(item["file_path"]))[0]
+        if key not in ali:
+            continue
+        n_frames = -(-item["wav_len"] // int(16 * frame_ms))
+        labels = frame_labels(ali[key], n_frames, ph.tkn_dict.entry2Index,
+                              frame_ms=frame_ms, fill="|")
+        out.append(dict(item, labels=np.asarray(labels, np.int32)))
     os.makedirs(data_path, exist_ok=True)
     with open(cache, "wb") as f:
         pickle.dump(out, f)

@@ -37,7 +37,10 @@ class _Failed:
 
 
 class MiniBatchLoader:
-    """Yields (s, d, s_len, d_len, snr) int16/int32/float32 host batches.
+    """Yields (s, d, s_len, d_len, snr) int16/int32/float32 host batches,
+    and where every item of a batch has `labels` (as a `batch_list_labelled`
+    list's do) a sixth, the labels [B, L / N_s] int32 at the frame rate,
+    zero past each list's labels.
 
     Per epoch the clean list is shuffled; for each utterance a noise file at
     least as long is drawn uniformly, then a random crop of it to the padded
@@ -66,6 +69,8 @@ class MiniBatchLoader:
         d = np.zeros((B, L), np.int16)
         s_len = np.zeros(B, np.int32)
         d_len = np.zeros(B, np.int32)
+        labelled = all("labels" in it for it in s_items)
+        labels = np.zeros((B, L // self.N_s), np.int32) if labelled else None
         d_items = []
         for i, item in enumerate(s_items):
             n = min(item["wav_len"], L)
@@ -81,6 +86,9 @@ class MiniBatchLoader:
             off = int(self.rng.integers(0, dn - L + 1)) if dn > L else 0
             d_items.append((d_item["file_path"], off))
             d_len[i] = min(dn, L)
+            if labelled:
+                lab = item["labels"][:labels.shape[1]]
+                labels[i, :len(lab)] = lab
         for i, item in enumerate(s_items):
             wav = read_wav(item["file_path"])[0][:L]
             s[i, :len(wav)] = wav
@@ -88,6 +96,8 @@ class MiniBatchLoader:
             wav = read_wav(path)[0][off:off + L]
             d[i, :len(wav)] = wav
         snr = self.rng.choice(self.snr_levels, B).astype(np.float32)
+        if labelled:
+            return s, d, s_len, d_len, snr, labels
         return s, d, s_len, d_len, snr
 
     def epoch(self, epoch_idx: int) -> Iterator[Tuple[np.ndarray, ...]]:

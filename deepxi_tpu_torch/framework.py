@@ -1,8 +1,8 @@
-"""Framework facade: map statistics, the training loop, offline
-inference, objective testing, the spectral-distortion study and the serving
-export (follows deepxi_tpu/framework.py; every network of the JAX
-selector, every input/target family but MagPhonemes, every map; there is no
-device mesh, no hybrid mode and no phoneme mode).
+"""Framework facade: map statistics, the training loop (the phoneme
+classifier's too), offline inference with the hybrid and classical modes,
+objective testing, the spectral-distortion study and the serving export
+(follows deepxi_tpu/framework.py; every network of the JAX selector, every
+input/target family, every map; there is no device mesh).
 
 Artifact layout as in the JAX package:
 
@@ -13,7 +13,10 @@ Artifact layout as in the JAX package:
   log/results/*.csv, results.txt   per-condition and average objective
                                    scores, spectral distortion
   out/<ver>/e<epoch>/y/<gain>/     enhanced wavs
-  out/<ver>/e<epoch>/<out_type>/   the other outputs (.mat; d_hat: wavs)
+  out/<ver>/e<epoch>/<out_type>/   the other outputs (.mat; d_hat: wavs;
+                                   pho: .mat and token .csv)
+  out/<ver>/classical/<mode>/      the classical modes' wavs (hybrid_mixmax
+                                   of MagPhonemes under e<epoch>/)
   out/<ver>/e<epoch>/serving/      the serving export (serving.export_enhancer)
 """
 
@@ -41,15 +44,15 @@ from deepxi_tpu_torch.sig import mix as sig_mix
 from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
                                        checkpoint_params, frame_mask,
                                        make_eval_step, make_optimizer,
-                                       make_train_step, restore_checkpoint,
-                                       save_checkpoint)
+                                       make_phoneme_train_step, make_train_step,
+                                       restore_checkpoint, save_checkpoint)
 
-# The MagXi out_types `infer` writes (each family's are its `out_types`);
-# the modes' are named in its error with the ROADMAP item that ports them.
+# The MagXi out_types `infer` writes (each family's are its `out_types`),
+# and the hybrid and classical modes, which `infer` runs for any family.
 OUT_TYPES = MagXi.out_types
-FAMILY_OUT_TYPES = OUT_TYPES + ("mag_hat", "cd_hat")
-UNPORTED_OUT_TYPES = {"pho": "A11", "hybrid_omlsa": "A11", "hybrid_mixmax": "A11",
-                      "tracking_hist": "A11", "tracking_vts": "A11"}
+FAMILY_OUT_TYPES = OUT_TYPES + ("mag_hat", "cd_hat", "pho")
+HYBRID_OUT_TYPES = ("hybrid_omlsa", "hybrid_mixmax", "tracking_hist", "tracking_vts")
+PHONEME_TYPES = ("MagPhonemes", "MagPhonme")
 
 
 def _save_mat(path: str, data: np.ndarray, name: str) -> None:
@@ -113,7 +116,7 @@ class DeepXiTorch:
         self.train_d_list = train_d_list
         self.inp_tgt = inp_tgt_selector(
             cfg.inp_tgt_type, cfg.N_d, cfg.N_s, cfg.K, cfg.f_s, map_type=cfg.map_type,
-            map_params=cfg.map_params,
+            map_params=cfg.map_params, Noutp=cfg.Noutp,
             gain=cfg.gain if isinstance(cfg.gain, str) else cfg.gain[0])
 
         stats_path = os.path.join(cfg.data_path, f"{cfg.ver}_stats.npz")
@@ -244,8 +247,16 @@ class DeepXiTorch:
 
     def train(self, verbose: bool = True) -> List[float]:
         """The training loop; returns the per-epoch mean losses. The final
-        state is kept as `self._state`."""
+        state is kept as `self._state`. MagPhonemes trains the phoneme
+        classifier (`make_phoneme_train_step`) on a labelled clean list
+        (`data.listing.batch_list_labelled`), with no validation set."""
         cfg = self.cfg
+        phoneme_mode = cfg.inp_tgt_type in PHONEME_TYPES
+        if phoneme_mode and not (self.train_s_list and
+                                 all("labels" in it for it in self.train_s_list)):
+            raise ValueError("MagPhonemes training needs a labelled clean list; build it "
+                             "with data.listing.batch_list_labelled (--ali_path/"
+                             "--lexicon_path)")
         if "MHA" in cfg.network_type and cfg.attention_impl in ("fused", "stream"):
             raise ValueError(f"attention_impl {cfg.attention_impl!r} is inference-only "
                              "(its kernels have no backward): train MHANet with 'full' "
@@ -256,12 +267,16 @@ class DeepXiTorch:
         state = TrainState.create(self.init_params(), tx)
         if cfg.resume_epoch > 0:
             state = restore_checkpoint(model_dir, cfg.resume_epoch - 1, state)
-        train_step = make_train_step(self.network, self.inp_tgt, tx,
-                                     cfg.loss_fnc, apply_fn=self.apply_fn())
+        if phoneme_mode:
+            train_step = make_phoneme_train_step(self.network, self.inp_tgt, tx,
+                                                 apply_fn=self.apply_fn())
+        else:
+            train_step = make_train_step(self.network, self.inp_tgt, tx,
+                                         cfg.loss_fnc, apply_fn=self.apply_fn())
         loader = MiniBatchLoader(self.train_s_list, self.train_d_list,
                                  cfg.mbatch_size, cfg.snr_levels, seed=cfg.seed,
                                  N_s=cfg.N_s)
-        val_set = self._build_val_set() if cfg.val_flag else None
+        val_set = self._build_val_set() if cfg.val_flag and not phoneme_mode else None
         eval_step = make_eval_step(self.network, cfg.loss_fnc)
         if cfg.eval_example:
             self._dump_eval_example(loader)
@@ -272,11 +287,13 @@ class DeepXiTorch:
         for epoch in range(cfg.resume_epoch, cfg.max_epochs):
             t0 = time.time()
             step_losses = []
-            for s, d, s_len, d_len, snr in loader.epoch(epoch):
+            for batch in loader.epoch(epoch):
+                s, d, s_len, d_len, snr = batch[:5]
+                labels = [torch.as_tensor(b, device=dev) for b in batch[5:]]
                 state, metrics = train_step(
                     state, torch.as_tensor(s, device=dev),
                     torch.as_tensor(d, device=dev), torch.as_tensor(s_len),
-                    torch.as_tensor(d_len), torch.as_tensor(snr), generator=gen)
+                    torch.as_tensor(d_len), torch.as_tensor(snr), *labels, generator=gen)
                 step_losses.append(metrics["loss"])
             # one device-to-host read per epoch
             mean_loss = float(torch.stack(step_losses).mean()) if step_losses else 0.0
@@ -546,11 +563,8 @@ class DeepXiTorch:
         cfg = self.cfg
         it = self.inp_tgt
         out_type = out_type or cfg.out_type
-        if out_type in UNPORTED_OUT_TYPES:
-            raise ValueError(f"out_type {out_type!r} belongs to a family or mode the "
-                             f"port does not have yet (ROADMAP item "
-                             f"{UNPORTED_OUT_TYPES[out_type]}); it writes "
-                             f"{', '.join(FAMILY_OUT_TYPES)}")
+        if out_type in HYBRID_OUT_TYPES:
+            return self._infer_hybrid(out_type, params, test_x_path, epochs)
         if out_type not in FAMILY_OUT_TYPES:
             raise ValueError(f"Invalid output type: {out_type!r}")
         if out_type not in it.out_types:
@@ -601,7 +615,8 @@ class DeepXiTorch:
         network output of `estimator` and its input, with the noisy phase
         (of the observation) for the families that read |X|, cut to the
         utterance's frames; MagGamma takes `xi_hat` (a saved estimate) when
-        it is given."""
+        it is given, MagPhonemes' gain "mixmax" the Gaussians of
+        `cfg.mixmax_stats`."""
         it = self.inp_tgt
         w = self._padded(wav, length)
         n = it.n_frames(length)
@@ -614,6 +629,8 @@ class DeepXiTorch:
             sup = inp
         kw = {} if xi_hat is None else {
             "xi_hat": torch.as_tensor(xi_hat, dtype=torch.float32, device=self.device)}
+        if gain == "mixmax" and self.cfg.inp_tgt_type in PHONEME_TYPES:
+            kw["mixmax_model"] = self._load_mixmax_model()
         with torch.no_grad():
             return it.enhanced_speech(inp, sup, tgt_hat, gain, **kw).cpu().numpy()
 
@@ -641,7 +658,11 @@ class DeepXiTorch:
         tgt_hat, inp = self.estimator()(params, self._padded(wav, length))
         tgt_hat, inp = tgt_hat[0, :n], inp[0, :n]
         key = out_type
-        if out_type in ("xi_hat", "gamma_hat", "mag_hat", "cd_hat"):
+        if out_type == "pho":
+            key, data = "pho_post", tgt_hat
+            if cfg.lexicon_path:
+                self._write_tokens(os.path.join(out_dir, name + ".csv"), tgt_hat)
+        elif out_type in ("xi_hat", "gamma_hat", "mag_hat", "cd_hat"):
             data = getattr(it, out_type)(tgt_hat)
         elif out_type == "deepmmse":
             key = "d_psd_hat"
@@ -654,6 +675,108 @@ class DeepXiTorch:
         path = os.path.join(out_dir, name + ".mat")
         _save_mat(path, data.cpu().numpy() if torch.is_tensor(data) else data, key)
         return path
+
+    def _write_tokens(self, path: str, posteriors: torch.Tensor) -> None:
+        """The lexicon token (`cfg.lexicon_path`, parsed once) of each frame's
+        most likely class, a line a frame."""
+        if getattr(self, "_pho_mapper", None) is None:
+            from deepxi_tpu_torch.dsp.phoneme import Phoneme
+            self._pho_mapper = Phoneme(self.cfg.lexicon_path)
+        index2entry = self._pho_mapper.tkn_dict.index2Entry
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            for i in posteriors.argmax(dim=-1).cpu().numpy():
+                f.write(index2entry[int(i)] + "\n")
+
+    def _load_mixmax_model(self):
+        """The MixMax Gaussians of `cfg.mixmax_stats` (an npz of
+        means/stds/probs, per-phoneme log-STMS statistics;
+        tools/torch_build_gaussians.py) on the device."""
+        if not self.cfg.mixmax_stats:
+            raise ValueError("MixMax needs --mixmax_stats (npz with means/stds/"
+                             "probs; see tools/torch_build_gaussians.py)")
+        from deepxi_tpu_torch.dsp.mixmax import gaussians_from_stats
+        z = np.load(self.cfg.mixmax_stats)
+        return gaussians_from_stats(z["means"], z["stds"], z["probs"], device=self.device)
+
+    def _load_vts_model(self):
+        """The VTS model of `cfg.vts_stats` (an npz of x_mu/x_sigma/prio_p/
+        g_mu/g_sigma), its noise components jittered with `cfg.seed`."""
+        if not self.cfg.vts_stats:
+            raise ValueError("tracking_vts needs --vts_stats (npz with x_mu/x_sigma/"
+                             "prio_p/g_mu/g_sigma)")
+        from deepxi_tpu_torch.dsp.vts import make_model
+        z = np.load(self.cfg.vts_stats)
+        return make_model(z["x_mu"], z["x_sigma"], z["prio_p"], z["g_mu"], z["g_sigma"],
+                          seed=self.cfg.seed, device=self.device)
+
+    def hybrid_enhancer(self, out_type: str,
+                        params: Optional[Dict[str, torch.Tensor]] = None) -> Callable:
+        """`enhance(x_int16[1, L]) -> y[(T - 1) N_s + N_d]` of one hybrid or
+        classical mode on the device:
+
+          hybrid_omlsa   MCRA-tracked OM-LSA
+          hybrid_mixmax  per-phoneme MixMax with noise tracking; for a
+                         MagPhonemes model with the network's posteriors
+                         (`estimator`: the kernels' forward on |X| of the
+                         fused spectral kernel), `params` its weights
+          tracking_hist  spectral subtraction of the histogram tracker
+          tracking_vts   VTS/GMM model compensation"""
+        from deepxi_tpu_torch import hybrid_infer
+        cfg = self.cfg
+        dims = dict(N_d=cfg.N_d, N_s=cfg.N_s, K=cfg.K)
+        dev = self.device
+
+        def wav(x):
+            return torch.as_tensor(x, device=dev)[0]
+
+        if out_type == "hybrid_omlsa":
+            return lambda x: hybrid_infer.enhance_omlsa(wav(x), **dims)
+        if out_type == "tracking_hist":
+            return lambda x: hybrid_infer.enhance_tracking_histogram(wav(x), **dims)
+        if out_type == "tracking_vts":
+            model = self._load_vts_model()
+            return lambda x: hybrid_infer.enhance_vts(wav(x), model, **dims)
+        if out_type != "hybrid_mixmax":
+            raise ValueError(f"Invalid hybrid mode: {out_type!r}")
+        model = self._load_mixmax_model()
+        if cfg.inp_tgt_type not in PHONEME_TYPES:
+            return lambda x: hybrid_infer.enhance_mixmax(wav(x), model, **dims)
+
+        def enhance(x):
+            posteriors = self.estimator()(params, x)[0][0]
+            return hybrid_infer.enhance_mixmax(wav(x), model, posteriors=posteriors, **dims)
+        return enhance
+
+    def _infer_hybrid(self, out_type: str, params, test_x_path: Optional[str],
+                      epochs: Optional[Sequence[int]]) -> List[str]:
+        """Write the wavs of a hybrid or classical mode
+        (`hybrid_enhancer`) under `out/<ver>/classical/<mode>/`, or for
+        MagPhonemes' hybrid_mixmax under `out/<ver>/e<epoch>/hybrid_mixmax/`
+        for each epoch. Each utterance is padded to its `bucket_length`
+        (every padded frame enters VTS's sums) and its wav cut to
+        (n_frames + 1) N_s samples."""
+        cfg = self.cfg
+        use_net = out_type == "hybrid_mixmax" and cfg.inp_tgt_type in PHONEME_TYPES
+        epochs = list(epochs) if epochs else (
+            cfg.test_epoch if isinstance(cfg.test_epoch, list) else [cfg.test_epoch])
+        x_batch, x_lens, _, names = test_batch(test_x_path or cfg.test_x_path)
+        written: List[str] = []
+        for e in (epochs if use_net else [None]):
+            p = None
+            if use_net:
+                p = params if params is not None else self.load_epoch(e)
+            enhance = self.hybrid_enhancer(out_type, p)
+            out_dir = os.path.join(cfg.out_path, cfg.ver,
+                                   f"e{e}" if use_net else "classical", out_type)
+            for i, name in enumerate(names):
+                n = int(x_lens[i])
+                with torch.no_grad():
+                    y = enhance(self._padded(x_batch[i], n)).cpu().numpy()
+                path = os.path.join(out_dir, name + ".wav")
+                save_wav(path, y[:(self.inp_tgt.n_frames(n) + 1) * cfg.N_s], cfg.f_s)
+                written.append(path)
+        return written
 
     # -- objective testing --------------------------------------------------
 

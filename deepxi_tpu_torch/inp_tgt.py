@@ -14,13 +14,14 @@ reads the network output back (`xi_hat`, `gamma_hat`, `mag_hat`, `cd_hat`,
   MagSMM       STMS -> spectral magnitude mask, clipped to [0, 5]
   MagPhaXiPha  [STMS || STPS] -> [xi_bar || mapped clean STPS]
   STDCTXiCD    STDCT -> [xi_bar || mapped constructive/destructive term]
+  MagPhonemes  STMS -> one-hot per-frame phoneme labels (a classifier);
+               its `y` is OM-LSA or MixMax (`dsp/`)
 
 The families whose synthesis is a real gain on the noisy spectrum give it
 as `synthesis_gain` (`gain_synthesis`); they and MagMag, which replaces the
 magnitude instead, are the `gain_form` families `enhance.make_enhancer`
 takes through `spectrum_hat`. Map statistics are tensors on the
-device the family is used on. MagPhonemes (the phoneme classifier) is
-ROADMAP item A11.
+device the family is used on.
 """
 
 from __future__ import annotations
@@ -441,12 +442,61 @@ class STDCTXiCD(InpTgtBase):
         return self.cd_map.inverse(_halves(tgt_hat)[1])
 
 
+@dataclass(frozen=True)
+class MagPhonemes(InpTgtBase):
+    """STMS input, per-frame phoneme targets: the one-hot of integer labels
+    at the STFT frame rate (`dsp.labels`, through a labelled list and
+    loader); a label outside [0, n_phonemes) is an all-zero row. `y` runs
+    the classical stack: OM-LSA (gain "omlsa", which reads no network
+    output) or MixMax with the network's posteriors (gain "mixmax", given
+    a `dsp.mixmax.MixMaxModel`). `pho` writes the posteriors."""
+    n_phonemes: int = 98
+
+    out_types = ("y", "pho")
+
+    @property
+    def n_outp(self) -> int:
+        return self.n_phonemes
+
+    def example(self, s, d, s_len, d_len, snr, generator=None, offsets=None,
+                labels: Optional[torch.Tensor] = None):
+        """(noisy STMS, one-hot targets [B, T, n_phonemes], frame counts);
+        `labels` [B, >= T] int, cut to T frames (all class 0 without)."""
+        s, d, x, n_frames = self.mix(s, d, s_len, d_len, snr, generator, offsets)
+        x_STMS = self._stms(x)
+        T = x_STMS.shape[1]
+        if labels is None:
+            labels = torch.zeros(x_STMS.shape[:2], dtype=torch.int64, device=x.device)
+        classes = torch.arange(self.n_phonemes, device=x.device)
+        tgt = (labels[:, :T, None].to(x.device) == classes).to(torch.float32)
+        return x_STMS, tgt, n_frames
+
+    def enhanced_speech(self, x_STMS, x_STPS, posteriors, gtype: str = "omlsa",
+                        mixmax_model=None):
+        """The waveform of OM-LSA on the noisy STMS ("omlsa"), or of MixMax
+        of `mixmax_model` with the network's posteriors ("mixmax"), with the
+        noisy phase."""
+        if gtype == "omlsa":
+            from deepxi_tpu_torch.dsp.trackers import omlsa_enhance
+            return self.polar_synthesis(omlsa_enhance(x_STMS), x_STPS)
+        if gtype == "mixmax":
+            if mixmax_model is None:
+                raise ValueError("MagPhonemes mixmax synthesis needs a mixmax_model "
+                                 "(dsp.mixmax.MixMaxModel)")
+            from deepxi_tpu_torch.dsp.mixmax import enhance as mixmax_enhance
+            log_mag = torch.log(torch.clamp(x_STMS, min=float(np.finfo(np.float32).eps)))
+            x_hat = mixmax_enhance(mixmax_model, log_mag, posteriors=posteriors)
+            return self.polar_synthesis(torch.exp(x_hat), x_STPS)
+        raise ValueError(f"MagPhonemes gtype must be omlsa|mixmax, got {gtype!r}")
+
+
 def inp_tgt_selector(inp_tgt_type: str, N_d: int, N_s: int, K: int, f_s: int,
                      **kwargs: Any):
     """A family by name, with its maps from `map_type`/`map_params`: a
     scalar each for the one-map families, two-element lists for the two-map
     ones (MagXiGamma, MagPhaXiPha, STDCTXiCD); MagPhaXiPha's phase map takes
-    [-pi, pi] when its params are not given; MagGain takes `gain`."""
+    [-pi, pi] when its params are not given; MagGain takes `gain`,
+    MagPhonemes (or "MagPhonme") `Noutp` classes (default 98)."""
     dims = dict(N_d=N_d, N_s=N_s, K=K, f_s=f_s)
     mt, mp = kwargs.get("map_type"), kwargs.get("map_params")
     if isinstance(mt, (list, tuple)) and mp is None:
@@ -471,7 +521,6 @@ def inp_tgt_selector(inp_tgt_type: str, N_d: int, N_s: int, K: int, f_s: int,
     if inp_tgt_type == "STDCTXiCD":
         return STDCTXiCD(**dims, xi_map=map_selector(mt[0], mp[0]),
                          cd_map=map_selector(mt[1], mp[1]))
-    if inp_tgt_type in ("MagPhonemes", "MagPhonme"):
-        raise ValueError(f"{inp_tgt_type} (the phoneme classifier) is not in the port "
-                         "yet: ROADMAP item A11")
+    if inp_tgt_type in ("MagPhonemes", "MagPhonme"):  # the fork's typo accepted
+        return MagPhonemes(**dims, n_phonemes=kwargs.get("Noutp") or 98)
     raise ValueError(f"Invalid inp_tgt type: {inp_tgt_type!r}")

@@ -4,6 +4,7 @@ from deepxi_tpu_torch.training.trainer import (ClipAdam, TrainState,
                                                append_loss_csv,
                                                checkpoint_params, frame_mask,
                                                make_eval_step, make_optimizer,
+                                               make_phoneme_train_step,
                                                make_train_step, masked_loss,
                                                restore_checkpoint,
                                                save_checkpoint,
@@ -11,5 +12,5 @@ from deepxi_tpu_torch.training.trainer import (ClipAdam, TrainState,
 
 __all__ = ["ClipAdam", "TrainState", "append_loss_csv", "checkpoint_params",
            "frame_mask",
-           "make_eval_step", "make_optimizer", "make_train_step", "masked_loss",
+           "make_eval_step", "make_optimizer", "make_phoneme_train_step", "make_train_step", "masked_loss",
            "restore_checkpoint", "save_checkpoint", "transformer_schedule"]

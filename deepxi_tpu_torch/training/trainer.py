@@ -117,16 +117,16 @@ def make_train_step(network: torch.nn.Module, inp_tgt, tx: ClipAdam,
     """Build (state, s, d, s_len, d_len, snr, generator=None, offsets=None)
     -> (state, {"loss"}): example synthesis, forward, backward and update.
     `s`, `d` are int16 [B, L] tensors on the device; the noise offsets come
-    from `offsets` or are drawn from `generator`. `apply_fn(params, inp)`
-    replaces the network's own forward, e.g.
-    `tcn_fused_train.resnetv2_apply_fused_train`."""
+    from `offsets` or are drawn from `generator`; further keywords go to
+    `inp_tgt.example`. `apply_fn(params, inp)` replaces the network's own
+    forward, e.g. `tcn_fused_train.resnetv2_apply_fused_train`."""
     net_apply = apply_fn or (lambda p, m: functional_call(network, p, (m,)))
 
     def train_step(state: TrainState, s, d, s_len, d_len, snr,
                    generator: Optional[torch.Generator] = None,
-                   offsets: Optional[torch.Tensor] = None):
+                   offsets: Optional[torch.Tensor] = None, **example_kw):
         inp, tgt, n_frames = inp_tgt.example(s, d, s_len, d_len, snr,
-                                             generator, offsets)
+                                             generator, offsets, **example_kw)
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         pred = net_apply(params, inp)
@@ -139,6 +139,24 @@ def make_train_step(network: torch.nn.Module, inp_tgt, tx: ClipAdam,
             new = dict(zip(keys, torch._foreach_add([state.params[k] for k in keys],
                                                     [updates[k] for k in keys])))
         return TrainState(state.step + 1, new, opt_state), {"loss": loss.detach()}
+
+    return train_step
+
+
+def make_phoneme_train_step(network: torch.nn.Module, inp_tgt, tx: ClipAdam,
+                            apply_fn: Optional[Callable] = None) -> Callable:
+    """The train step of the phoneme classifier (MagPhonemes): (state, s, d,
+    s_len, d_len, snr, labels, generator=None, offsets=None) -> (state,
+    {"loss"}), the masked binary cross-entropy of the network's output
+    against the one-hot of `labels` [B, >= T] (the labelled loader's, at
+    the frame rate). `apply_fn` as in `make_train_step` (the JAX package's
+    step takes the plain network)."""
+    step = make_train_step(network, inp_tgt, tx, "BinaryCrossentropy", apply_fn)
+
+    def train_step(state: TrainState, s, d, s_len, d_len, snr, labels,
+                   generator: Optional[torch.Generator] = None,
+                   offsets: Optional[torch.Tensor] = None):
+        return step(state, s, d, s_len, d_len, snr, generator, offsets, labels=labels)
 
     return train_step
 

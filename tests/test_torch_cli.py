@@ -5,7 +5,9 @@ command lines (the rdlnet-1.0n and reslstm-1.0c presets among them),
 44.1 kHz in stereo, resampled), the resnet-1.1c artifact's missing
 meta.json, `--prelim` (of every network type the port added last), a tiny
 `--train --infer --test --spect_dist` run, `--infer` with the "block"
-attention, and the flags whose paths the port does not have."""
+attention, the phoneme classifier's and the hybrid modes' flags and
+out_types on tiny runs, and the flags whose paths the port does not have
+(the shard flags, A10)."""
 
 import dataclasses
 import os
@@ -16,6 +18,7 @@ import wave
 
 import numpy as np
 import pytest
+from scipy.io import loadmat
 
 from deepxi_tpu import cli as cli_j
 from deepxi_tpu.config import Config as ConfigJ
@@ -26,6 +29,8 @@ from deepxi_tpu_torch.config import Config
 from deepxi_tpu_torch.data.wavio import read_wav, save_wav
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+from torch_hybrid import write_phoneme_corpus  # noqa: E402
 
 COMMAND_LINES = [
     [],
@@ -53,6 +58,11 @@ COMMAND_LINES = [
      "--import_stats", "data/rdlnet-1.0n_inp_tgt.p"],
     ["--ver", "reslstm-1.0c", "--infer", "1", "--network_type", "ResBiLSTM",
      "--attention_impl", "block", "--block_q", "64"],
+    ["--inp_tgt_type", "MagPhonemes", "--train", "1", "--Noutp", "120", "--ali_path", "a.ali",
+     "--lexicon_path", "lex.txt"],
+    ["--inp_tgt_type", "MagPhonme", "--infer", "1", "--out_type", "pho", "--lexicon_path", "l"],
+    ["--infer", "1", "--out_type", "hybrid_mixmax", "--mixmax_stats", "g.npz"],
+    ["--infer", "1", "--out_type", "tracking_vts", "--vts_stats", "g.npz", "--seed", "4"],
 ]
 
 
@@ -67,14 +77,19 @@ def test_config_from_args_matches_jax(argv):
         assert getattr(cfg, name) == getattr(cfg_j, name), name
 
 
+# The phoneme classifier's and the hybrid modes' flags run (A11); beside a
+# shard flag they still refuse, naming A10.
 REFUSED = [
     (["--export", "1", "--n_data_shards", "2"], "A10"), (["--n_data_shards", "2"], "A10"),
     (["--n_model_shards", "2"], "A10"),
-    (["--inp_tgt_type", "MagPhonemes"], "A11"),
-    (["--map_type", "NormalCDF", "--inp_tgt_type", "MagPhonme"], "A11"),
-    (["--out_type", "hybrid_omlsa"], "A11"),
-    (["--out_type", "pho"], "A11"), (["--out_type", "tracking_vts"], "A11"),
-    (["--mixmax_stats", "g.npz"], "A11"), (["--lexicon_path", "lex"], "A11"),
+    (["--inp_tgt_type", "MagPhonemes", "--n_data_shards", "2"], "A10"),
+    (["--map_type", "NormalCDF", "--inp_tgt_type", "MagPhonme", "--n_model_shards", "4"],
+     "A10"),
+    (["--out_type", "hybrid_omlsa", "--n_data_shards", "2"], "A10"),
+    (["--out_type", "pho", "--n_model_shards", "2"], "A10"),
+    (["--out_type", "tracking_vts", "--n_data_shards", "8"], "A10"),
+    (["--mixmax_stats", "g.npz", "--n_model_shards", "2"], "A10"),
+    (["--lexicon_path", "lex", "--n_data_shards", "2"], "A10"),
     (["--d_ff", "1024"], "d_ff"), (["--tcn_fused", "0"], "tcn_fused"),
     (["--platform", "tpu"], "cuda"),
 ]
@@ -272,3 +287,87 @@ def test_infer_with_block_attention(tmp_path):
         y_f = read_wav(str(r / "out_full" / "tiny" / "e1" / "y" / "mmse-lsa" / w))[0]
         assert y.shape == y_f.shape and np.abs(y_f).max() > 30
         assert np.abs(y.astype(np.int32) - y_f).max() <= 1
+
+
+def _phoneme_argv(root):
+    """A tiny MagPhonemes command line on `write_phoneme_corpus(root)` with
+    its Gaussians (tools/torch_build_gaussians.py)."""
+    import torch_build_gaussians
+    write_phoneme_corpus(str(root))
+    g = str(root / "gaussians.npz")
+    if not os.path.exists(g):
+        assert torch_build_gaussians.main([
+            "--clean", str(root / "set" / "train_clean_speech"), "--ali",
+            str(root / "train.ali"), "--lexicon", str(root / "lexicon.txt"), "--noise",
+            str(root / "set" / "train_noise"), "--out", g, "--platform", "cpu"]) == 0
+    return ["--ver", "tiny", "--inp_tgt_type", "MagPhonemes", "--network_type", "ResNetV2",
+            "--d_model", "16", "--n_blocks", "2", "--d_f", "8", "--k", "3",
+            "--max_d_rate", "2", "--unit_type", "ReLU->LN->W+b", "--mbatch_size", "2",
+            "--max_epochs", "1", "--test_epoch", "1", "--min_snr", "0", "--max_snr", "10",
+            "--snr_inter", "5", "--val_flag", "0", "--platform", "cpu",
+            "--set_path", str(root / "set"), "--test_x_path", str(root / "test"),
+            "--ali_path", str(root / "train.ali"), "--lexicon_path", str(root / "lexicon.txt"),
+            "--mixmax_stats", g, "--vts_stats", g]
+
+
+def test_phoneme_classifier_trains_and_infers(tmp_path):
+    """`--inp_tgt_type MagPhonemes --train 1 --infer 1 --out_type pho` and
+    then `--out_type hybrid_mixmax` (the network's posteriors) from the
+    checkpoint: both packages write the same files (the loss CSV, a
+    checkpoint of epoch 0, each test utterance's posteriors [frames, 98] and
+    token CSV, the wavs under e1/hybrid_mixmax), and without
+    `--ali_path` training stops with rc 1. (Each package starts from its own
+    initial weights: the values are held to JAX's in
+    tests/test_torch_hybrid.py.)"""
+    argv = _phoneme_argv(tmp_path)
+    runs = {}
+    for name, main in (("port", cli.main), ("jax", cli_j.main)):
+        r = tmp_path / name
+        paths = [f"--{k}_path={r / k}" for k in ("data", "model", "log", "out")]
+        assert main(argv + paths + ["--train", "1", "--infer", "1", "--out_type", "pho"]) == 0
+        assert main(argv + paths + ["--infer", "1", "--out_type", "hybrid_mixmax"]) == 0
+        runs[name] = r
+    files = _written(runs["port"])
+    assert files == _written(runs["jax"])
+    assert {"log/loss/tiny.csv", "out/tiny/e1/pho/t0_pink_5dB.mat",
+            "out/tiny/e1/pho/t1_white_0dB.csv",
+            "out/tiny/e1/hybrid_mixmax/t1_white_0dB.wav"} <= set(files)
+    assert os.path.exists(runs["port"] / "model" / "tiny" / "epoch-0" / "state.pt")
+    for name in ("t0_pink_5dB", "t1_white_0dB"):
+        post = loadmat(runs["port"] / "out" / "tiny" / "e1" / "pho" / f"{name}.mat")["pho_post"]
+        post_j = loadmat(runs["jax"] / "out" / "tiny" / "e1" / "pho" / f"{name}.mat")["pho_post"]
+        assert post.shape == post_j.shape and post.shape[1] == 98
+        assert ((post > 0) & (post < 1)).all()
+        tokens = open(runs["port"] / "out" / "tiny" / "e1" / "pho" / f"{name}.csv").read()
+        assert len(tokens.split()) == post.shape[0]
+    bad = [a for a in argv if a != "--ali_path" and not a.endswith("train.ali")]
+    assert cli.main(bad + ["--train", "1", "--data_path", str(tmp_path / "d2")]) == 1
+
+
+CLASSICAL = ["hybrid_omlsa", "tracking_hist", "tracking_vts", "hybrid_mixmax"]
+
+
+@pytest.mark.parametrize("out_type", CLASSICAL)
+def test_classical_modes_match_jax(tmp_path, out_type):
+    """`--infer 1 --out_type <mode>` without a network (hybrid_mixmax of a
+    MagXi model: MixMax with the Gaussians' prior): the same wavs as the
+    JAX command line's, each within one int16 step."""
+    argv = _phoneme_argv(tmp_path) + ["--infer", "1", "--out_type", out_type]
+    if out_type == "hybrid_mixmax":
+        argv += ["--inp_tgt_type", "MagXi"]
+    runs = {}
+    for name, main in (("port", cli.main), ("jax", cli_j.main)):
+        r = tmp_path / name
+        if out_type == "hybrid_mixmax":
+            os.makedirs(r / "data")
+            np.savez(r / "data" / "tiny_stats.npz", **{
+                "xi_map.mu": np.zeros(257, np.float32), "xi_map.sigma": np.ones(257, np.float32)})
+        assert main(argv + [f"--{k}_path={r / k}" for k in ("data", "model", "log", "out")]
+                    ) == 0
+        runs[name] = r
+    files = _written(runs["port"])
+    assert files == _written(runs["jax"]) == [
+        f"out/tiny/classical/{out_type}/{n}.wav" for n in ("t0_pink_5dB", "t1_white_0dB")]
+    for f in files:
+        y, y_j = read_wav(str(runs["port"] / f))[0], read_wav_j(str(runs["jax"] / f))[0]
+        assert y.shape == y_j.shape and np.abs(y.astype(np.int32) - y_j).max() <= 1, f

@@ -1160,3 +1160,46 @@ def test_new_networks_on_the_card_match_the_cpu(cuda, monkeypatch, nt, kw):
     valid = (x != 0).any(-1)
     assert torch.isfinite(y).all() and y.shape == y64.shape
     assert (y - y64)[valid].abs().max().item() <= 1e-4 * y64[valid].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_tracker_and_mixmax_on_the_card_match_float64(cuda):
+    """MCRA and IMCRA OM-LSA, and MixMax with noise tracking and posteriors,
+    on the card in float32 under `set_sync_debug_mode("error")` (no frame
+    loop reads back from the card) against the same calls on the CPU in
+    float64: within 1e-4 of each output's scale (float32 against float64 on
+    the CPU: up to 4.3e-6)."""
+    import numpy as np
+
+    from deepxi_tpu_torch.dsp import mixmax, trackers
+    rng = np.random.RandomState(0)
+    T, F, P = 230, 257, 9
+    pwr = np.abs(rng.randn(T, F)) ** 2 * 0.5 + 0.05
+    pwr *= 1 + ((np.sin(np.arange(T) / 9.0) > 0.3)[:, None] * 20 * rng.rand(1, F)
+                * np.abs(rng.randn(T, F)) ** 2)
+    arrays = (rng.randn(P, F) - 2.5, 0.5 + rng.rand(P, F))
+    post = rng.rand(T, P)
+    post /= post.sum(1, keepdims=True)
+
+    def inputs(dev, dtype):
+        t = [torch.tensor(a, dtype=dtype, device=dev) for a in arrays + (post, np.sqrt(pwr))]
+        m, s, p, mag = t
+        mm = mixmax.MixMaxModel(m, s, m[0], s[0], torch.full((P,), 1.0 / P, dtype=dtype,
+                                                               device=dev))
+        return mm, p, mag, torch.log(torch.clamp(mag, min=1.2e-7))
+
+    def run(mm, p, mag, log_mag):
+        return [trackers.omlsa_enhance(mag), trackers.omlsa_enhance(mag, tracker="imcra"),
+                mixmax.enhance(mm, log_mag, p)]
+
+    ref = run(*inputs("cpu", torch.float64))
+    args = inputs(cuda, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda" and g.dtype == torch.float32 and g.shape == r.shape
+        assert (g.double().cpu() - r).abs().max().item() <= 1e-4 * r.abs().max().item()

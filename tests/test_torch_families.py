@@ -1,4 +1,5 @@
-"""Every input/target family but MagPhonemes (`deepxi_tpu_torch.inp_tgt`)
+"""Every input/target family but MagPhonemes (`deepxi_tpu_torch.inp_tgt`;
+MagPhonemes is held in tests/test_torch_hybrid.py)
 against the JAX package's (`deepxi_tpu.inp_tgt`) on the CPU, each with its
 maps: the statistics `with_stats` fits on one seeded sample; `observation`
 and `example` of the same int16 waves (the noise offsets the JAX key draws
@@ -271,5 +272,13 @@ def test_family_routes_follow_the_jax_package(name):
 
 @pytest.mark.parametrize("typ", ["MagPhonemes", "MagPhonme"])
 def test_magphonemes_names_its_roadmap_item(typ):
-    with pytest.raises(ValueError, match="A11"):
-        inp_tgt_selector(typ, **DIMS)
+    """MagPhonemes (ROADMAP item A11, now in the port; the fork's typo too)
+    builds as the JAX selector builds it: 98 classes unless `Noutp`, |X|
+    input, out_types y and pho, no gain-form route."""
+    from deepxi_tpu.inp_tgt import inp_tgt_selector as inp_tgt_selector_j
+    for noutp in (None, 40):
+        it = inp_tgt_selector(typ, **DIMS, Noutp=noutp)
+        it_j = inp_tgt_selector_j(typ, **DIMS, Noutp=noutp)
+        assert type(it).__name__ == type(it_j).__name__ == "MagPhonemes"
+        assert it.n_outp == it_j.n_outp == (noutp or 98) and it.n_feat == it_j.n_feat
+    assert it.out_types == ("y", "pho") and it.mag_input and not it.gain_form

@@ -4,7 +4,8 @@ Config field both packages have takes the same value for command lines with
 `--inp_tgt_type` of each family, `--map_type`/`--map_params`,
 `--saved_data_path`, `--T_s` with N_d != 2 N_s and the presets
 resnet-1.1n, resnet-1.0c and resnet-1.0n; `--prelim 1` trains ResNet and
-ResNetV3; MagPhonemes still raises and names A11, more than one shard A10."""
+ResNetV3; MagPhonemes parses as in the JAX package; more than one shard
+still raises and names A10."""
 
 import dataclasses
 
@@ -33,6 +34,8 @@ COMMAND_LINES = [
     ["--ver", "resnet-1.1n"], ["--ver", "resnet-1.0c", "--test", "1"],
     ["--ver", "resnet-1.0n-vb", "--train", "1"], ["--ver", "resnet-1.1n-vb"],
     ["--network_type", "ResNetV3", "--unit_type", "LN->ReLU->W+b", "--causal", "0"],
+    ["--inp_tgt_type", "MagPhonemes", "--Noutp", "60", "--T_s", "16"],
+    ["--inp_tgt_type", "MagPhonme", "--out_type", "hybrid_omlsa", "--infer", "1"],
 ]
 
 
@@ -57,10 +60,13 @@ def test_prelim_trains_the_other_resnets(capsys, network_type):
     assert len(line) == 1 and float(line[0].split()[-1]) < 0.12
 
 
-@pytest.mark.parametrize("argv", [["--inp_tgt_type", "MagPhonemes"],
-                                  ["--inp_tgt_type", "MagPhonme", "--train", "1"],
-                                  ["--out_type", "pho"], ["--n_data_shards", "2"]])
+@pytest.mark.parametrize("argv", [["--inp_tgt_type", "MagPhonemes", "--n_model_shards", "2"],
+                                  ["--inp_tgt_type", "MagPhonme", "--train", "1",
+                                   "--n_data_shards", "4"],
+                                  ["--out_type", "pho", "--n_model_shards", "8"],
+                                  ["--n_data_shards", "2"]])
 def test_what_remains_refused_names_its_item(argv):
-    item = "A10" if "--n_data_shards" in argv else "A11"
-    with pytest.raises(SystemExit, match=item):
+    """More than one shard (A10) refuses, MagPhonemes' flags beside it or
+    not (MagPhonemes itself runs since A11)."""
+    with pytest.raises(SystemExit, match="A10"):
         cli.main(argv + ["--platform", "cpu"])

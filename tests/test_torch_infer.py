@@ -25,11 +25,11 @@ from deepxi_tpu.framework import DeepXiTPU
 from deepxi_tpu.inp_tgt import inp_tgt_selector
 from deepxi_tpu.models import network_selector
 from deepxi_tpu.sig.mel import mel_filter_bank as mel_filter_bank_j
-from deepxi_tpu_torch.compat.artifact import from_flax_params
+from deepxi_tpu_torch.compat.artifact import FLAGSHIP_ROOT, from_flax_params
 from deepxi_tpu_torch.config import Config, preset
 from deepxi_tpu_torch.data.wavio import read_wav, save_wav
 from deepxi_tpu_torch.enhance import noise_gain
-from deepxi_tpu_torch.framework import OUT_TYPES, UNPORTED_OUT_TYPES, DeepXiTorch
+from deepxi_tpu_torch.framework import HYBRID_OUT_TYPES, OUT_TYPES, DeepXiTorch
 from deepxi_tpu_torch.inp_tgt import MagXi
 from deepxi_tpu_torch.ops.kernels.spectral import enhance_frames_fused_ref, stft_reim
 from deepxi_tpu_torch.ops.maps import NormalCDF
@@ -170,14 +170,22 @@ def test_mask_outputs_match_jax(written, out_type):
 
 
 def test_unported_and_unknown_out_types_raise(tmp_path):
+    """Every out_type is ported (the hybrid modes and `pho` since A11):
+    MagXi refuses MagPhonemes' `pho`, the hybrid modes ask for their
+    Gaussians, and an unknown name raises."""
     np.savez(tmp_path / "tiny_stats.npz", **{"xi_map.mu": np.zeros(257, np.float32),
                                              "xi_map.sigma": np.ones(257, np.float32)})
     dx = DeepXiTorch(Config(ver="tiny", d_model=32, n_blocks=3, d_f=16, k=3,
                             max_d_rate=2, unit_type="ReLU->LN->W+b",
-                            data_path=str(tmp_path)), device="cpu")
-    for out_type in UNPORTED_OUT_TYPES:
-        with pytest.raises(ValueError, match="does not have"):
+                            data_path=str(tmp_path),
+                            test_x_path=FLAGSHIP_ROOT), device="cpu")
+    with pytest.raises(ValueError, match="MagXi has no out_type 'pho'"):
+        dx.infer(params={}, out_type="pho")
+    for out_type, flag in (("hybrid_mixmax", "--mixmax_stats"), ("tracking_vts", "--vts_stats")):
+        with pytest.raises(ValueError, match=flag):
             dx.infer(params={}, out_type=out_type)
+    assert set(HYBRID_OUT_TYPES) == {"hybrid_omlsa", "hybrid_mixmax", "tracking_hist",
+                                     "tracking_vts"}
     with pytest.raises(ValueError, match="Invalid output type"):
         dx.infer(params={}, out_type="x_hat")
     assert OUT_TYPES == ("y", "xi_hat", "gamma_hat", "deepmmse", "ibm_hat",

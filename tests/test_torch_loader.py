@@ -39,10 +39,10 @@ def lists(tmp_path_factory):
             batch_list(str(root / "d"), "noise", str(root / "data")))
 
 
-def _equal(batches, batches_j):
+def _equal(batches, batches_j, n=5):
     assert len(batches) == len(batches_j)
     for b, b_j in zip(batches, batches_j):
-        assert len(b) == len(b_j) == 5
+        assert len(b) == len(b_j) == n
         for u, v in zip(b, b_j):
             assert u.dtype == v.dtype
             np.testing.assert_array_equal(u, v)
@@ -62,6 +62,29 @@ def test_batches_match_jax(lists, mbatch_size, frames_per_bucket, prefetch):
         assert len(got) == -(-len(s_list) // mbatch_size)
         _equal(got, list(b.epoch(epoch)))
         assert all(x[0].shape[1] % (frames_per_bucket * 256) == 0 for x in got)
+
+
+@pytest.mark.parametrize("mbatch_size,frames_per_bucket", [(2, 32), (3, 8)])
+def test_labelled_batches_match_jax(lists, mbatch_size, frames_per_bucket):
+    """Every clean item carries frame labels (as a `batch_list_labelled`
+    list's do): each batch has a sixth member, the labels [B, L / N_s] at
+    the frame rate, bitwise the JAX loader's with `with_labels`; with one
+    item unlabelled, the batches are the five-member ones in both."""
+    s_list, d_list = lists
+    rng = np.random.RandomState(3)
+    s_lab = [dict(it, labels=rng.randint(0, 98, -(-it["wav_len"] // 256)).astype(np.int32))
+             for it in s_list]
+    kw = dict(seed=5, N_s=256, frames_per_bucket=frames_per_bucket)
+    a = MiniBatchLoader(s_lab, d_list, mbatch_size, [0, 5], **kw)
+    b = MiniBatchLoaderJ(s_lab, d_list, mbatch_size, [0, 5], with_labels=True, **kw)
+    got = list(a.epoch(0))
+    _equal(got, list(b.epoch(0)), n=6)
+    assert all(x[5].shape == (x[0].shape[0], x[0].shape[1] // 256) and x[5].any()
+               for x in got)
+    s_lab[0] = s_list[0]
+    a = MiniBatchLoader(s_lab, d_list, len(s_lab), [0, 5], **kw)
+    b = MiniBatchLoaderJ(s_lab, d_list, len(s_lab), [0, 5], with_labels=True, **kw)
+    _equal(list(a.epoch(0)), list(b.epoch(0)))
 
 
 def test_bucket_length_matches_jax():

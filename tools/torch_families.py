@@ -172,15 +172,18 @@ def _crop_grads(dx, s_list, d_list, dev):
     ReLU inputs whose side the two f32 trajectories do not share)."""
     cfg = dx.cfg
     params0 = dx.init_params()
-    s, d, s_len, d_len, snr = next(MiniBatchLoader(
-        s_list, d_list, TRAIN_B, cfg.snr_levels, seed=cfg.seed, N_s=cfg.N_s).epoch(0))
+    batch = next(MiniBatchLoader(s_list, d_list, TRAIN_B, cfg.snr_levels, seed=cfg.seed,
+                                 N_s=cfg.N_s).epoch(0))
+    s, d, s_len, d_len, snr = batch[:5]
+    # a labelled list's batch (MagPhonemes) carries the frame labels
+    labels = {"labels": torch.as_tensor(batch[5], device=dev)} if len(batch) > 5 else {}
     offs = noise_offsets(torch.as_tensor(s_len), torch.as_tensor(d_len),
                          torch.Generator().manual_seed(cfg.seed + 1))
     with torch.no_grad():
         inp, tgt, nf = dx.inp_tgt.example(
             torch.as_tensor(s, device=dev), torch.as_tensor(d, device=dev),
             torch.as_tensor(s_len), torch.as_tensor(d_len), torch.as_tensor(snr),
-            offsets=offs)
+            offsets=offs, **labels)
     inp, tgt = inp[:2, :32].contiguous(), tgt[:2, :32].contiguous()
     mask = frame_mask(inp.shape[1], nf, dev)[:2, :32]
     net = copy.deepcopy(dx.network)
@@ -362,7 +365,7 @@ def _padded_utterances(dx, test_dir):
         yield name, torch.as_tensor(dx._padded(x, len(x)), device=dx.device)
 
 
-def _network_check(dx, params, test_dir, fail) -> str:
+def _network_check(dx, params, test_dir, fail, phase="[3k]") -> str:
     """The kernels' network forward (`fast_apply`, B1/B4) against the plain
     network on each test utterance's network input, padded as infer pads
     it: the largest difference over its frames, NET_ATOL at most."""
@@ -376,8 +379,8 @@ def _network_check(dx, params, test_dir, fail) -> str:
             err = (dx.fast_apply()(params, inp) - functional_call(dx.network, params, (inp,))
                    )[:, :n].abs().max().item()
         if not err <= NET_ATOL:
-            fail(f"[3k] {dx.cfg.inp_tgt_type} {name}: the kernels' network output is {err:.3e} "
-                 "from the plain network's")
+            fail(f"{phase} {dx.cfg.inp_tgt_type} {name}: the kernels' network output is "
+                 f"{err:.3e} from the plain network's")
         msgs.append(f"{name} (T={inp.shape[1]}) {err:.3e}")
     return ", ".join(msgs)
 
