@@ -179,6 +179,17 @@ Phases (any failure exits non-zero before the result line):
      on the CPU in float64 (1e-4 of its scale), `--infer 1 --out_type
      tracking_hist` on the card, the trackers under sync-debug "error", and
      each mode's ms and device operations at B=1 x 4 s;
+  3n. the parallel layer and the DSP utilities (tools/torch_parallel.py) on
+     a one-rank NCCL group (one card: two-card runs need two cards):
+     resnet-1.1c `DeepXiTorch.train` for three steps at B=8 x 4.096 s
+     through B5/B6 on the 1x1 mesh against the same run with no group
+     (losses and parameters within 1e-6), the resnet-1.1c artifact's 4 s
+     utterance tiled to 60 s through `make_seq_sharded_enhancer` (B4, B1 on
+     the head pass) and the mhanet-1.1c artifact's tiled to 36 s through
+     `make_ring_mha_enhancer` against the offline enhancers (WAVE_ATOL), a
+     bundle exported under the 1x1 mesh against one without (bitwise), and
+     the features, adaptive filters (NLMS, LMS, block NLMS at B=1 x 4 s, 64
+     taps) and VAD against the CPU (float64 where it is defined), each timed;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -1921,6 +1932,17 @@ def main():
     hyb = torch_hybrid.hybrid_phase(dev, fail, card)
     print(f"[3m] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
 
+    # 3n. the parallel layer on a one-rank NCCL group and the DSP utilities
+    # (tools/torch_parallel.py): the train run on the 1x1 mesh against the
+    # unsharded one (B5/B6), the sequence-sharded (B1, B4) and ring
+    # enhancers against the offline ones, the 1x1-mesh bundle, features,
+    # adaptive filters and VAD against the CPU; each path's launches counted
+    # (zeroed just before it)
+    import torch_parallel
+    t0 = time.perf_counter()
+    par = torch_parallel.parallel_phase(dev, fail, card)
+    print(f"[3n] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -2401,6 +2423,8 @@ def main():
             row["networks_launches"] = nets["launches"][family_key]
         if family_key in hyb["launches"]:
             row["hybrid_launches"] = hyb["launches"][family_key]
+        if family_key in par["launches"]:
+            row["parallel_launches"] = par["launches"][family_key]
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -10,11 +10,16 @@
         --lexicon_path lexicon.txt
     python -m deepxi_tpu_torch --infer 1 --out_type hybrid_mixmax --mixmax_stats g.npz
 
+    torchrun --nproc_per_node 4 -m deepxi_tpu_torch --train 1 --n_data_shards 4
+
 The parser takes every flag of the JAX package's, so a command line written
 for one parses in the other, and gives the same Config values for every
-field both have. It runs on the CUDA card unless ``--platform cpu``. A flag
-whose path the port does not have yet raises and names the ROADMAP item that
-ports it; none is ignored silently.
+field both have (but `tcn_fused`, on by default in the port). It runs on the
+CUDA card unless ``--platform cpu``. `--d_b` and `--d_ff` are taken and read
+by no network, as in the JAX package. Under a launcher (`torchrun`) `main`
+joins the process group (`parallel.init_distributed`): training runs on the
+("data", "model") mesh of `--n_data_shards` x `--n_model_shards`, one
+process a card, and the other modes run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -98,9 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--map_params", type=str_to_list, default=None)
     # parallelism
     p.add_argument("--n_data_shards", type=int, default=None,
-                   help="more than 1: not in the port yet (ROADMAP item A10)")
+                   help="data-parallel ranks of the training mesh (default "
+                        "gcd(mbatch_size, world size // n_model_shards))")
     p.add_argument("--n_model_shards", type=int, default=None,
-                   help="more than 1: not in the port yet (ROADMAP item A10)")
+                   help="ranks over which the training mesh shards each weight's "
+                        "output channels")
     p.add_argument("--metric_workers", type=int, default=None,
                    help="host metric processes in --test (0=auto, 1=serial)")
     p.add_argument("--platform", type=str, default=None,
@@ -113,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mha_fused", type=str_to_bool, default=None,
                    help="the fused transformer-block kernels in MHANet inference")
     p.add_argument("--tcn_fused", type=str_to_bool, default=None,
-                   help="the fused TCN kernels in ResNetV2 inference: always on in the port")
+                   help="the fused TCN kernels in ResNetV2 inference (default on; 0: "
+                        "the plain network)")
     p.add_argument("--tcn_fused_train", type=str_to_bool, default=None,
                    help="the fused TCN forward/backward kernels in the ResNetV2 train step")
     p.add_argument("--dft_precision", type=str, default=None,
@@ -126,27 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# (flag, the values the port runs, the reason it refuses any other): flags
-# whose path the port does not have yet, each naming its ROADMAP item.
-_REFUSED = (
-    ("n_data_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
-    ("n_model_shards", (None, 1), "sharding over cards is ROADMAP item A10"),
-    ("d_b", (None,), "no network of either package reads d_b"),
-    ("d_ff", (None,), "no network of either package reads d_ff (MHANet's FFN is "
-                      "4 d_model)"),
-    ("tcn_fused", (None, True), "the port's ResNetV2 inference always takes the "
-                                "fused TCN kernels"),
-)
-
-
 def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise SystemExit naming the ROADMAP item for a flag whose path the
-    port does not have: more than one shard (A10); and for `--d_b`, `--d_ff`
-    (read by no network) and `--tcn_fused 0`."""
-    for flag, allowed, why in _REFUSED:
-        v = getattr(args, flag)
-        if v not in allowed:
-            raise SystemExit(f"--{flag} {v}: not in the port yet: {why}")
+    """Raise SystemExit for a `--platform` the port does not run on."""
     if args.platform is not None and args.platform not in PLATFORMS:
         raise SystemExit(f"--platform {args.platform}: the port runs on "
                          f"{', '.join(PLATFORMS)}")
@@ -231,6 +220,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         return run_artifact_enhance(args.enhance, args.in_wavs, args.out_dir, gain,
                                     device=device)
     cfg = config_from_args(argv)
+    from deepxi_tpu_torch.framework import mesh_size
+    from deepxi_tpu_torch.parallel import init_distributed, is_primary
+    init_distributed(backend="gloo" if device == "cpu" else None)
+    mesh_size(cfg)  # a mesh that does not fit the group fails before any work
+    primary = is_primary()
     print(f"Version: {cfg.ver} ({cfg.network_type}, {cfg.inp_tgt_type})")
     if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.prelim
             or cfg.export):
@@ -238,11 +232,17 @@ def main(argv: Optional[List[str]] = None) -> int:
               "--spect_dist 1, --export 1 and/or --prelim 1")
         return 1
 
+    # every rank builds the framework (its mesh is made by all of them);
+    # every mode but training runs on rank 0 alone
+    needs_framework = cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.export
+    if not primary:
+        cfg = cfg.replace(prelim=False, infer=False, test=False, spect_dist=False,
+                          export=False)
     if cfg.prelim:
         from deepxi_tpu_torch.prelim import run_prelim
         run_prelim(cfg.network_type, device=device)
-        if not (cfg.train or cfg.infer or cfg.test or cfg.spect_dist or cfg.export):
-            return 0
+    if not needs_framework:
+        return 0
 
     from deepxi_tpu_torch.data.listing import batch_list, batch_list_labelled
     from deepxi_tpu_torch.framework import PHONEME_TYPES, DeepXiTorch

@@ -50,11 +50,14 @@ def flax_order(keys) -> list:
     return sorted(keys, key=lambda k: tuple(k.split(".")))
 
 
-def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+def from_flax_params(tree: Mapping, mesh=None) -> Dict[str, torch.Tensor]:
     """The JAX package's parameters, as nested dicts of numpy arrays
     ({'params': {module: {leaf: array}}}, nested to any depth), as a flat
     dict of CPU tensors keyed by the dotted path (`module.leaf`). Layouts
-    are shared, so no array is transposed."""
+    are shared, so no array is transposed. With a ("data", "model") `mesh`,
+    this rank's part of each leaf (`parallel.shard_params`), as the JAX
+    package's `shard_params` places the tree; `training.gather_state` and
+    `save_checkpoint` write the whole state back in the usual layout."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -65,6 +68,9 @@ def from_flax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
                 out[prefix + k] = torch.as_tensor(np.array(v))
 
     walk(tree.get("params", tree), "")
+    if mesh is not None:
+        from deepxi_tpu_torch.parallel.mesh import shard_params
+        out = shard_params(mesh, out)
     return out
 
 

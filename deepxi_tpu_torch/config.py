@@ -1,8 +1,6 @@
 """Typed configuration, the command line's flag parsers and the presets the
-port runs (follows deepxi_tpu/config.py; the fields of the modes the port
-has: training, offline inference with the hybrid and phoneme modes,
-objective testing, spectral distortion and the prelim harness; not the
-device mesh's): every preset of the JAX package, resnet-1.1c,
+port runs (follows deepxi_tpu/config.py; every field of the JAX package's Config but
+its TPU knob `dft_precision`): every preset of the JAX package, resnet-1.1c,
 resnet-1.1n, resnet-1.0c, resnet-1.0n, mhanet-1.1c, mhanet-1.0c,
 rdlnet-1.0n and reslstm-1.0c, and their DEMAND VoiceBank variants (`-vb`:
 SNR 0..15 dB in steps of 5, no validation set, test epoch 125)."""
@@ -92,6 +90,8 @@ class Config:
     n_blocks: Optional[int] = None
     n_heads: Optional[int] = None
     d_f: Optional[int] = None
+    d_b: Optional[int] = None   # read by no network of either package
+    d_ff: Optional[int] = None  # read by no network (MHANet's FFN is 4 d_model)
     k: Optional[int] = None
     max_d_rate: Optional[int] = None
     causal: bool = True
@@ -107,6 +107,12 @@ class Config:
     # (ops/kernels/mha_fused.py) or "stream" (ops/kernels/mha_flash_stream.py)
     attention_impl: str = "full"
     block_q: int = 256
+    # the fused TCN kernels of ops/kernels/tcn_fused.py in ResNetV2
+    # inference (framework.tcn_fused_takes). On by default: the JAX
+    # package's default is off (on in its resnet-1.1c presets, as here),
+    # which would take the kernels from the configs without a preset that the
+    # port runs through them.
+    tcn_fused: bool = True
     # the fused forward/backward pair of ops/kernels/tcn_fused_train.py in
     # the train step
     tcn_fused_train: bool = False
@@ -152,6 +158,11 @@ class Config:
     # host metric processes in test(): 0 = one per CPU, 1 = serial
     metric_workers: int = 0
 
+    # the ("data", "model") mesh of training (parallel.make_mesh): data
+    # shards default to gcd(mbatch_size, world size // n_model_shards)
+    n_data_shards: Optional[int] = None
+    n_model_shards: int = 1
+
     @property
     def N_d(self) -> int:
         return int(self.f_s * self.T_d * 0.001)
@@ -179,9 +190,11 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+# The presets carry the JAX package's tcn_fused: on in resnet-1.1c only (the
+# other presets' networks are not the stack the fused TCN kernels compute).
 _COMMON = dict(inp_tgt_type="MagXi", map_type="DBNormalCDF", sample_size=1000,
                f_s=16000, T_d=32, T_s=16, loss_fnc="BinaryCrossentropy",
-               outp_act="Sigmoid", max_epochs=200, mbatch_size=8)
+               outp_act="Sigmoid", max_epochs=200, mbatch_size=8, tcn_fused=False)
 
 # The JAX presets' dft_precision="default" is a TPU bf16 knob; the port's
 # DFT is float32 throughout.
@@ -192,10 +205,10 @@ VERSION_PRESETS: Dict[str, Dict[str, Any]] = {
     "mhanet-1.0c": dict(network_type="MHANetV2", d_model=256, n_blocks=5,
                         n_heads=8, warmup_steps=40000, causal=True,
                         test_epoch=200, **_COMMON),
-    "resnet-1.1c": dict(network_type="ResNetV2", d_model=256, n_blocks=40,
+    "resnet-1.1c": dict(_COMMON, network_type="ResNetV2", d_model=256, n_blocks=40,
                         d_f=64, k=3, max_d_rate=16, causal=True,
-                        unit_type="ReLU->LN->W+b", test_epoch=200,
-                        tcn_fused_train=True, **_COMMON),
+                        unit_type="ReLU->LN->W+b", test_epoch=200, tcn_fused=True,
+                        tcn_fused_train=True),
     "resnet-1.1n": dict(network_type="ResNetV2", d_model=256, n_blocks=40,
                         d_f=64, k=3, max_d_rate=16, causal=False,
                         unit_type="ReLU->LN->W+b", test_epoch=180, **_COMMON),

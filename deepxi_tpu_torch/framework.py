@@ -2,7 +2,9 @@
 classifier's too), offline inference with the hybrid and classical modes,
 objective testing, the spectral-distortion study and the serving export
 (follows deepxi_tpu/framework.py; every network of the JAX selector, every
-input/target family, every map; there is no device mesh).
+input/target family, every map). In a process group (`parallel`) training
+runs on the ("data", "model") mesh of `n_data_shards` x `n_model_shards`,
+one process a card; the other modes run on one card, as in the JAX package.
 
 Artifact layout as in the JAX package:
 
@@ -22,6 +24,7 @@ Artifact layout as in the JAX package:
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import replace
@@ -29,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from deepxi_tpu_torch import resolve_device
@@ -40,12 +44,16 @@ from deepxi_tpu_torch.inp_tgt import MAP_ATTRS, MagXi, inp_tgt_selector
 from deepxi_tpu_torch.models import init_flax_like, network_selector
 from deepxi_tpu_torch.ops.gains import gfunc
 from deepxi_tpu_torch.ops.maps import STATS_FIELDS
+from deepxi_tpu_torch.parallel import is_primary, make_mesh
+from deepxi_tpu_torch.parallel.distributed import process_count
+from deepxi_tpu_torch.parallel.mesh import check_mesh_size
 from deepxi_tpu_torch.sig import mix as sig_mix
 from deepxi_tpu_torch.training import (TrainState, append_loss_csv,
-                                       checkpoint_params, frame_mask,
+                                       checkpoint_params, frame_mask, gather_state,
                                        make_eval_step, make_optimizer,
                                        make_phoneme_train_step, make_train_step,
-                                       restore_checkpoint, save_checkpoint)
+                                       restore_checkpoint, save_checkpoint,
+                                       shard_state, shardings_of)
 
 # The MagXi out_types `infer` writes (each family's are its `out_types`),
 # and the hybrid and classical modes, which `infer` runs for any family.
@@ -69,12 +77,18 @@ def build_network(cfg: Config, n_feat: int, n_outp: int) -> torch.nn.Module:
     return network_selector(cfg.network_type, n_feat, n_outp, **cfg.network_kwargs())
 
 
-def tcn_fused_takes(cfg: Config) -> bool:
-    """Whether the fused TCN kernels compute `cfg`'s network: the causal
-    ResNetV2 with ReLU->LN->W+b units (the others run their plain network,
-    as they run plain XLA in the JAX package)."""
+def tcn_stack_fusable(cfg: Config) -> bool:
+    """Whether `cfg`'s network is the stack the fused TCN kernels compute:
+    the causal ResNetV2 with ReLU->LN->W+b units."""
     return (cfg.network_type == "ResNetV2" and cfg.causal
             and cfg.unit_type == "ReLU->LN->W+b")
+
+
+def tcn_fused_takes(cfg: Config) -> bool:
+    """Whether the fused TCN kernels compute `cfg`'s network in inference:
+    `cfg.tcn_fused` and the stack they compute (the others run their plain
+    network, as they run plain XLA in the JAX package)."""
+    return cfg.tcn_fused and tcn_stack_fusable(cfg)
 
 
 def fast_apply_fn(cfg: Config) -> Optional[Callable]:
@@ -100,18 +114,45 @@ def fast_apply_fn(cfg: Config) -> Optional[Callable]:
     return None
 
 
+def mesh_size(cfg: Config) -> Tuple[int, int]:
+    """(n_data, n_model) of `cfg`'s training mesh: data shards default to
+    gcd(mbatch_size, world size // n_model_shards), as in the JAX package.
+    Raises ValueError where the mesh does not cover the process group (one
+    rank with no group) or the mini-batch does not divide over it."""
+    n_data = cfg.n_data_shards
+    if n_data is None:
+        n_data = math.gcd(cfg.mbatch_size, max(process_count() // cfg.n_model_shards, 1))
+    check_mesh_size(n_data, cfg.n_model_shards)
+    if cfg.mbatch_size % n_data:
+        raise ValueError(f"mbatch_size {cfg.mbatch_size} must divide over the "
+                         f"{n_data}-way data axis")
+    return n_data, cfg.n_model_shards
+
+
+def train_mesh(cfg: Config):
+    """`cfg`'s training mesh (`parallel.make_mesh` of `mesh_size`), or None
+    in a process with no group, where the mesh can only be 1 x 1."""
+    size = mesh_size(cfg)
+    return make_mesh(*size) if dist.is_initialized() else None
+
+
 class DeepXiTorch:
     """Deep Xi on one device (the card unless ``device="cpu"``): the
     configured input/target family and maps (`inp_tgt_selector`), and any
     network of `models.network_selector`, for training, inference,
     objective testing and the spectral-distortion study. With
     `cfg.import_stats` the maps take a reference statistics pickle's
-    values (`import_reference_stats`), which are saved as the stats file."""
+    values (`import_reference_stats`), which are saved as the stats file.
+
+    In a process group every rank builds it (the mesh, `self.mesh`, is made
+    by all of them); rank 0 makes and writes the statistics and the others
+    read them."""
 
     def __init__(self, cfg: Config, train_s_list: Optional[List[Dict]] = None,
                  train_d_list: Optional[List[Dict]] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = train_mesh(cfg)
         self.train_s_list = train_s_list
         self.train_d_list = train_d_list
         self.inp_tgt = inp_tgt_selector(
@@ -120,7 +161,11 @@ class DeepXiTorch:
             gain=cfg.gain if isinstance(cfg.gain, str) else cfg.gain[0])
 
         stats_path = os.path.join(cfg.data_path, f"{cfg.ver}_stats.npz")
-        if cfg.import_stats:
+        if not is_primary():
+            dist.barrier()  # rank 0 has written the statistics
+            if os.path.exists(stats_path):
+                self.inp_tgt = self._load_stats(stats_path)
+        elif cfg.import_stats:
             self.import_reference_stats(cfg.import_stats)
             self._save_stats(stats_path)
         elif os.path.exists(stats_path) and not cfg.reset_inp_tgt:
@@ -129,6 +174,8 @@ class DeepXiTorch:
             s, d, x, wl = self.sample(cfg.sample_size)
             self.inp_tgt = self.inp_tgt.with_stats(s, d, x, wl, device=self.device)
             self._save_stats(stats_path)
+        if is_primary() and process_count() > 1:
+            dist.barrier()
 
         self.network = build_network(cfg, self.inp_tgt.n_feat, self.inp_tgt.n_outp)
         self._enhancers: Dict[str, Callable] = {}
@@ -231,11 +278,11 @@ class DeepXiTorch:
 
     def apply_fn(self):
         """The network forward of the train step: the fused stack with
-        `cfg.tcn_fused_train` where `tcn_fused_takes`, else None (the plain
+        `cfg.tcn_fused_train` where `tcn_stack_fusable`, else None (the plain
         network under autograd; for MHANet "full" attention, as in the JAX
         package; "block" attention, RDLNet and the LSTMs likewise)."""
         cfg = self.cfg
-        if not (cfg.tcn_fused_train and tcn_fused_takes(cfg)):
+        if not (cfg.tcn_fused_train and tcn_stack_fusable(cfg)):
             return None
         from deepxi_tpu_torch.ops.kernels.tcn_fused_train import \
             resnetv2_apply_fused_train
@@ -267,18 +314,29 @@ class DeepXiTorch:
         state = TrainState.create(self.init_params(), tx)
         if cfg.resume_epoch > 0:
             state = restore_checkpoint(model_dir, cfg.resume_epoch - 1, state)
+        # on a mesh each rank holds its part of the state; rank 0 alone
+        # writes the whole state, the loss CSV and the log
+        mesh, primary = self.mesh, is_primary()
+        shardings = None
+        if mesh is not None:
+            shardings = shardings_of(mesh, state.params)
+            state = shard_state(mesh, state, shardings)
+
+        def whole(st: TrainState) -> TrainState:
+            return st if mesh is None else gather_state(mesh, st, shardings)
+
+        step_kw = dict(apply_fn=self.apply_fn(), mesh=mesh, shardings=shardings)
         if phoneme_mode:
-            train_step = make_phoneme_train_step(self.network, self.inp_tgt, tx,
-                                                 apply_fn=self.apply_fn())
+            train_step = make_phoneme_train_step(self.network, self.inp_tgt, tx, **step_kw)
         else:
             train_step = make_train_step(self.network, self.inp_tgt, tx,
-                                         cfg.loss_fnc, apply_fn=self.apply_fn())
+                                         cfg.loss_fnc, **step_kw)
         loader = MiniBatchLoader(self.train_s_list, self.train_d_list,
                                  cfg.mbatch_size, cfg.snr_levels, seed=cfg.seed,
                                  N_s=cfg.N_s)
         val_set = self._build_val_set() if cfg.val_flag and not phoneme_mode else None
         eval_step = make_eval_step(self.network, cfg.loss_fnc)
-        if cfg.eval_example:
+        if cfg.eval_example and primary:
             self._dump_eval_example(loader)
 
         gen = torch.Generator().manual_seed(cfg.seed + 1)
@@ -300,19 +358,24 @@ class DeepXiTorch:
             val_loss = None
             if val_set and ((epoch + 1) % max(cfg.val_every, 1) == 0
                             or epoch == cfg.max_epochs - 1):
-                val_loss = float(np.mean([float(eval_step(state.params, *b))
-                                          for b in val_set]))
+                params = whole(state).params
+                val_loss = float(np.mean([float(eval_step(params, *b)) for b in val_set]))
             losses.append(mean_loss)
-            append_loss_csv(cfg.log_path, cfg.ver, epoch, mean_loss, val_loss)
+            if primary:
+                append_loss_csv(cfg.log_path, cfg.ver, epoch, mean_loss, val_loss)
             if cfg.save_model and ((epoch + 1) % max(cfg.save_every, 1) == 0
                                    or epoch == cfg.max_epochs - 1):
-                save_checkpoint(model_dir, epoch, state)
-            if verbose:
+                full = whole(state)
+                if primary:
+                    save_checkpoint(model_dir, epoch, full)
+                if mesh is not None:
+                    dist.barrier()
+            if verbose and primary:
                 msg = f"epoch {epoch}: loss {mean_loss:.4f}"
                 if val_loss is not None:
                     msg += f" val {val_loss:.4f}"
                 print(msg + f" ({time.time() - t0:.1f}s, {len(step_losses)} steps)")
-        self._state = state
+        self._state = whole(state)
         return losses
 
     def _build_val_set(self):

@@ -45,12 +45,6 @@ from deepxi_tpu_torch.ops.kernels import load_ops
 WARMUPS = 3
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a multi-card bundle (mesh) is ROADMAP item A10: "
-                                  "the port serves on one card")
-
-
 def refuse_unexportable(network) -> None:
     """Raise for a ResLSTM or ResBiLSTM: `torch.export` would unroll its
     recurrence, T x n_blocks steps of plain operations at every bucket (T =
@@ -87,31 +81,52 @@ def export_enhancer(inp_tgt, network, params, out_dir: str,
     """Export `enhance.make_enhancer` (with `apply_fn`, e.g. the kernels'
     `resnetv2_apply_fused`) at each bucket length on `device` (the card
     unless ``device="cpu"``); returns the written paths. There is no
-    `precision`: the port's DFT is float32. `mesh` raises
-    NotImplementedError (ROADMAP item A10), and so does a ResLSTM or
-    ResBiLSTM network (`refuse_unexportable`, ROADMAP item A9b)."""
+    `precision`: the port's DFT is float32. A ResLSTM or ResBiLSTM network
+    raises NotImplementedError (`refuse_unexportable`, ROADMAP item A9b).
+
+    With a ("data", "model") `mesh` the bundle is multi-card: the program
+    is the one each rank runs on its batch / n_data rows, the manifest's
+    `n_devices` is the mesh's size, and `load_server` needs a mesh of that
+    size. Every rank calls it; rank 0 writes the bundle."""
+    import torch.distributed as dist
+
     from deepxi_tpu_torch.enhance import make_enhancer
     from deepxi_tpu_torch.ops.kernels.spectral import dft_tables
+    from deepxi_tpu_torch.parallel import is_primary
+    from deepxi_tpu_torch.parallel.mesh import DATA_AXIS, mesh_shape
 
-    _refuse_mesh(mesh)
     refuse_unexportable(network)
+    n_devices, rows = 1, batch
+    if mesh is not None:
+        n_data = mesh_shape(mesh)[DATA_AXIS]
+        n_devices = mesh.size()
+        if batch % n_data:
+            raise ValueError(f"batch {batch} must divide over the "
+                             f"{n_data}-way data axis")
+        rows = batch // n_data
     dev = resolve_device(device)
     dft_tables(inp_tgt.N_d, inp_tgt.N_s, inp_tgt.K, dev)
     module = _Enhancer(make_enhancer(inp_tgt, network, gain, apply_fn=apply_fn, device=dev),
                        {k: v.to(dev) for k, v in params.items()})
+    primary = mesh is None or is_primary()  # on a mesh, rank 0 writes
     os.makedirs(out_dir, exist_ok=True)
     written = []
     with torch.no_grad():
         for L in buckets:
-            x = torch.zeros(batch, int(L), dtype=torch.int16, device=dev)
             path = os.path.join(out_dir, f"enhancer_L{int(L)}.pt2")
-            torch.export.save(torch.export.export(module, (x,)), path)
+            if primary:
+                x = torch.zeros(rows, int(L), dtype=torch.int16, device=dev)
+                torch.export.save(torch.export.export(module, (x,)), path)
             written.append(path)
-    manifest = {"ver": ver, "gain": gain, "batch": batch,
-                "buckets": [int(b) for b in buckets], "platforms": [dev.type],
-                "n_devices": 1, "f_s": int(inp_tgt.f_s), "N_s": int(inp_tgt.N_s)}
-    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
+    if primary:
+        manifest = {"ver": ver, "gain": gain, "batch": batch,
+                    "buckets": [int(b) for b in buckets], "platforms": [dev.type],
+                    "n_devices": n_devices, "f_s": int(inp_tgt.f_s),
+                    "N_s": int(inp_tgt.N_s)}
+        with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+    if mesh is not None:
+        dist.barrier()
     return written
 
 
@@ -125,14 +140,26 @@ def _load(path: str):
 class EnhancerServer:
     """Loaded export bundle: call with int16 [B, n] (B <= batch), get the
     enhanced float waveform [B, n'] (numpy) trimmed to the per-utterance
-    iSTFT length convention of the offline driver."""
+    iSTFT length convention of the offline driver.
+
+    A multi-card bundle (`n_devices` > 1) needs a mesh of that size: every
+    rank calls the server with the same input, pads it to the global batch,
+    runs its rows on its card, and all-gathers the rows over "data"."""
 
     def __init__(self, out_dir: str, mesh=None):
-        _refuse_mesh(mesh)
         with open(os.path.join(out_dir, "manifest.json")) as f:
             self.manifest = json.load(f)
         self.batch = int(self.manifest["batch"])
         self.N_s = int(self.manifest["N_s"])
+        n_dev = int(self.manifest.get("n_devices", 1))
+        self._data = None
+        if n_dev > 1:
+            if mesh is None or mesh.size() != n_dev:
+                raise ValueError(
+                    f"bundle was exported for {n_dev} devices; pass a mesh "
+                    f"of that size to load_server(..., mesh=...)")
+            from deepxi_tpu_torch.parallel.mesh import DATA_AXIS, Axis
+            self._data = Axis(mesh, DATA_AXIS)
         self.device = resolve_device(self.manifest["platforms"][0])
         self._fns = {int(L): _load(os.path.join(out_dir, f"enhancer_L{L}.pt2"))
                      for L in self.manifest["buckets"]}
@@ -153,7 +180,14 @@ class EnhancerServer:
         xp = np.zeros((self.batch, L), np.int16)
         xp[:B, :n] = x
         with torch.no_grad():
-            y = self._fns[L](torch.from_numpy(xp).to(self.device)).cpu().numpy()
+            if self._data is None:
+                y = self._fns[L](torch.from_numpy(xp).to(self.device))
+            else:
+                per = self.batch // self._data.size
+                i = self._data.index
+                y = self._data.all_gather(self._fns[L](
+                    torch.from_numpy(xp[i * per:(i + 1) * per]).to(self.device)))
+            y = y.cpu().numpy()
         n_frames = -(-n // self.N_s)
         return y[:B, : (n_frames + 1) * self.N_s]
 

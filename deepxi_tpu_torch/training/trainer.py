@@ -7,6 +7,11 @@ train step, as in the JAX package. The optimizer is written out here, in
 optax's arithmetic (elementwise clip, then Adam with bias correction and a
 step size from the update count), so that its state is a plain dict that
 `torch.save` keeps.
+
+On a ("data", "model") mesh (`parallel.make_mesh`) the train step splits the
+global batch's rows over "data", all-reduces the gradients over it, and
+keeps on each rank its part of the weights that `param_sharding` splits
+over "model", and of their Adam moments (`shard_state`, `gather_state`).
 """
 
 from __future__ import annotations
@@ -111,28 +116,91 @@ def frame_mask(T: int, n_frames: torch.Tensor, device) -> torch.Tensor:
             < n_frames.to(device)[:, None]).to(torch.float32)
 
 
+def shardings_of(mesh, params: Dict[str, torch.Tensor]) -> Dict:
+    """Each whole parameter's `parallel.param_sharding` on `mesh`."""
+    from deepxi_tpu_torch.parallel.mesh import param_sharding
+    return {k: param_sharding(mesh, v) for k, v in params.items()}
+
+
+def shard_state(mesh, state: TrainState, shardings: Dict) -> TrainState:
+    """This rank's part of a whole state: the parameters and Adam moments
+    that `shardings` split over "model" cut to the rank's slice."""
+    from deepxi_tpu_torch.parallel.mesh import local_shard
+
+    def cut(t):
+        return {k: local_shard(mesh, v, shardings[k]).clone() for k, v in t.items()}
+
+    opt = state.opt_state
+    return TrainState(state.step, cut(state.params),
+                      {"count": opt["count"], "mu": cut(opt["mu"]), "nu": cut(opt["nu"])})
+
+
+def gather_state(mesh, state: TrainState, shardings: Dict) -> TrainState:
+    """The whole state from every rank's part (a collective over "model")."""
+    from deepxi_tpu_torch.parallel.mesh import gather_params
+    opt = state.opt_state
+    return TrainState(state.step, gather_params(mesh, state.params, shardings),
+                      {"count": opt["count"],
+                       "mu": gather_params(mesh, opt["mu"], shardings),
+                       "nu": gather_params(mesh, opt["nu"], shardings)})
+
+
 def make_train_step(network: torch.nn.Module, inp_tgt, tx: ClipAdam,
                     loss_fnc: str = "BinaryCrossentropy",
-                    apply_fn: Optional[Callable] = None) -> Callable:
+                    apply_fn: Optional[Callable] = None, mesh=None,
+                    shardings: Optional[Dict] = None) -> Callable:
     """Build (state, s, d, s_len, d_len, snr, generator=None, offsets=None)
     -> (state, {"loss"}): example synthesis, forward, backward and update.
     `s`, `d` are int16 [B, L] tensors on the device; the noise offsets come
     from `offsets` or are drawn from `generator`; further keywords go to
     `inp_tgt.example`. `apply_fn(params, inp)` replaces the network's own
-    forward, e.g. `tcn_fused_train.resnetv2_apply_fused_train`."""
+    forward, e.g. `tcn_fused_train.resnetv2_apply_fused_train`.
+
+    With a `mesh` every rank passes the same global batch and generator:
+    the offsets are drawn for all B rows, then each rank takes its B /
+    n_data rows (so every slice keeps the batch's padded length), gathers
+    the whole weights over "model", and runs forward and backward; the
+    gradients and the loss are all-reduced over "data" as one flat buffer
+    and divided by n_data before the clip, so `tx` sees the global
+    gradient, and each rank updates its part of the weights (`state` holds
+    the parts, `shard_state`; `shardings` are the whole parameters'
+    `shardings_of`). The loss returned is the global batch's."""
     net_apply = apply_fn or (lambda p, m: functional_call(network, p, (m,)))
+    if mesh is not None:
+        from deepxi_tpu_torch.parallel.mesh import (DATA_AXIS, Axis, gather_params,
+                                                    local_shard, shard_batch)
+        from deepxi_tpu_torch.sig.mix import noise_offsets
+        data = Axis(mesh, DATA_AXIS)
 
     def train_step(state: TrainState, s, d, s_len, d_len, snr,
                    generator: Optional[torch.Generator] = None,
                    offsets: Optional[torch.Tensor] = None, **example_kw):
+        params = state.params
+        if mesh is not None:
+            if offsets is None:
+                offsets = noise_offsets(s_len, d_len, generator)
+            s, d, s_len, d_len, snr, offsets = shard_batch(
+                mesh, (s, d, s_len, d_len, snr, offsets))
+            example_kw = {k: shard_batch(mesh, v) for k, v in example_kw.items()}
+            params = gather_params(mesh, params, shardings)
         inp, tgt, n_frames = inp_tgt.example(s, d, s_len, d_len, snr,
                                              generator, offsets, **example_kw)
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in state.params.items()}
+        params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         pred = net_apply(params, inp)
         loss = masked_loss(pred, tgt, frame_mask(inp.shape[1], n_frames, inp.device),
                            loss_fnc)
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        if mesh is not None:
+            keys = list(grads)
+            flat = torch.cat([grads[k].reshape(-1) for k in keys]
+                             + [loss.detach().reshape(1)])
+            flat = data.all_reduce(flat) / data.size
+            loss, pos = flat[-1], 0
+            for k in keys:
+                n = grads[k].numel()
+                g = flat[pos:pos + n].view_as(grads[k])
+                grads[k] = local_shard(mesh, g, shardings[k])
+                pos += n
         updates, opt_state = tx.update(grads, state.opt_state)
         with torch.no_grad():
             keys = list(state.params)
@@ -144,14 +212,16 @@ def make_train_step(network: torch.nn.Module, inp_tgt, tx: ClipAdam,
 
 
 def make_phoneme_train_step(network: torch.nn.Module, inp_tgt, tx: ClipAdam,
-                            apply_fn: Optional[Callable] = None) -> Callable:
+                            apply_fn: Optional[Callable] = None, mesh=None,
+                            shardings: Optional[Dict] = None) -> Callable:
     """The train step of the phoneme classifier (MagPhonemes): (state, s, d,
     s_len, d_len, snr, labels, generator=None, offsets=None) -> (state,
     {"loss"}), the masked binary cross-entropy of the network's output
     against the one-hot of `labels` [B, >= T] (the labelled loader's, at
-    the frame rate). `apply_fn` as in `make_train_step` (the JAX package's
-    step takes the plain network)."""
-    step = make_train_step(network, inp_tgt, tx, "BinaryCrossentropy", apply_fn)
+    the frame rate). `apply_fn`, `mesh` and `shardings` as in
+    `make_train_step` (the JAX package's step takes the plain network)."""
+    step = make_train_step(network, inp_tgt, tx, "BinaryCrossentropy", apply_fn, mesh,
+                           shardings)
 
     def train_step(state: TrainState, s, d, s_len, d_len, snr, labels,
                    generator: Optional[torch.Generator] = None,

@@ -6,10 +6,11 @@ command lines (the rdlnet-1.0n and reslstm-1.0c presets among them),
 meta.json, `--prelim` (of every network type the port added last), a tiny
 `--train --infer --test --spect_dist` run, `--infer` with the "block"
 attention, the phoneme classifier's and the hybrid modes' flags and
-out_types on tiny runs, and the flags whose paths the port does not have
-(the shard flags, A10)."""
+out_types on tiny runs, the shard flags (taken as the JAX CLI takes them;
+a mesh larger than the process group raises JAX's "exceeds" error), `--d_b`,
+`--d_ff` and `--tcn_fused 0` (the plain ResNetV2's `infer` against JAX's),
+and the refused `--platform tpu`."""
 
-import dataclasses
 import os
 import shutil
 import subprocess
@@ -21,15 +22,15 @@ import pytest
 from scipy.io import loadmat
 
 from deepxi_tpu import cli as cli_j
-from deepxi_tpu.config import Config as ConfigJ
 from deepxi_tpu.data.wavio import read_wav as read_wav_j
 from deepxi_tpu_torch import cli
 from deepxi_tpu_torch.compat.artifact import FLAGSHIP_ROOT, MHANET_ROOT
-from deepxi_tpu_torch.config import Config
 from deepxi_tpu_torch.data.wavio import read_wav, save_wav
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from _torch_cli_checks import assert_config_matches_jax, assert_mesh_refused_as_jax  # noqa: E402
 from torch_hybrid import write_phoneme_corpus  # noqa: E402
 
 COMMAND_LINES = [
@@ -68,41 +69,96 @@ COMMAND_LINES = [
 
 @pytest.mark.parametrize("argv", COMMAND_LINES, ids=range(len(COMMAND_LINES)))
 def test_config_from_args_matches_jax(argv):
-    """Every field both Configs have takes the same value."""
-    cfg, cfg_j = cli.config_from_args(argv), cli_j.config_from_args(argv)
-    shared = {f.name for f in dataclasses.fields(Config)} & \
-        {f.name for f in dataclasses.fields(ConfigJ)}
-    assert shared == {f.name for f in dataclasses.fields(Config)}
-    for name in sorted(shared):
-        assert getattr(cfg, name) == getattr(cfg_j, name), name
+    assert_config_matches_jax(argv)
 
 
-# The phoneme classifier's and the hybrid modes' flags run (A11); beside a
-# shard flag they still refuse, naming A10.
+def _tcn_fused_0_infer(tmp_path, argv):
+    """`infer` of the Configs of `argv` (d_model 32, `--tcn_fused 0`) in both
+    packages on the same flax parameters (biases off zero) and statistics:
+    the plain ResNetV2 in both (no kernel forward), waveforms within 2e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from deepxi_tpu.framework import DeepXiTPU
+    from deepxi_tpu_torch.compat.artifact import from_flax_params
+    from deepxi_tpu_torch.data import listing
+    from deepxi_tpu_torch.framework import DeepXiTorch
+
+    rng = np.random.RandomState(0)
+    test_dir = tmp_path / "test"
+    for name, n in (("a_white_5dB", 9000), ("b_babble_0dB", 5000)):
+        save_wav(str(test_dir / f"{name}.wav"), (rng.randn(n) * 3000).astype(np.int16), 16000)
+    (tmp_path / "data").mkdir()
+    np.savez(tmp_path / "data" / "tiny_stats.npz", **{
+        "xi_map.mu": rng.randn(257).astype(np.float32) * 5,
+        "xi_map.sigma": (np.abs(rng.randn(257)) * 5 + 1).astype(np.float32)})
+    argv = argv + ["--ver", "tiny", "--network_type", "ResNetV2", "--d_model", "32",
+                   "--n_blocks", "3", "--d_f", "16", "--k", "3", "--max_d_rate", "2",
+                   "--unit_type", "ReLU->LN->W+b", "--test_x_path", str(test_dir),
+                   "--data_path", str(tmp_path / "data"), "--platform", "cpu"]
+    cfg, cfg_j = assert_config_matches_jax(argv)
+    assert cfg.tcn_fused is False and cfg_j.tcn_fused is False
+    dx_j = DeepXiTPU(cfg_j.replace(out_path=str(tmp_path / "out_j")))
+    dx = DeepXiTorch(cfg.replace(out_path=str(tmp_path / "out")), device="cpu")
+    assert dx.fast_apply() is None and dx_j._fast_apply()[1] is None
+    params_j = dx_j.network.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 257)))
+    params_j = jax.tree_util.tree_map(lambda a: np.asarray(a + 0.05 if a.ndim == 1 else a),
+                                      params_j)
+    written = dx.infer(params=from_flax_params(params_j), epochs=[1], gains=["mmse-lsa"])
+    written_j = dx_j.infer(params=params_j, out_type="y", epochs=[1], gains=["mmse-lsa"])
+    assert [os.path.basename(p) for p in written] == [os.path.basename(p) for p in written_j]
+    x, lens, _, names = listing.test_batch(cfg.test_x_path)
+    ys = dx.enhance_all(from_flax_params(params_j), x, lens, "mmse-lsa")
+    ys_j = dx_j._enhance_all(params_j, x, lens, names, "mmse-lsa")
+    for y, y_j in zip(ys, ys_j):
+        assert y.shape == y_j.shape and np.abs(y_j).max() > 0.01
+        assert np.abs(y - y_j).max() <= 2e-5
+
+
+# Flags the JAX CLI takes that the port refused until it had their paths.
+# The shard flags (beside the phoneme classifier's and the hybrid modes'
+# flags) are taken as the JAX CLI takes them, and a mesh larger than this
+# one-rank process raises JAX's error; `--d_ff` and `--d_b` are taken and
+# read by no network; `--tcn_fused 0` runs the plain ResNetV2. `--platform
+# tpu` still refuses.
 REFUSED = [
-    (["--export", "1", "--n_data_shards", "2"], "A10"), (["--n_data_shards", "2"], "A10"),
-    (["--n_model_shards", "2"], "A10"),
-    (["--inp_tgt_type", "MagPhonemes", "--n_data_shards", "2"], "A10"),
+    (["--export", "1", "--n_data_shards", "2"], "mesh"), (["--n_data_shards", "2"], "mesh"),
+    (["--n_model_shards", "2"], "mesh"),
+    (["--inp_tgt_type", "MagPhonemes", "--n_data_shards", "2"], "mesh"),
     (["--map_type", "NormalCDF", "--inp_tgt_type", "MagPhonme", "--n_model_shards", "4"],
-     "A10"),
-    (["--out_type", "hybrid_omlsa", "--n_data_shards", "2"], "A10"),
-    (["--out_type", "pho", "--n_model_shards", "2"], "A10"),
-    (["--out_type", "tracking_vts", "--n_data_shards", "8"], "A10"),
-    (["--mixmax_stats", "g.npz", "--n_model_shards", "2"], "A10"),
-    (["--lexicon_path", "lex", "--n_data_shards", "2"], "A10"),
-    (["--d_ff", "1024"], "d_ff"), (["--tcn_fused", "0"], "tcn_fused"),
-    (["--platform", "tpu"], "cuda"),
+     "mesh"),
+    (["--out_type", "hybrid_omlsa", "--n_data_shards", "2"], "mesh"),
+    (["--out_type", "pho", "--n_model_shards", "2"], "mesh"),
+    (["--out_type", "tracking_vts", "--n_data_shards", "8"], "mesh"),
+    (["--mixmax_stats", "g.npz", "--n_model_shards", "2"], "mesh"),
+    (["--lexicon_path", "lex", "--n_data_shards", "2"], "mesh"),
+    (["--d_ff", "1024"], "config"), (["--tcn_fused", "0"], "plain infer"),
+    (["--platform", "tpu"], "cuda"), (["--d_b", "32"], "config"),
 ]
 
 
 @pytest.mark.parametrize("argv,item", REFUSED, ids=[a[0] for a, _ in REFUSED])
-def test_unported_flags_raise(argv, item):
-    """A flag whose path the port lacks raises and names its ROADMAP item,
-    in `main` and in `config_from_args` (and before any work)."""
-    for fn in (cli.main, cli.config_from_args):
-        with pytest.raises(SystemExit, match=item):
-            fn(argv + ["--test", "1", "--platform", "cpu"]
-               if "--platform" not in argv else argv)
+def test_unported_flags_raise(tmp_path, argv, item):
+    """Each flag that the port once refused runs as in the JAX CLI: the same
+    Config; for a shard flag, JAX's "exceeds" error from a one-rank `main`;
+    for `--tcn_fused 0`, the plain network's `infer` held to JAX's. `--platform
+    tpu` raises SystemExit naming the port's platforms, in `main` and in
+    `config_from_args` (and before any work)."""
+    if item == "cuda":
+        for fn in (cli.main, cli.config_from_args):
+            with pytest.raises(SystemExit, match=item):
+                fn(argv)
+        return
+    if item == "plain infer":
+        _tcn_fused_0_infer(tmp_path, argv)
+        return
+    cfg, cfg_j = assert_config_matches_jax(argv)
+    for flag in ("n_data_shards", "n_model_shards", "d_b", "d_ff"):
+        if f"--{flag}" in argv:
+            assert getattr(cfg, flag) == getattr(cfg_j, flag) == int(argv[argv.index(
+                f"--{flag}") + 1])
+    if item == "mesh":
+        assert_mesh_refused_as_jax(argv)
 
 
 def test_main_without_mode_and_help():

@@ -1203,3 +1203,96 @@ def test_tracker_and_mixmax_on_the_card_match_float64(cuda):
     for g, r in zip(got, ref):
         assert g.device.type == "cuda" and g.dtype == torch.float32 and g.shape == r.shape
         assert (g.double().cpu() - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+@pytest.fixture
+def nccl_world1(cuda, tmp_path):
+    """A one-rank NCCL group (a `file://` rendezvous) for the test, left
+    after it: the card's machine has one card, and NCCL puts no two ranks on
+    one card."""
+    import torch.distributed as dist
+
+    from deepxi_tpu_torch.parallel import init_distributed, make_mesh
+    init_distributed(f"file://{tmp_path}/rendezvous", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _small_magxi(dev):
+    from deepxi_tpu_torch.inp_tgt import MagXi
+    from deepxi_tpu_torch.ops.maps import NormalCDF
+    g = torch.Generator().manual_seed(3)
+    return MagXi(xi_map=NormalCDF(use_db=True, mu=(torch.randn(257, generator=g) * 5).to(dev),
+                                  sigma=(torch.rand(257, generator=g) * 5 + 5).to(dev)))
+
+
+@pytest.mark.cuda
+def test_dp_step_on_the_1x1_nccl_mesh_is_the_unsharded_step(nccl_world1):
+    """A train step of a small ResNetV2 through the fused training stack
+    (B5/B6 at d_model 32) on the 1 x 1 mesh of a one-rank NCCL group: the
+    loss and parameters bitwise the unsharded step's, and B5/B6 launched."""
+    from deepxi_tpu_torch.ops.kernels.tcn_fused_train import resnetv2_apply_fused_train
+    from deepxi_tpu_torch.parallel.mesh import mesh_shape
+    from deepxi_tpu_torch.training import (TrainState, make_optimizer, make_train_step,
+                                           shard_state, shardings_of)
+    dev = torch.device("cuda")
+    assert mesh_shape(nccl_world1) == {"data": 1, "model": 1}
+    net = ResNetV2(257, 257, n_blocks=3, d_model=32, d_f=16, k=3, max_d_rate=2)
+    init_flax_like(net, torch.Generator().manual_seed(0))
+    net.to(dev)
+    params = {k: (v + 0.05 if v.ndim == 1 else v) for k, v in net.state_dict().items()}
+    g = torch.Generator().manual_seed(1)
+    s = (torch.randn(4, 8192, generator=g) * 3000).to(torch.int16).to(dev)
+    d = (torch.randn(4, 8192, generator=g) * 1000).to(torch.int16).to(dev)
+    lens = torch.tensor([8192, 6000, 8192, 7000])
+    snr = torch.tensor([0.0, 5.0, 10.0, -5.0])
+    tx = make_optimizer("ResNetV2")
+    apply = (lambda p, m: resnetv2_apply_fused_train(p, m, n_blocks=3, max_d_rate=2, k=3,
+                                                     save_acts=True))
+    shardings = shardings_of(nccl_world1, params)
+    out = {}
+    for name, mesh in (("mesh", nccl_world1), ("none", None)):
+        state = TrainState.create(params, tx)
+        if mesh is not None:
+            state = shard_state(mesh, state, shardings)
+        step = make_train_step(net, _small_magxi(dev), tx, apply_fn=apply, mesh=mesh,
+                               shardings=shardings if mesh is not None else None)
+        n5 = tcn_fused_train.fused_block_group_whole_saved.launches
+        for _ in range(2):
+            state, m = step(state, s, d, lens, lens, snr,
+                            generator=torch.Generator().manual_seed(7))
+        out[name] = (m["loss"].item(), state.params,
+                     tcn_fused_train.fused_block_group_whole_saved.launches - n5)
+    assert out["mesh"][0] == out["none"][0] and out["mesh"][2] == out["none"][2] > 0
+    assert all(torch.equal(out["mesh"][1][k], out["none"][1][k]) for k in params)
+
+
+@pytest.mark.cuda
+def test_seq_sharded_enhancer_on_the_1x1_nccl_mesh(nccl_world1):
+    """The sequence-sharded enhancer of a small causal ResNetV2 through the
+    fused TCN kernels on the 1 x 1 mesh against the offline enhancer on the
+    card: 2e-5 (the JAX package's limit for its sharded enhancer)."""
+    import numpy as np
+
+    from deepxi_tpu_torch.enhance import make_enhancer
+    from deepxi_tpu_torch.parallel.seq_enhance import make_seq_sharded_enhancer
+    dev = torch.device("cuda")
+    net = ResNetV2(257, 257, n_blocks=6, d_model=32, d_f=16, k=3, max_d_rate=4)
+    init_flax_like(net, torch.Generator().manual_seed(2))
+    params = {k: (v + 0.05 if v.ndim == 1 else v).to(dev) for k, v in net.state_dict().items()}
+    kw = dict(n_blocks=6, max_d_rate=4, k=3)
+    apply = (lambda p, m: tcn_fused.resnetv2_apply_fused(p, m, **kw))
+    it = _small_magxi(dev)
+    x = (np.random.RandomState(1).randn(256 * 1300 + 77) * 3000).astype(np.int16)
+    n1, n4 = (f.launches for f in (tcn_fused.fused_block_group_whole,
+                                   tcn_fused.fused_block_group))
+    y = make_seq_sharded_enhancer(it, net, mesh=nccl_world1, apply_fn=apply, device=dev,
+                                  **kw)(params, x)
+    assert tcn_fused.fused_block_group_whole.launches > n1
+    assert tcn_fused.fused_block_group.launches > n4
+    y_off = make_enhancer(it, net, apply_fn=apply, device=dev)(params, x[None])[0, :len(x)]
+    assert y.shape == (len(x),) and y_off.abs().max().item() > 1e-3
+    assert (y - y_off).abs().max().item() <= 2e-5

@@ -11,6 +11,7 @@ tests/test_torch_cuda.py."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -212,11 +213,30 @@ def test_errors_match_jax(its, tcn, tcn_bundles, tmp_path):
     sm = StreamingEnhancer(its[1], tcn[2], tcn[3], device="cpu")
     with pytest.raises(ValueError, match="step_block"):
         serving.export_streaming(sm, str(tmp_path / "s"), batch=1, hop_batch=4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        serving.export_enhancer(its[1], tcn[2], tcn[3], str(tmp_path / "m"), mesh=object(),
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        serving.load_server(out, mesh=object())
+    # the multi-card refusals: a batch that does not divide over a 4-way
+    # data axis (the port's mesh, a 4 x 1 DeviceMesh, needs no group for
+    # that check), and a bundle exported for 4 devices loaded without a mesh
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from deepxi_tpu.parallel import make_mesh as make_mesh_j
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(4, 1), mesh_dim_names=("data", "model"),
+                      _init_backend=False, _rank=0)
+    errors = []
+    for export, it, net, p, kw in (
+            (serving.export_enhancer, its[1], tcn[2], tcn[3], dict(mesh=mesh, device="cpu")),
+            (export_enhancer_j, its[0], tcn[0], tcn[1], dict(mesh=make_mesh_j(4, 1)))):
+        with pytest.raises(ValueError, match="4-way data axis") as e:
+            export(it, net, p, str(tmp_path / "m"), batch=3, buckets=BUCKETS, **kw)
+        errors.append(str(e.value))
+    for d, load in ((out, serving.load_server), (out_j, load_server_j)):
+        four = tmp_path / ("four_" + os.path.basename(d))
+        shutil.copytree(d, four)
+        m = json.load(open(four / "manifest.json"))
+        json.dump(dict(m, n_devices=4), open(four / "manifest.json", "w"))
+        with pytest.raises(ValueError, match="exported for 4 devices") as e:
+            load(str(four))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] and errors[2] == errors[3]
 
 
 def test_manifest_keys_match_jax(tcn_bundles):
