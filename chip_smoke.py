@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result line):
      versions (infer's .mat writer needs scipy), and the build of every CUDA
      kernel from `deepxi_tpu_torch/ops/kernels/csrc`
      at the flagship widths and at phase 3f's (one nvcc per source and set
-     of widths, all started together);
+     of widths, all started together), then of the native wav decoder
+     (`deepxi_tpu_torch/native/src/wavio.cc`, g++);
   2. each kernel against its plain PyTorch version on the card at full width
      (d_model 256, d_f 64, k 3, seeded weights with nonzero biases): the two
      inference kernels (the per-block one at B=4 T=250, B=1 T=1, B=3 T=37
@@ -190,6 +191,20 @@ Phases (any failure exits non-zero before the result line):
      bundle exported under the 1x1 mesh against one without (bitwise), and
      the features, adaptive filters (NLMS, LMS, block NLMS at B=1 x 4 s, 64
      taps) and VAD against the CPU (float64 where it is defined), each timed;
+  3o. the LSTM recurrence, the LSTM bundles, the native wav decoder and the
+     artifact tool (tools/torch_lstm.py): the masked LSTM kernel against its
+     plain version at H = 512, B=1 T=250 and B=32 T=1025, forward and
+     reverse, masked frames inside and a padded tail (every batch row within
+     1e-4 of the scale), timed beside its bound, the plain loop and cuDNN's
+     `torch.nn.LSTM` (all frames valid; checked first); reslstm-1.0c and
+     ResBiLSTM on seeded weights through `--export 1` (one op call a
+     direction a block), 4 rows served at bucket 65,536 against the live
+     enhancer (1e-6), the op's launches a call counted, infer's network
+     output at B=1 x 4 s on the kernel against the plain loop, each timed;
+     the native decoder's build, a corpus and a loader epoch with and
+     without it (bitwise); reslstm-1.0c trained 3 steps ->
+     `tools/torch_make_artifact.py` -> `python3 -m deepxi_tpu_torch
+     --enhance`, within one int16 step of infer's wav;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -504,10 +519,15 @@ def main():
                 tcn_fused.build_spec("tcn_fused_train", 256, 64, 3), "spectral",
                 ("mha_attention", mha_fused.head_defines(8, 32)),
                 mha_block_fused.build_spec(8, 32, 1024),
-                ("mha_cache", mha_fused.head_defines(8, 32))]
+                ("mha_cache", mha_fused.head_defines(8, 32)), "lstm"]
     build_s = _build.build(flagship + torch_small_widths.build_specs())
     print(f"[1] build: {time.perf_counter() - t0:.1f} s wall, {len(build_s)} libraries "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
+    # the native wav decoder (g++), before anything reads or writes a wav
+    from deepxi_tpu_torch import native
+    native_build_s = native.build()
+    print(f"[1] native wav decoder: built in {native_build_s:.2f} s "
+          f"({os.path.relpath(native.library_path(), ROOT)})")
     for spec in flagship:
         with open(_build.log_path(spec)) as f:
             for line in f:
@@ -1943,6 +1963,18 @@ def main():
     par = torch_parallel.parallel_phase(dev, fail, card)
     print(f"[3n] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
 
+    # 3o. the LSTM recurrence kernel, the LSTM bundles, the native wav decoder
+    # and the JAX-free artifact tool (tools/torch_lstm.py): the kernel against
+    # its plain version and timed; reslstm-1.0c and ResBiLSTM bundles through
+    # --export 1 against the live enhancer and infer's network output at B=1 x
+    # 4 s on the kernel against the plain loop (the op's launches counted a
+    # call, zeroed just before it); a corpus and a loader epoch through the
+    # native decoder; train -> tools/torch_make_artifact.py -> --enhance
+    import torch_lstm
+    t0 = time.perf_counter()
+    lstm_out = torch_lstm.lstm_phase(dev, fail, card, native_build_s)
+    print(f"[3o] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
+
     # 4. times --------------------------------------------------------------
     print(f"[4] times on {card}")
     kernels = []
@@ -2425,6 +2457,16 @@ def main():
             row["hybrid_launches"] = hyb["launches"][family_key]
         if family_key in par["launches"]:
             row["parallel_launches"] = par["launches"][family_key]
+    # the LSTM recurrence (no Pallas kernel: the JAX package's nn.scan); its
+    # launches are [3o]'s reslstm-1.0c infer call at B=1 x 4 s, its times and
+    # error [3o]'s kernel checks
+    lstm_row = {"name": "masked_lstm", "route": "cuda",
+                "source": "deepxi_tpu_torch/ops/kernels/csrc/lstm.cu",
+                "replaces": "deepxi_tpu/models/rnn.py:45",
+                "launches": lstm_out["launches"]["reslstm-1.0c infer xi_hat, B=1 x 4 s"]}
+    lstm_row.update(lstm_out["row"])
+    lstm_row["lstm_launches"] = lstm_out["launches"]
+    kernels.append(lstm_row)
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,15 @@
 """Host-side training batch loader: wav reads, bucketed padding and a
-prefetch thread (follows deepxi_tpu/data/loader.py, on its Python decode
-path).
+prefetch thread (follows deepxi_tpu/data/loader.py).
 
 Shuffles and noise draws come from a seeded ``np.random.Generator`` in the
 JAX package's order, so one seed and file list give the same batches in
 both packages. A background thread reads up to `prefetch` batches ahead of
-the train step. Where a read raises, the worker hands the exception to the
-consumer, which raises it (the JAX package's worker ends the epoch early
-without a word).
+the train step: a batch's speech rows, then its noise rows at their
+offsets, decoded straight into the batch buffers by the native decoder's
+thread pool (`native.load_batch`), each row it does not take by
+`read_wav`, so the batches are the same with native off. Where a read
+raises, the worker hands the exception to the consumer, which raises it
+(the JAX package's worker ends the epoch early without a word).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from deepxi_tpu_torch import native
 from deepxi_tpu_torch.data.wavio import read_wav
 
 
@@ -27,6 +30,19 @@ def bucket_length(n: int, N_s: int = 256, frames_per_bucket: int = 32,
     `frames_per_bucket` (at least `min_frames`), back in samples."""
     frames = -(-n // N_s)
     return max(min_frames, -(-frames // frames_per_bucket) * frames_per_bucket) * N_s
+
+
+def _decode_rows(paths: List[str], offsets: List[int], out: np.ndarray) -> None:
+    """Fill out[i] with paths[i] decoded from offsets[i], cut at out's
+    length and zero-padded: natively, and each row the native decoder does
+    not take through `read_wav` (which raises on a file it cannot read)."""
+    L = out.shape[1]
+    res = native.load_batch(paths, L, offsets=offsets, out=out)
+    rows = range(len(paths)) if res is None else np.flatnonzero(res[2])
+    for i in rows:
+        wav = read_wav(paths[i])[0][offsets[i]:offsets[i] + L]
+        out[i, :len(wav)] = wav
+        out[i, len(wav):] = 0
 
 
 class _Failed:
@@ -89,12 +105,8 @@ class MiniBatchLoader:
             if labelled:
                 lab = item["labels"][:labels.shape[1]]
                 labels[i, :len(lab)] = lab
-        for i, item in enumerate(s_items):
-            wav = read_wav(item["file_path"])[0][:L]
-            s[i, :len(wav)] = wav
-        for i, (path, off) in enumerate(d_items):
-            wav = read_wav(path)[0][off:off + L]
-            d[i, :len(wav)] = wav
+        _decode_rows([it["file_path"] for it in s_items], [0] * B, s)
+        _decode_rows([p for p, _ in d_items], [off for _, off in d_items], d)
         snr = self.rng.choice(self.snr_levels, B).astype(np.float32)
         if labelled:
             return s, d, s_len, d_len, snr, labels

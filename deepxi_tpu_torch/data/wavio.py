@@ -1,7 +1,12 @@
-"""Wav I/O on the stdlib `wave` module (follows deepxi_tpu/data/wavio.py,
-without its native decoder): `read_wav` (8-, 16- and 32-bit PCM, downmixed
-to mono and resampled to ``f_s`` with scipy's polyphase filter), `save_wav`,
-`wav_length`."""
+"""Wav I/O (follows deepxi_tpu/data/wavio.py): `read_wav` (8-, 16- and
+32-bit PCM, downmixed to mono and resampled to ``f_s`` with scipy's
+polyphase filter), `save_wav`, `wav_length`.
+
+Each function goes through the native decoder (`deepxi_tpu_torch.native`)
+first and takes the stdlib `wave` module path below where it reports
+"use the Python path" (another rate, a float or malformed wav, or native
+off); that path is the semantic definition, and the two give the same
+samples on every format the native decoder takes."""
 
 from __future__ import annotations
 
@@ -12,11 +17,16 @@ from typing import Tuple
 import numpy as np
 from scipy.signal import resample_poly
 
+from deepxi_tpu_torch import native
+
 
 def read_wav(path: str, f_s: int = 16000) -> Tuple[np.ndarray, int]:
     """Read a PCM wav file as int16 mono at ``f_s`` Hz: samples scaled to
     [-1, 1), channels averaged, the rate converted by `resample_poly` when
     it differs, then clipped to [-1, 1 - 2^-15] and scaled by 32768."""
+    y = native.read_wav_i16(path, f_s)
+    if y is not None:
+        return y, f_s
     with wave.open(path, "rb") as w:
         n_ch, sw, rate, n = w.getnchannels(), w.getsampwidth(), w.getframerate(), w.getnframes()
         raw = w.readframes(n)
@@ -43,6 +53,8 @@ def save_wav(path: str, wav: np.ndarray, f_s: int) -> None:
     if wav.dtype in (np.float32, np.float64):
         wav = np.asarray(wav * 32768.0, dtype=np.int16)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if native.save_wav_i16(path, wav.astype("<i2"), f_s):
+        return
     with wave.open(path, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
@@ -53,6 +65,9 @@ def save_wav(path: str, wav: np.ndarray, f_s: int) -> None:
 def wav_length(path: str, f_s: int = 16000) -> int:
     """Sample count of a wav file at ``f_s`` Hz, without reading its samples:
     `read_wav`'s resampled length, ceil(n * f_s / rate)."""
+    n_native = native.wav_len(path, f_s)
+    if n_native is not None:
+        return n_native
     with wave.open(path, "rb") as w:
         n, rate = w.getnframes(), w.getframerate()
     if rate == f_s:

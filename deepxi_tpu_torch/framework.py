@@ -562,10 +562,8 @@ class DeepXiTorch:
         """Serving export of a trained epoch: the batched enhancer through
         `fast_apply` (the kernels as `deepxi::` ops) as one `torch.export`
         program a bucket on this framework's device (`serving`); no model
-        code or re-trace at load time. Returns the written paths. A ResLSTM
-        or ResBiLSTM raises (`serving.refuse_unexportable`)."""
-        from deepxi_tpu_torch.serving import export_enhancer, refuse_unexportable
-        refuse_unexportable(self.network)
+        code or re-trace at load time. Returns the written paths."""
+        from deepxi_tpu_torch.serving import export_enhancer
         cfg = self.cfg
         epoch = epoch or (cfg.test_epoch if isinstance(cfg.test_epoch, int)
                           else cfg.test_epoch[0])

@@ -9,8 +9,11 @@ g tanh, c' = f c + i g, h' = o tanh(c'), the carry (c, h) starting at zero.
 A step whose frame is masked (no input feature nonzero, Keras
 ``Masking(0.0)``: an all-zero frame inside an utterance too) keeps the
 state and repeats the previous output, so neither `torch.nn.LSTM` nor
-cuDNN's packed sequences compute it: the recurrence is plain PyTorch, the
-input products of all steps hoisted into one product a block.
+cuDNN's packed sequences compute it. The input products of all steps are
+hoisted into one product a block; the recurrence is the op
+`deepxi::masked_lstm` (`ops/kernels/lstm.py`: the CUDA kernel on the card,
+the plain loop on the CPU) where autograd records nothing (inference,
+export), and the plain loop `masked_lstm_plain` under autograd (training).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch import nn
 
 from deepxi_tpu_torch.models.attention import Dense, LayerNorm, sequence_valid_mask
 from deepxi_tpu_torch.models.tcn import output_activation
+from deepxi_tpu_torch.ops.kernels.lstm import masked_lstm, masked_lstm_plain
 
 GATES = "ifgo"
 
@@ -56,22 +60,14 @@ class MaskedLSTM(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
         w_x, w_h, b = self.cell.stacked()
-        h_size = w_h.shape[0]
         # the input products of every step at once, time-major
         xp = torch.addmm(b, x.reshape(B * T, -1), w_x).reshape(B, T, -1).transpose(0, 1)
-        m = mask.transpose(0, 1)[..., None]                     # [T, B, 1] bool
-        c = h = x.new_zeros(B, h_size)
-        ys = [None] * T
-        for t in (range(T - 1, -1, -1) if self.reverse else range(T)):
-            z = torch.addmm(xp[t], h, w_h)
-            s = torch.sigmoid(z)            # i, f and o (and g, unused)
-            g = torch.tanh(z[:, 2 * h_size:3 * h_size])
-            c_new = torch.addcmul(s[:, h_size:2 * h_size] * c, s[:, :h_size], g)
-            h_new = s[:, 3 * h_size:] * torch.tanh(c_new)
-            c = torch.where(m[t], c_new, c)
-            h = torch.where(m[t], h_new, h)
-            ys[t] = h   # the output: h', or the previous output where masked
-        return torch.stack(ys, 1)
+        m = mask.transpose(0, 1)                                # [T, B] bool
+        if torch.is_grad_enabled() and (xp.requires_grad or w_h.requires_grad):
+            ys = masked_lstm_plain(xp, w_h, m, self.reverse)    # autograd records
+        else:
+            ys = masked_lstm(xp, w_h, m, self.reverse)
+        return ys.transpose(0, 1)
 
 
 class ResLSTM(nn.Module):

@@ -16,18 +16,19 @@ import torch
 OP_NAMESPACE = "deepxi"
 # The modules that register `deepxi::` ops, as `load_ops` imports them.
 OP_MODULES = ("tcn_fused", "mha_block_fused", "mha_fused", "mha_flash_stream",
-              "mha_cache")
+              "mha_cache", "lstm")
 
 
-def kernel_op(name: str, cuda_fn, cpu_fn):
+def kernel_op(name: str, cuda_fn, cpu_fn, fake=None):
     """Register `deepxi::<name>` with `cuda_fn` (whose annotations give the
     schema) for CUDA tensors and `cpu_fn` for CPU tensors; returns the op,
-    called as a function. Every kernel's output has its first input's shape
-    and dtype, which is all the fake implementation gives."""
+    called as a function. The fake implementation gives only the output's
+    shape and dtype: `fake(*args)`, by default an empty tensor like the first
+    input."""
     op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", cuda_fn, mutates_args=(),
                                  device_types="cuda")
     op.register_kernel("cpu")(cpu_fn)
-    op.register_fake(lambda x, *args: torch.empty_like(x))
+    op.register_fake(fake or (lambda x, *args: torch.empty_like(x)))
     return op
 
 

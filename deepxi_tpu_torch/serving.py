@@ -45,19 +45,6 @@ from deepxi_tpu_torch.ops.kernels import load_ops
 WARMUPS = 3
 
 
-def refuse_unexportable(network) -> None:
-    """Raise for a ResLSTM or ResBiLSTM: `torch.export` would unroll its
-    recurrence, T x n_blocks steps of plain operations at every bucket (T =
-    1025 at 262,144 samples); the recurrence as one `deepxi::` op is ROADMAP
-    item A9b."""
-    from deepxi_tpu_torch.models.rnn import ResLSTM
-    if isinstance(network, ResLSTM):
-        raise NotImplementedError(
-            f"no serving export of a {type(network).__name__}: torch.export would unroll "
-            "its recurrence step by step at every bucket; the LSTM recurrence as one "
-            "deepxi:: op is ROADMAP item A9b")
-
-
 class _Enhancer(torch.nn.Module):
     """`enhance(params, x)` with the weights held as buffers, so that the
     exported program carries them."""
@@ -82,7 +69,8 @@ def export_enhancer(inp_tgt, network, params, out_dir: str,
     `resnetv2_apply_fused`) at each bucket length on `device` (the card
     unless ``device="cpu"``); returns the written paths. There is no
     `precision`: the port's DFT is float32. A ResLSTM or ResBiLSTM network
-    raises NotImplementedError (`refuse_unexportable`, ROADMAP item A9b).
+    exports its recurrence as one `deepxi::masked_lstm` call a direction a
+    block.
 
     With a ("data", "model") `mesh` the bundle is multi-card: the program
     is the one each rank runs on its batch / n_data rows, the manifest's
@@ -95,7 +83,6 @@ def export_enhancer(inp_tgt, network, params, out_dir: str,
     from deepxi_tpu_torch.parallel import is_primary
     from deepxi_tpu_torch.parallel.mesh import DATA_AXIS, mesh_shape
 
-    refuse_unexportable(network)
     n_devices, rows = 1, batch
     if mesh is not None:
         n_data = mesh_shape(mesh)[DATA_AXIS]

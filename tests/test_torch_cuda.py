@@ -884,9 +884,9 @@ def test_resampled_wav_feeds_the_card(cuda, tmp_path):
 def test_kernel_ops_equal_their_wrappers(cuda):
     """Each `deepxi::` op called directly (as an exported program calls it)
     gives its public wrapper's output bitwise, and both count the same
-    launches: one a block for the per-block TCN kernels, one a call for the
-    others."""
-    from deepxi_tpu_torch.ops.kernels import (mha_block_fused, mha_cache,
+    launches: one a block for the per-block TCN kernels, one a frame for the
+    LSTM recurrence, one a call for the others."""
+    from deepxi_tpu_torch.ops.kernels import (lstm, mha_block_fused, mha_cache,
                                               mha_flash_stream, mha_fused)
     ops = torch.ops.deepxi
     gen = torch.Generator().manual_seed(0)
@@ -900,6 +900,7 @@ def test_kernel_ops_equal_their_wrappers(cuda):
     qc = (torch.randn(3, 8, 32, generator=gen) * 32 ** -0.5).to(cuda)
     kc, vc = (torch.randn(3, 2048, 8, 32, generator=gen).to(cuda) for _ in range(2))
     t = torch.tensor(700, dtype=torch.int32, device=cuda)
+    xp, w_h, mask = (a.to(cuda) for a in _lstm_inputs(30, 3, 64, torch.float32, 1))
     cases = (
         (tcn_fused.fused_block_group_whole, (x, w, dil),
          ops.fused_block_group_whole, (x, flat, dil, 3), 4),
@@ -913,7 +914,9 @@ def test_kernel_ops_equal_their_wrappers(cuda):
          ops.flash_attention, (q, k, v, valid, True), 1),
         (mha_flash_stream.flash_attention_streaming, (q, k, v, valid, True, 64, 128),
          ops.flash_attention_streaming, (q, k, v, valid, True, 64, 128), 1),
-        (mha_cache.mha_cache_step, (qc, kc, vc, t), ops.mha_cache_step, (qc, kc, vc, t), 1))
+        (mha_cache.mha_cache_step, (qc, kc, vc, t), ops.mha_cache_step, (qc, kc, vc, t), 1),
+        (lstm.masked_lstm, (xp, w_h, mask, True), ops.masked_lstm, (xp, w_h, mask, True),
+         xp.shape[0]))
     for wrapper, args, op, op_args, n in cases:
         n0 = wrapper.launches
         y = wrapper(*args)
@@ -1160,6 +1163,60 @@ def test_new_networks_on_the_card_match_the_cpu(cuda, monkeypatch, nt, kw):
     valid = (x != 0).any(-1)
     assert torch.isfinite(y).all() and y.shape == y64.shape
     assert (y - y64)[valid].abs().max().item() <= 1e-4 * y64[valid].abs().max().item()
+
+
+def _lstm_inputs(T, B, H, dtype, seed):
+    """xp [T, B, 4H], w_h [H, 4H] and a mask [T, B] with an all-zero frame
+    inside row 0 and row B-1 padded over its last fifth."""
+    gen = torch.Generator().manual_seed(seed)
+    xp = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(dtype)
+    w_h = (torch.randn(H, 4 * H, generator=gen) * H ** -0.5).to(dtype)
+    mask = torch.ones(T, B, dtype=torch.bool)
+    mask[T // 3, 0] = False
+    mask[T - T // 5:, B - 1] = False
+    return xp, w_h, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,B,T", [(32, 3, 37), (64, 5, 100), (64, 40, 20)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_masked_lstm_kernel_matches_plain(cuda, H, B, T, reverse):
+    """The recurrence kernel (csrc/lstm.cu) against `masked_lstm_plain` on
+    the card, f32: every batch row within 1e-4 of the output's scale (the
+    recurrent product sums in another order), a second call bitwise, T
+    launches in one call; float64 within 1e-12. B = 40 takes several rows
+    a CTA."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
+        xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, dtype, H + B))
+        with torch.no_grad():
+            n0, c0 = lstm.masked_lstm.launches, lstm.masked_lstm.calls
+            ys = lstm.masked_lstm(xp, w_h, mask, reverse)
+            assert (lstm.masked_lstm.launches - n0, lstm.masked_lstm.calls - c0) == (T, 1)
+            ref = lstm.masked_lstm_plain(xp, w_h, mask, reverse)
+            again = lstm.masked_lstm(xp, w_h, mask, reverse)
+        torch.cuda.synchronize()
+        assert ys.shape == (T, B, H) and torch.equal(ys, again)
+        err = (ys - ref).abs().amax(dim=(0, 2))
+        assert err.max().item() <= tol * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_masked_lstm_refuses_outside_its_domain(cuda):
+    """A width past 1024, bfloat16, a mask of another shape and an input that
+    requires grad raise on the card, before any launch."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    n0 = lstm.masked_lstm.launches
+    for T, B, H, dtype in ((4, 1, 1025, torch.float32), (4, 2, 16, torch.bfloat16)):
+        xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, torch.float32, 0))
+        with pytest.raises(ValueError):
+            lstm.masked_lstm(xp.to(dtype), w_h.to(dtype), mask)
+    xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(6, 2, 16, torch.float32, 0))
+    with pytest.raises(ValueError):
+        lstm.masked_lstm(xp, w_h, mask[:5])
+    with pytest.raises(RuntimeError, match="no backward"):
+        lstm.masked_lstm(xp.requires_grad_(True), w_h, mask)
+    assert lstm.masked_lstm.launches == n0
 
 
 @pytest.mark.cuda

@@ -6,8 +6,8 @@ one epoch on a synthetic corpus (the plain network under autograd), then
 `test()` scores the enhanced utterance; the JAX package's `DeepXiTPU` does
 the same from the same checkpoint weights (the port's state dict nested
 back into a flax tree at any depth) and the statistics file the port wrote.
-The serving export of each network is loaded and run, and refused for the
-LSTMs (ROADMAP item A9b).
+The serving export of each network is loaded and run against the live
+enhancer (the LSTMs' also through `--export 1`).
 
 Measured on the CPU: every wav within 1 int16 step of the JAX package's
 (held to 2), xi_hat within 1.8e-5 of 1 + xi (held to 2e-3, the families
@@ -168,29 +168,18 @@ def test_test_matches_jax(corpus, tmp_path_factory, case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_export_serving(corpus, tmp_path_factory, case):
-    """`DeepXiTorch.export_serving` of the epoch: RDLNet, MHANet V1 and the
-    "block" attention export (bucket 16,384, batch 1) and the loaded server
+    """`DeepXiTorch.export_serving` of the epoch: every network exports
+    (bucket 16,384, batch 1; a ResLSTM or ResBiLSTM through one
+    `deepxi::masked_lstm` call a direction a block) and the loaded server
     gives the live enhancer's waveform on the utterance padded to the bucket
-    (1e-6; a non-causal network's tail sees the padding); a ResLSTM or ResBiLSTM
-    raises and names ROADMAP item A9b, through `--export 1` too, before
-    any work."""
+    (1e-6; a non-causal network's tail sees the padding). The LSTMs also
+    export through `--export 1`, whose bundle (batch 32, every bucket) gives
+    the same waveform."""
     from deepxi_tpu_torch import cli
     from deepxi_tpu_torch.serving import load_server
 
     dx, params, _, _, _ = _frameworks(case, corpus, tmp_path_factory.mktemp(case))
     out = str(tmp_path_factory.mktemp(case + "-serving"))
-    if "LSTM" in type(dx.network).__name__:
-        with pytest.raises(NotImplementedError, match="A9b"):
-            dx.export_serving(out_dir=out, epoch=1, batch=1, buckets=(16384,))
-        ver, over = CASES[case]
-        argv = ["--ver", ver, "--export", "1", "--test_epoch", "1", "--platform", "cpu",
-                "--data_path", dx.cfg.data_path, "--model_path", dx.cfg.model_path,
-                "--export_path", out]
-        argv += [a for k, v in over.items() for a in (f"--{k}", str(v))]
-        with pytest.raises(NotImplementedError, match="A9b"):
-            cli.main(argv)
-        assert os.listdir(out) == []
-        return
     written = dx.export_serving(out_dir=out, epoch=1, batch=1, buckets=(16384,))
     assert [os.path.basename(p) for p in written] == ["enhancer_L16384.pt2"]
     x = read_wav(os.path.join(dx.cfg.test_x_path, "u1_pink_5dB.wav"))[0][None]
@@ -200,3 +189,13 @@ def test_export_serving(corpus, tmp_path_factory, case):
     y_live = dx.fast_enhancer("mmse-lsa")(params, xp).cpu().numpy()[:, :y.shape[1]]
     assert y.shape == y_live.shape and np.abs(y_live).max() > 1e-3
     assert np.abs(y - y_live).max() <= 1e-6
+    if "LSTM" in type(dx.network).__name__:
+        ver, over = CASES[case]
+        out_cli = str(tmp_path_factory.mktemp(case + "-cli"))
+        argv = ["--ver", ver, "--export", "1", "--test_epoch", "1", "--platform", "cpu",
+                "--data_path", dx.cfg.data_path, "--model_path", dx.cfg.model_path,
+                "--export_path", out_cli]
+        argv += [a for k, v in over.items() for a in (f"--{k}", str(v))]
+        assert cli.main(argv) == 0
+        assert len(os.listdir(out_cli)) == 7  # the manifest and six buckets
+        assert np.abs(load_server(out_cli)(x) - y_live).max() <= 1e-6

@@ -1,0 +1,472 @@
+"""The masked LSTM recurrence, the LSTM bundles, the native wav decoder and
+the JAX-free artifact tool on one card (chip_smoke.py phase 3o).
+
+`lstm_phase(device, fail, card, native_build_s)`:
+
+  * holds the kernel `deepxi::masked_lstm` (csrc/lstm.cu) against
+    `masked_lstm_plain` at reslstm-1.0c's H = 512, B = 1 T = 250 and B = 32
+    T = 1025, forward and reverse, with masked frames inside rows and a
+    padded tail: every batch row within 1e-4 of the output's scale, a second
+    call bitwise; and times both beside the bound, the library call (cuDNN
+    `torch.nn.LSTM` on the same xp with identity input weights, all frames
+    valid, where the two functions agree; checked within 1e-4 first) and,
+    for L1, the whole block from x (`addmm` + kernel against cuDNN with the
+    block's input weights);
+  * for reslstm-1.0c and ResBiLSTM at full width on seeded weights (the
+    resnet artifact's statistics, TF32 off): the epoch written as a
+    checkpoint, the bundle written by `python -m deepxi_tpu_torch --export
+    1` (`cli.main`: batch 32, the six buckets; one op call a direction a
+    block in each program), 4 rows served at bucket 65,536 against the live
+    enhancer (1e-6), the op's calls and frame launches a server call
+    counted (zeroed just before it); `infer`'s per-utterance network output
+    (`DeepXiTorch.estimator`) and `make_enhancer` at B = 1 x 4 s on the
+    kernel against the plain loop (`rnn.masked_lstm` swapped for
+    `masked_lstm_plain`): outputs within 1e-4 of the scale, wall ms in turns
+    beside the predictions written in PERF.md before the first run;
+  * the native decoder: its build seconds (measured by the caller before
+    any wav was written), a corpus written and read back through it, and a
+    loader epoch bitwise equal with ``DEEPXI_TORCH_NO_NATIVE=1``;
+  * reslstm-1.0c trained three steps (B = 4 x 4.096 s, the plain loop under
+    autograd: the op must not launch), `tools/torch_make_artifact.py` (its
+    `main`), then `python3 -m deepxi_tpu_torch --enhance <artifact>` in a
+    subprocess: rc 0, the wav within one int16 step of `infer`'s.
+
+Returns {"launches": {what: launches}, "row": the kernels-line row's
+measured fields, "times": {what: ms}}. Run alone on a machine with a card:
+python3 tools/torch_lstm.py (records failures and goes on).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import torch_families as fam  # noqa: E402
+import torch_make_artifact  # noqa: E402
+from deepxi_tpu_torch import cli, native  # noqa: E402
+from deepxi_tpu_torch.compat.artifact import FLAGSHIP_ROOT  # noqa: E402
+from deepxi_tpu_torch.config import preset  # noqa: E402
+from deepxi_tpu_torch.data.listing import batch_list  # noqa: E402
+from deepxi_tpu_torch.data.loader import MiniBatchLoader  # noqa: E402
+from deepxi_tpu_torch.data.wavio import read_wav, save_wav  # noqa: E402
+from deepxi_tpu_torch.enhance import make_enhancer  # noqa: E402
+from deepxi_tpu_torch.framework import DeepXiTorch  # noqa: E402
+from deepxi_tpu_torch.models import rnn  # noqa: E402
+from deepxi_tpu_torch.ops.kernels import lstm  # noqa: E402
+from deepxi_tpu_torch.serving import load_server  # noqa: E402
+from deepxi_tpu_torch.training import TrainState, make_optimizer, save_checkpoint  # noqa: E402
+
+KERNEL_TOL_REL = 1e-4   # the kernel against its plain version, of the output's scale
+LIB_TOL_REL = 1e-4      # cuDNN against the kernel on all-valid frames, before it is timed
+LIVE_TOL = 1e-6         # a bundle against the live enhancer
+NET_TOL_REL = 1e-4      # the network output on the kernel against the plain loop
+H = 512                 # reslstm-1.0c's d_model
+KERNEL_SHAPES = ((1, 250), (32, 1025))
+# H100 SXM: f32 outside the tensor cores, HBM3 (chip_smoke.py's constants)
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+MODELS = {"reslstm-1.0c": ("reslstm-1.0c", {}),
+          "ResBiLSTM": ("reslstm-1.0c", dict(network_type="ResBiLSTM"))}
+SERVE_ROWS, SERVE_BUCKET = 4, 65536
+# wall ms at B = 1 x 4 s predicted in PERF.md before the first run on the card
+# (NVIDIA H100 80GB HBM3): make_enhancer on the kernel
+PREDICTED_MS = {"reslstm-1.0c": (5.0, 20.0), "ResBiLSTM": (10.0, 40.0)}
+
+
+def _inputs(B, T, seed, dev):
+    """xp [T, B, 4H] (~N(0, 0.25)), w_h [H, 4H] (~N(0, 1/H)) and a mask with
+    an all-zero frame inside every third row and the last row padded over
+    its last fifth."""
+    gen = torch.Generator().manual_seed(seed)
+    xp = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(dev)
+    w_h = (torch.randn(H, 4 * H, generator=gen) * H ** -0.5).to(dev)
+    mask = torch.ones(T, B, dtype=torch.bool)
+    mask[T // 3, ::3] = False
+    mask[T - T // 5:, B - 1] = False
+    return xp, w_h, mask.to(dev)
+
+
+def bound_ms(B, T):
+    """(ms, bound_by): 8 B H^2 FLOP a frame at the f32 peak, against xp and
+    ys read and written once, w_h and the mask read once."""
+    flops = 8.0 * B * H * H * T
+    nbytes = 4 * (T * B * 4 * H + T * B * H + 4 * H * H) + T * B
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _cuda_ms(fn, iters):
+    """Mean ms of `iters` calls from CUDA events, after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn, dev, iters=3):
+    """Median wall ms of `iters` synchronised calls after one warm-up."""
+    fn()
+    fam._sync(dev)
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        fam._sync(dev)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _cudnn(xp_or_x, w_ih, b_ih, w_h, dev):
+    """torch.nn.LSTM (cuDNN) holding these weights: input weights w_ih [C,
+    4H] and bias b_ih, recurrent w_h [H, 4H] and no recurrent bias."""
+    m = torch.nn.LSTM(w_ih.shape[0], H).to(dev)
+    with torch.no_grad():
+        m.weight_ih_l0.copy_(w_ih.T)
+        m.bias_ih_l0.copy_(b_ih)
+        m.weight_hh_l0.copy_(w_h.T)
+        m.bias_hh_l0.zero_()
+    m.flatten_parameters()
+    return lambda: m(xp_or_x)[0]
+
+
+def kernel_checks(dev, fail, card):
+    """The kernel against its plain version at the main path's shapes, then
+    each shape timed beside its bound and cuDNN."""
+    rows, errs = {}, []
+    for B, T in KERNEL_SHAPES:
+        xp, w_h, mask = _inputs(B, T, B + T, dev)
+        for reverse in (False, True):
+            with torch.no_grad():
+                ys = lstm.masked_lstm(xp, w_h, mask, reverse)
+                ref = lstm.masked_lstm_plain(xp, w_h, mask, reverse)
+                again = lstm.masked_lstm(xp, w_h, mask, reverse)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            row_err = (ys - ref).abs().amax(dim=(0, 2))
+            err = row_err.max().item()
+            errs.append(err)
+            print(f"[3o] masked_lstm H={H} B={B} T={T} {'reverse' if reverse else 'forward'}: "
+                  f"worst batch row {err:.3e} (rel {err / scale:.3e}, tol "
+                  f"{KERNEL_TOL_REL:.0e} of the scale {scale:.3f}); a second call "
+                  f"{'bitwise' if torch.equal(ys, again) else 'DIFFERS'}")
+            if err > KERNEL_TOL_REL * scale or not torch.equal(ys, again):
+                fail(f"[3o] masked_lstm disagrees with its plain version at B={B} T={T} "
+                     f"reverse={reverse} ({err:.3e} of scale {scale:.3e})")
+        ones = torch.ones_like(mask)
+        eye = torch.eye(4 * H, device=dev)
+        lib = _cudnn(xp, eye, torch.zeros(4 * H, device=dev), w_h, dev)
+        with torch.no_grad():
+            y_k = lstm.masked_lstm(xp, w_h, ones)
+            lib_rel = ((lib() - y_k).abs().max() / y_k.abs().max()).item()
+            if lib_rel > LIB_TOL_REL:
+                fail(f"[3o] cuDNN's LSTM is not masked_lstm's function on valid frames "
+                     f"({lib_rel:.3e})")
+            ms = _cuda_ms(lambda: lstm.masked_lstm(xp, w_h, mask), 10)  # noqa: B023
+            plain = _cuda_ms(lambda: lstm.masked_lstm_plain(xp, w_h, mask, False), 3)  # noqa: B023
+            lib_ms = _cuda_ms(lib, 10)
+            # L1's yardstick: the whole block from x [T, B, H], the input
+            # product and bias included
+            gen = torch.Generator().manual_seed(T)
+            x = torch.relu(torch.randn(T, B, H, generator=gen)).to(dev)
+            w_x = (torch.randn(H, 4 * H, generator=gen) * H ** -0.5).to(dev)
+            b = (torch.randn(4 * H, generator=gen) * 0.1).to(dev)
+            block_lib = _cudnn(x, w_x, b, w_h, dev)
+
+            def block():
+                xq = torch.addmm(b, x.reshape(T * B, H), w_x).view(T, B, 4 * H)  # noqa: B023
+                return lstm.masked_lstm(xq, w_h, ones)  # noqa: B023
+            blk_rel = ((block_lib() - block()).abs().max() / block().abs().max()).item()
+            if blk_rel > LIB_TOL_REL:
+                fail(f"[3o] cuDNN's LSTM block is not addmm + masked_lstm ({blk_rel:.3e})")
+            blk_ms, blk_lib_ms = _cuda_ms(block, 10), _cuda_ms(block_lib, 10)
+        bound, by = bound_ms(B, T)
+        print(f"[3o] masked_lstm H={H} B={B} T={T}: {ms:.4f} ms ({T} launches); plain "
+              f"{plain:.4f} ms; cuDNN nn.LSTM on xp (identity input weights; within "
+              f"{lib_rel:.1e} rel) {lib_ms:.4f} ms; bound {bound:.4f} ms ({by}), "
+              f"{bound / ms:.1%} of it; the block from x: addmm + kernel {blk_ms:.4f} ms, "
+              f"cuDNN {blk_lib_ms:.4f} ms (within {blk_rel:.1e}); {card}")
+        rows[(B, T)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                            library_ms=lib_ms, block_ms=blk_ms, block_library_ms=blk_lib_ms,
+                            shape={"B": B, "T": T, "H": H})
+        del xp, w_h, mask, ones, eye, lib, block_lib, x
+    first = rows[KERNEL_SHAPES[0]]
+    first["max_abs_err"] = max(errs)
+    first["at_b32_t1025"] = rows[KERNEL_SHAPES[1]]
+    return first
+
+
+def _setup(name, tmp, dev):
+    """DeepXiTorch of `name` at full width on the resnet artifact's
+    statistics, its seeded weights saved as epoch 1; (dx, params, cfg, argv
+    overrides)."""
+    ver, over = MODELS[name]
+    paths = dict(model_path=os.path.join(tmp, "model"), data_path=os.path.join(tmp, "data"),
+                 out_path=os.path.join(tmp, "out"), log_path=os.path.join(tmp, "log"))
+    cfg = preset(ver, seed=5, **paths, **over)
+    os.makedirs(cfg.data_path, exist_ok=True)
+    shutil.copy(os.path.join(FLAGSHIP_ROOT, "stats.npz"),
+                os.path.join(cfg.data_path, f"{cfg.ver}_stats.npz"))
+    dx = DeepXiTorch(cfg, device=dev)
+    params = dx.init_params()
+    save_checkpoint(os.path.join(cfg.model_path, cfg.ver), 0,
+                    TrainState.create(params, make_optimizer(cfg.network_type)))
+    return dx, params, cfg, [a for k, v in over.items() for a in (f"--{k}", str(v))]
+
+
+def _counted(fn):
+    """fn()'s result and the op's (calls, frame launches) in it, zeroed just
+    before it."""
+    lstm.masked_lstm.calls = lstm.masked_lstm.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (lstm.masked_lstm.calls, lstm.masked_lstm.launches)
+
+
+@contextlib.contextmanager
+def _plain_loop():
+    """MaskedLSTM's op swapped for the plain loop."""
+    rnn.masked_lstm = lstm.masked_lstm_plain
+    try:
+        yield
+    finally:
+        rnn.masked_lstm = lstm.masked_lstm
+
+
+def bundles_and_times(dev, fail, card, tmp, launches, times):
+    """Each LSTM's bundle through --export 1 against the live enhancer, and
+    its per-utterance network output and make_enhancer at B = 1 x 4 s on the
+    kernel against the plain loop."""
+    noisy = read_wav(os.path.join(FLAGSHIP_ROOT, "c012_white_5dB.wav"))[0]
+    for name in MODELS:
+        dx, params, cfg, over = _setup(name, os.path.join(tmp, name), dev)
+        out = os.path.join(tmp, name, "serving")
+        t0 = time.perf_counter()
+        rc = cli.main(["--ver", cfg.ver, "--export", "1", "--test_epoch", "1",
+                       "--export_path", out, "--data_path", cfg.data_path,
+                       "--model_path", cfg.model_path, *over])
+        t_export = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"[3o] {name}: --export 1 returned {rc}")
+        manifest = json.load(open(os.path.join(out, "manifest.json")))
+        ep = torch.export.load(os.path.join(out, f"enhancer_L{SERVE_BUCKET}.pt2"))
+        n_ops = sum(str(n.target) == "deepxi.masked_lstm.default" for n in ep.graph.nodes)
+        want_ops = cfg.n_blocks * (2 if "Bi" in cfg.network_type else 1)
+        x = np.stack([np.roll(np.resize(noisy, SERVE_BUCKET - 1000), 3001 * i)
+                      for i in range(SERVE_ROWS)])
+        server = load_server(out)
+        with torch.no_grad():
+            y, (calls, frames) = _counted(lambda: server(x))  # noqa: B023
+            xp = np.zeros((manifest["batch"], SERVE_BUCKET), np.int16)
+            xp[:SERVE_ROWS, :x.shape[1]] = x
+            y_live = dx.fast_enhancer("mmse-lsa")(params, xp).cpu().numpy()[:SERVE_ROWS,
+                                                                           :y.shape[1]]
+        err = np.abs(y - y_live).max()
+        launches[f"{name} server call"] = frames
+        launches[f"{name} server call, op calls"] = calls
+        print(f"[3o] {name}: --export 1 wrote {len(manifest['buckets'])} buckets at batch "
+              f"{manifest['batch']} in {t_export:.1f} s, {n_ops} masked_lstm calls in the "
+              f"L={SERVE_BUCKET} program (want {want_ops}); {SERVE_ROWS} rows served: "
+              f"{calls} op calls, {frames} frame launches; against the live enhancer "
+              f"{err:.3e} (tol {LIVE_TOL:.0e}); {card}")
+        if (n_ops != want_ops or calls != want_ops or err > LIVE_TOL
+                or not np.isfinite(y).all() or np.abs(y).max() < 1e-4):
+            fail(f"[3o] {name}: the bundle (ops {n_ops}, calls {calls}, error {err:.3e})")
+
+        # per utterance, as infer runs it: the network output on the kernel
+        # and on the plain loop; then make_enhancer
+        x1 = dx._padded(noisy, len(noisy))
+        est = dx.estimator()
+        (y_k, _), (calls, frames) = _counted(lambda: est(params, x1))  # noqa: B023
+        enh = make_enhancer(dx.inp_tgt, dx.network, "mmse-lsa", device=dev)
+        t_est = _host_ms(lambda: est(params, x1), dev)  # noqa: B023
+        t_enh = _host_ms(lambda: enh(params, noisy[None]), dev)  # noqa: B023
+        with _plain_loop():
+            y_p = est(params, x1)[0]
+            t_est_p = _host_ms(lambda: est(params, x1), dev)  # noqa: B023
+            t_enh_p = _host_ms(lambda: enh(params, noisy[None]), dev)  # noqa: B023
+        rel = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
+        launches[f"{name} infer xi_hat, B=1 x 4 s"] = frames
+        times.update({f"{name} estimator B=1 x 4 s": t_est,
+                      f"{name} estimator B=1 x 4 s, plain loop": t_est_p,
+                      f"{name} make_enhancer B=1 x 4 s": t_enh,
+                      f"{name} make_enhancer B=1 x 4 s, plain loop": t_enh_p})
+        lo, hi = PREDICTED_MS[name]
+        print(f"[3o] {name} B=1 x 4 s (T={y_k.shape[1]}): infer's network output "
+              f"(estimator) {t_est:.2f} ms on the kernel ({calls} op calls, {frames} frame "
+              f"launches), {t_est_p:.2f} ms on the plain loop, within {rel:.2e} of its "
+              f"scale (tol {NET_TOL_REL:.0e}); make_enhancer {t_enh:.2f} ms (predicted "
+              f"{lo:g}-{hi:g}), plain loop {t_enh_p:.2f} ms; {card}")
+        if rel > NET_TOL_REL or calls != want_ops:
+            fail(f"[3o] {name}: the kernel's network output ({rel:.3e}, {calls} calls)")
+        del dx, server, est, enh
+
+
+def native_checks(dev, fail, card, tmp, native_build_s, times):
+    """A corpus written and read back through the native decoder, and a
+    loader epoch with and without it."""
+    from synth_corpus import synth_noise, synth_utterance
+    rng = np.random.RandomState(17)
+    root = os.path.join(tmp, "native")
+    wavs = {os.path.join(root, "s", f"u{i:02d}.wav"): synth_utterance(rng, 2.0 + 0.25 * i)
+            for i in range(16)}
+    wavs.update({os.path.join(root, "d", f"n{j}.wav"): synth_noise(rng, "pink", 8.0)
+                 for j in range(3)})
+    t0 = time.perf_counter()
+    for p, w in wavs.items():
+        save_wav(p, w, 16000)
+    t_write = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = {p: read_wav(p)[0] for p in wavs}
+    t_read = (time.perf_counter() - t0) * 1e3
+    bad = [p for p, w in wavs.items() if not np.array_equal(back[p], w)]
+    s_list = batch_list(os.path.join(root, "s"), "clean", os.path.join(root, "data"))
+    d_list = batch_list(os.path.join(root, "d"), "noise", os.path.join(root, "data"))
+
+    def epoch():
+        loader = MiniBatchLoader(s_list, d_list, 4, [-5, 0, 5], seed=2)
+        t = time.perf_counter()
+        out = list(loader.epoch(0))
+        return out, (time.perf_counter() - t) * 1e3
+
+    calls = []
+    load_batch = native.load_batch
+    native.load_batch = lambda *a, **k: calls.append(1) or load_batch(*a, **k)
+    try:
+        with_native, t_nat = epoch()
+    finally:
+        native.load_batch = load_batch
+    os.environ["DEEPXI_TORCH_NO_NATIVE"] = "1"
+    try:
+        without, t_py = epoch()
+    finally:
+        del os.environ["DEEPXI_TORCH_NO_NATIVE"]
+    same = len(with_native) == len(without) == 4 and all(
+        np.array_equal(a, b) for x, y in zip(with_native, without) for a, b in zip(x, y))
+    times.update({"native build s": native_build_s, "native epoch": t_nat,
+                  "python epoch": t_py})
+    print(f"[3o] native wav decoder: built in {native_build_s:.2f} s; {len(wavs)} wavs "
+          f"written in {t_write:.1f} ms and read back in {t_read:.1f} ms ({len(bad)} differ); "
+          f"a loader epoch of 4 batches x 4 rows: {len(calls)} load_batch calls, "
+          f"{t_nat:.1f} ms native, {t_py:.1f} ms with DEEPXI_TORCH_NO_NATIVE=1, "
+          f"{'bitwise equal' if same else 'DIFFERENT'}; {card}")
+    if bad or not same or len(calls) != 8:
+        fail(f"[3o] the native decoder ({len(bad)} wavs differ, epochs equal: {same}, "
+             f"{len(calls)} load_batch calls)")
+
+
+def artifact_flow(dev, fail, card, tmp, times):
+    """reslstm-1.0c trained three steps -> tools/torch_make_artifact.py ->
+    `python3 -m deepxi_tpu_torch --enhance`, against infer's wav."""
+    from synth_corpus import synth_noise, synth_utterance
+    work = os.path.join(tmp, "work")
+    rng = np.random.RandomState(3)
+    dirs = (os.path.join(work, "set", "train_clean_speech"),
+            os.path.join(work, "set", "train_noise"))
+    for i in range(12):
+        save_wav(os.path.join(dirs[0], f"sp{i:02d}.wav"), synth_utterance(rng, 4.0), 16000)
+    for kind in ("white", "pink"):
+        save_wav(os.path.join(dirs[1], f"{kind}.wav"), synth_noise(rng, kind, 8.0), 16000)
+    test_x = os.path.join(work, "set", "test_noisy_speech")
+    for sub, name in (("test_clean_speech", "c012.wav"), ("test_noisy_speech",
+                                                          "c012_white_5dB.wav")):
+        os.makedirs(os.path.join(work, "set", sub), exist_ok=True)
+        shutil.copy(os.path.join(FLAGSHIP_ROOT, name), os.path.join(work, "set", sub, name))
+    cfg = preset("reslstm-1.0c", mbatch_size=4, max_epochs=1, val_flag=False, seed=5,
+                 model_path=os.path.join(work, "model"), data_path=os.path.join(work, "data"),
+                 out_path=os.path.join(work, "out"), log_path=os.path.join(work, "log"),
+                 test_x_path=test_x)
+    os.makedirs(cfg.data_path, exist_ok=True)
+    shutil.copy(os.path.join(FLAGSHIP_ROOT, "stats.npz"),
+                os.path.join(cfg.data_path, f"{cfg.ver}_stats.npz"))
+    s_list = batch_list(dirs[0], "clean", cfg.data_path)
+    d_list = batch_list(dirs[1], "noise", cfg.data_path)
+    dx = DeepXiTorch(cfg, s_list, d_list, device=dev)
+    t0 = time.perf_counter()
+    losses, (calls, _) = _counted(lambda: dx.train(verbose=False))
+    t_train = time.perf_counter() - t0
+    print(f"[3o] reslstm-1.0c: 3 train steps at B=4 x 4.096 s in {t_train:.1f} s (the plain "
+          f"loop under autograd: {calls} op calls), losses {losses}; {card}")
+    if calls or not np.isfinite(losses).all():
+        fail(f"[3o] reslstm-1.0c training (losses {losses}, op calls {calls})")
+    art = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    rc = torch_make_artifact.main(["--work", work, "--ver", "reslstm-1.0c", "--epoch", "1",
+                                   "--out", art])
+    t_mk = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"[3o] tools/torch_make_artifact.py returned {rc}")
+    enh_dir = os.path.join(tmp, "enhanced")
+    t0 = time.perf_counter()
+    en = subprocess.run([sys.executable, "-m", "deepxi_tpu_torch", "--enhance", art,
+                         "--in_wavs", os.path.join(test_x, "c012_white_5dB.wav"),
+                         "--out_dir", enh_dir], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                        capture_output=True, text=True, timeout=600)
+    t_en = time.perf_counter() - t0
+    if en.returncode != 0:
+        fail(f"[3o] --enhance of the reslstm-1.0c artifact failed: {en.stderr[-2000:]}")
+    ref = read_wav(dx.infer(epochs=[1], gains=["mmse-lsa"], out_type="y")[0])[0]
+    y = read_wav(os.path.join(enh_dir, "c012_white_5dB.wav"))[0]
+    steps = int(np.abs(y.astype(np.int32) - ref[:len(y)]).max())
+    times.update({"make_artifact s": t_mk, "--enhance s": t_en})
+    print(f"[3o] tools/torch_make_artifact.py (its main, in this process): {t_mk:.1f} s, "
+          f"{len(os.listdir(art))} files; python3 -m deepxi_tpu_torch --enhance <artifact>: rc "
+          f"{en.returncode} in {t_en:.1f} s, {len(y)} samples, {steps} int16 steps from "
+          f"infer's wav (tol 1); {card}")
+    if len(y) != 64000 or steps > 1:
+        fail("[3o] --enhance of the artifact is not infer's waveform")
+
+
+def lstm_phase(device, fail, card="", native_build_s=0.0) -> dict:
+    dev = torch.device(device)
+    launches, times = {}, {}
+    tmp = tempfile.mkdtemp(prefix="deepxi_lstm_")
+    try:
+        t0 = time.perf_counter()
+        row = kernel_checks(dev, fail, card)
+        print(f"[3o] kernel checks and times: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bundles_and_times(dev, fail, card, tmp, launches, times)
+        print(f"[3o] bundles and B=1 x 4 s times: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        native_checks(dev, fail, card, tmp, native_build_s, times)
+        artifact_flow(dev, fail, card, tmp, times)
+        print(f"[3o] native decoder and artifact flow: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "row": row, "times": times}
+
+
+if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        sys.exit("needs an NVIDIA card")
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    failures = []
+
+    def _record(msg):
+        print(f"FAIL: {msg}", flush=True)
+        failures.append(msg)
+
+    t = time.perf_counter()
+    build_s = native.build()
+    lstm_phase("cuda", _record, card, build_s)
+    print(f"lstm phase: {time.perf_counter() - t:.1f} s, {len(failures)} failures; {card}")
+    sys.exit(1 if failures else 0)

@@ -32,9 +32,10 @@ the package sets it when imported):
     each call's launches of B1-B4 are counted (zeroed just before it): B2
     one an utterance on xi_hat, B3 one an utterance on d_hat, none on the
     batched `y`, never B1 or B4;
-  * `make_enhancer` (the network's own forward) at B = 1 x 4 s and B = 96 x
-    10 s, median wall ms of 5 calls (3 for the LSTMs) after a warm-up,
-    beside the prediction written in PERF.md before the first run.
+  * `make_enhancer` (the network's own forward; the LSTMs' recurrence on its
+    kernel, `deepxi::masked_lstm`) at B = 1 x 4 s and B = 96 x 10 s, median
+    wall ms of 5 calls (3 for the LSTMs) after a warm-up, beside the
+    prediction written in PERF.md before the first run.
 
 Returns {"launches": {kernel: {what: launches}}, "times": {what: ms}}.
 Run alone on a machine with a card: python3 tools/torch_networks.py
@@ -86,11 +87,12 @@ MODELS = {
     "mhanet-1.1c block": ("mhanet-1.1c", dict(attention_impl="block")),
 }
 # make_enhancer wall ms (B=1 x 4 s, B=96 x 10 s) predicted in PERF.md before the
-# first run on the card (NVIDIA H100 80GB HBM3)
+# first run on the card (NVIDIA H100 80GB HBM3); the LSTMs' anew before their
+# first run on the recurrence kernel (csrc/lstm.cu)
 PREDICTED_MS = {
     "rdlnet-1.0n": ((25.0, 50.0), (60.0, 120.0)),
-    "reslstm-1.0c": ((70.0, 140.0), (180.0, 350.0)),
-    "ResBiLSTM": ((140.0, 280.0), (350.0, 700.0)),
+    "reslstm-1.0c": ((5.0, 20.0), (50.0, 120.0)),
+    "ResBiLSTM": ((10.0, 40.0), (100.0, 250.0)),
     "MHANet V1": ((2.5, 5.0), (30.0, 60.0)),
     "mhanet-1.1c block": ((2.5, 5.0), (30.0, 60.0)),
 }
