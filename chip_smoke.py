@@ -192,19 +192,24 @@ Phases (any failure exits non-zero before the result line):
      the features, adaptive filters (NLMS, LMS, block NLMS at B=1 x 4 s, 64
      taps) and VAD against the CPU (float64 where it is defined), each timed;
   3o. the LSTM recurrence, the LSTM bundles, the native wav decoder and the
-     artifact tool (tools/torch_lstm.py): the masked LSTM kernel against its
-     plain version at H = 512, B=1 T=250 and B=32 T=1025, forward and
-     reverse, masked frames inside and a padded tail (every batch row within
-     1e-4 of the scale), timed beside its bound, the plain loop and cuDNN's
-     `torch.nn.LSTM` (all frames valid; checked first); reslstm-1.0c and
-     ResBiLSTM on seeded weights through `--export 1` (one op call a
-     direction a block), 4 rows served at bucket 65,536 against the live
-     enhancer (1e-6), the op's launches a call counted, infer's network
-     output at B=1 x 4 s on the kernel against the plain loop, each timed;
-     the native decoder's build, a corpus and a loader epoch with and
-     without it (bitwise); reslstm-1.0c trained 3 steps ->
-     `tools/torch_make_artifact.py` -> `python3 -m deepxi_tpu_torch
-     --enhance`, within one int16 step of infer's wav;
+     artifact tool (tools/torch_lstm.py): the masked LSTM's forward and
+     backward kernels (one cooperative launch a call each) against their
+     plain versions at H = 512, B=1 T=250, B=32 T=1025 and B=8 T=256,
+     forward and reverse, masked frames inside and a padded tail (every
+     batch row within 1e-4 of each output's scale, a second call bitwise),
+     timed beside their bounds, the plain versions and cuDNN's
+     `torch.nn.LSTM` forward and backward (all frames valid; checked
+     first); reslstm-1.0c and ResBiLSTM on seeded weights trained 3 steps at
+     B=8 x 4.096 s through both kernels (losses falling, launches counted,
+     crop gradients within 2e-4 of the plain loop's, the step timed against
+     the plain loop's), through `--export 1` (one op call a direction a
+     block), 4 rows served at bucket 65,536 against the live enhancer
+     (1e-6), the kernel's launches a call counted, infer's network output at
+     B=1 x 4 s on the kernel against the plain loop, each timed; the native
+     decoder's build, a corpus and a loader epoch with and without it
+     (bitwise); reslstm-1.0c trained 3 steps -> `tools/torch_make_artifact.py`
+     -> `python3 -m deepxi_tpu_torch --enhance`, within one int16 step of
+     infer's wav;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
      rows, the fused block and both attentions with their library calls,
      the device-only time: the summed device durations of a call's
@@ -1963,13 +1968,15 @@ def main():
     par = torch_parallel.parallel_phase(dev, fail, card)
     print(f"[3n] phase wall time {time.perf_counter() - t0:.1f} s; {card}")
 
-    # 3o. the LSTM recurrence kernel, the LSTM bundles, the native wav decoder
-    # and the JAX-free artifact tool (tools/torch_lstm.py): the kernel against
-    # its plain version and timed; reslstm-1.0c and ResBiLSTM bundles through
-    # --export 1 against the live enhancer and infer's network output at B=1 x
-    # 4 s on the kernel against the plain loop (the op's launches counted a
-    # call, zeroed just before it); a corpus and a loader epoch through the
-    # native decoder; train -> tools/torch_make_artifact.py -> --enhance
+    # 3o. the LSTM recurrence's forward and backward kernels, the LSTM bundles,
+    # the native wav decoder and the JAX-free artifact tool (tools/torch_lstm.py):
+    # both kernels against their plain versions and timed; reslstm-1.0c and
+    # ResBiLSTM trained through both kernels (launches counted, zeroed just
+    # before), their bundles through --export 1 against the live enhancer and
+    # infer's network output at B=1 x 4 s on the kernel against the plain loop
+    # (launches counted a call, zeroed just before it); a corpus and a loader
+    # epoch through the native decoder; train -> tools/torch_make_artifact.py ->
+    # --enhance
     import torch_lstm
     t0 = time.perf_counter()
     lstm_out = torch_lstm.lstm_phase(dev, fail, card, native_build_s)
@@ -2457,16 +2464,20 @@ def main():
             row["hybrid_launches"] = hyb["launches"][family_key]
         if family_key in par["launches"]:
             row["parallel_launches"] = par["launches"][family_key]
-    # the LSTM recurrence (no Pallas kernel: the JAX package's nn.scan); its
-    # launches are [3o]'s reslstm-1.0c infer call at B=1 x 4 s, its times and
-    # error [3o]'s kernel checks
-    lstm_row = {"name": "masked_lstm", "route": "cuda",
-                "source": "deepxi_tpu_torch/ops/kernels/csrc/lstm.cu",
-                "replaces": "deepxi_tpu/models/rnn.py:45",
-                "launches": lstm_out["launches"]["reslstm-1.0c infer xi_hat, B=1 x 4 s"]}
-    lstm_row.update(lstm_out["row"])
-    lstm_row["lstm_launches"] = lstm_out["launches"]
-    kernels.append(lstm_row)
+    # the LSTM recurrence and its gradient (no Pallas kernel: the JAX package's
+    # nn.scan and XLA's autodiff of it); the forward's launches are [3o]'s
+    # reslstm-1.0c infer call at B=1 x 4 s, the backward's its 3 train steps at
+    # B=8 x 4.096 s; times and errors from [3o]'s kernel checks
+    for name, launched in (("masked_lstm", "reslstm-1.0c infer xi_hat, B=1 x 4 s"),
+                           ("masked_lstm_backward",
+                            "reslstm-1.0c train, 3 steps B=8 x 4.096 s, backward")):
+        lstm_row = {"name": name, "route": "cuda",
+                    "source": "deepxi_tpu_torch/ops/kernels/csrc/lstm.cu",
+                    "replaces": "deepxi_tpu/models/rnn.py:45",
+                    "launches": lstm_out["launches"][launched]}
+        lstm_row.update(lstm_out["rows"][name])
+        lstm_row["lstm_launches"] = lstm_out["launches"]
+        kernels.append(lstm_row)
     print(f"[4] chip_smoke.py wall time: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

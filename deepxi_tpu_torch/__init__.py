@@ -18,6 +18,22 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# The CPU path's elementwise functions that ATen hands to MKL's VML (sqrt,
+# exp, log, tanh, erfinv, ...), run once here on this thread. MKL sets VML
+# up lazily at its first call; where that first call comes from several
+# OpenMP threads at once, as a large tensor's first `torch.sqrt` in a fresh
+# process does, one thread now and then computes its whole chunk at VML's
+# lower accuracy (one utterance of a served batch off by up to ~1e-4 of its
+# scale; tests/test_torch_serving.py shows it). A call on one thread first
+# leaves the parallel ones exact.
+_VML_FUNCTIONS = (torch.acos, torch.asin, torch.atan, torch.cos, torch.erf, torch.erfc,
+                  torch.erfinv, torch.exp, torch.log, torch.log10, torch.log2, torch.sin,
+                  torch.sqrt, torch.tan, torch.tanh, torch.trunc)
+for _dtype in (torch.float32, torch.float64):
+    for _fn in _VML_FUNCTIONS:
+        _fn(torch.full((8,), 0.5, dtype=_dtype))
+del _dtype, _fn
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless ``device`` says

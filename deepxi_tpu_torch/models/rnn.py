@@ -10,10 +10,11 @@ A step whose frame is masked (no input feature nonzero, Keras
 ``Masking(0.0)``: an all-zero frame inside an utterance too) keeps the
 state and repeats the previous output, so neither `torch.nn.LSTM` nor
 cuDNN's packed sequences compute it. The input products of all steps are
-hoisted into one product a block; the recurrence is the op
-`deepxi::masked_lstm` (`ops/kernels/lstm.py`: the CUDA kernel on the card,
-the plain loop on the CPU) where autograd records nothing (inference,
-export), and the plain loop `masked_lstm_plain` under autograd (training).
+hoisted into one product a block; the recurrence is `masked_lstm`
+(`ops/kernels/lstm.py`): the op `deepxi::masked_lstm` where autograd records
+nothing (inference, export), and under autograd (training) its Function,
+whose forward and backward are kernels too (on the card the CUDA kernels, on
+the CPU their plain versions).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch import nn
 
 from deepxi_tpu_torch.models.attention import Dense, LayerNorm, sequence_valid_mask
 from deepxi_tpu_torch.models.tcn import output_activation
-from deepxi_tpu_torch.ops.kernels.lstm import masked_lstm, masked_lstm_plain
+from deepxi_tpu_torch.ops.kernels.lstm import masked_lstm
 
 GATES = "ifgo"
 
@@ -62,11 +63,7 @@ class MaskedLSTM(nn.Module):
         w_x, w_h, b = self.cell.stacked()
         # the input products of every step at once, time-major
         xp = torch.addmm(b, x.reshape(B * T, -1), w_x).reshape(B, T, -1).transpose(0, 1)
-        m = mask.transpose(0, 1)                                # [T, B] bool
-        if torch.is_grad_enabled() and (xp.requires_grad or w_h.requires_grad):
-            ys = masked_lstm_plain(xp, w_h, m, self.reverse)    # autograd records
-        else:
-            ys = masked_lstm(xp, w_h, m, self.reverse)
+        ys = masked_lstm(xp, w_h, mask.transpose(0, 1), self.reverse)
         return ys.transpose(0, 1)
 
 

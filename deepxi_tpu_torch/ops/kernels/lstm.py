@@ -1,12 +1,20 @@
-"""The masked LSTM recurrence of ResLSTM / ResBiLSTM as one op (follows the
-`nn.scan` of deepxi_tpu/models/rnn.py, which XLA compiles into one
-while-loop; the JAX package has no Pallas kernel for it).
+"""The masked LSTM recurrence of ResLSTM / ResBiLSTM as one op, and its
+gradient (follows the `nn.scan` of deepxi_tpu/models/rnn.py, which XLA
+compiles into one while-loop and differentiates; the JAX package has no
+Pallas kernel for it).
 
-`masked_lstm(xp, w_h, mask, reverse)` is the op `deepxi::masked_lstm`
-(`ops.kernels.kernel_op`): on the card the CUDA kernel of `csrc/lstm.cu`, on
-the CPU its plain version `masked_lstm_plain`, which is the definition. An
-exported program holds one call a direction a block, where `torch.export`
-of the plain loop would unroll it frame by frame.
+`masked_lstm(xp, w_h, mask, reverse)` is the recurrence. Where autograd
+records nothing (inference, export) it is the op `deepxi::masked_lstm`
+(`ops.kernels.kernel_op`): on the card the forward kernel of `csrc/lstm.cu`,
+on the CPU its plain version `masked_lstm_plain`, which is the definition;
+an exported program holds one call a direction a block, where `torch.export`
+of the plain loop would unroll it frame by frame. Under autograd (training)
+it is a `torch.autograd.Function`: the forward kernel saving the gate
+activations and the cell state (`masked_lstm_train`), then the backward
+kernel (`masked_lstm_backward`) and one matrix product for the recurrent
+weights' gradient; on the CPU their plain versions `masked_lstm_train_plain`
+and `masked_lstm_backward_plain` (BPTT over frames in PyTorch operations,
+which defines the backward kernel).
 
 Semantics (flax's `nn.OptimizedLSTMCell` under a masked scan): xp [T, B, 4H]
 is the input product plus the recurrent bias, time-major, gates i|f|g|o;
@@ -16,43 +24,40 @@ sigmoid, g = tanh; c' = f c + i g; h' = o tanh(c'). A masked frame keeps
 walks from the last (padded) frame to the first. Returns ys [T, B, H], the
 output after each frame.
 
-On the card one host call runs the recurrence: T launches of one frame
-kernel each on the current stream, no host synchronisation, the output and
-the cell state from PyTorch's caching allocator. `masked_lstm.launches`
-counts the frame launches (T a call) and `masked_lstm.calls` the calls,
-both in the CUDA implementation. The kernel takes float32 or float64 and
-1 <= H <= 1024 (`kernel_takes`); outside that the op raises on the card.
-
-No backward: a network under autograd (training) runs `masked_lstm_plain`
-itself (`models/rnn.MaskedLSTM`); the op refuses autograd.
+On the card each kernel is one cooperative launch a call on the current
+stream (every CTA resident for all T frames, a grid-wide barrier a frame),
+its outputs and saved state from PyTorch's caching allocator, no host
+synchronisation. `masked_lstm.launches` counts the forward's launches (the
+op's and the training forward's), `masked_lstm_backward.launches` the
+backward's, both where they launch. The kernels take float32 or float64 and
+1 <= H <= 1024 (`kernel_takes`); outside that, or where the grid cannot be
+resident at once, the card raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from deepxi_tpu_torch.ops.kernels import kernel_op, launch_context, raw_stream
 
 DTYPES = (torch.float32, torch.float64)
 MAX_H = 1024
-# Hidden units a CTA (csrc/lstm.cu COLS), and the H100's streaming
-# multiprocessors, which `rows_a_block` aims to cover with CTAs.
-COLS = 8
-SMS = 132
 
 
-def masked_lstm_plain(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
-                      reverse: bool) -> torch.Tensor:
-    """Plain version: the recurrence a frame at a time in PyTorch
-    operations (autograd records through it)."""
+def _plain_steps(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor, reverse: bool,
+                 save: bool):
+    """The recurrence a frame at a time in PyTorch operations: ys, and with
+    `save` the gate activations [T, B, 4H] and c after each frame [T, B, H]."""
     T, B, _ = xp.shape
     h_size = w_h.shape[0]
     m = mask[..., None]                                     # [T, B, 1] bool
     c = h = xp.new_zeros(B, h_size)
-    ys = [None] * T
+    ys, gates, cs = [None] * T, [None] * T, [None] * T
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         z = torch.addmm(xp[t], h, w_h)
         s = torch.sigmoid(z)            # i, f and o (and g, unused)
@@ -62,27 +67,78 @@ def masked_lstm_plain(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
         c = torch.where(m[t], c_new, c)
         h = torch.where(m[t], h_new, h)
         ys[t] = h   # the output: h', or the previous output where masked
+        if save:
+            gates[t] = torch.cat([s[:, :2 * h_size], g, s[:, 3 * h_size:]], 1)
+            cs[t] = c
+    if save:
+        return torch.stack(ys, 0), torch.stack(gates, 0), torch.stack(cs, 0)
     return torch.stack(ys, 0)
 
 
+def masked_lstm_plain(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
+                      reverse: bool) -> torch.Tensor:
+    """Plain version of the forward: ys (autograd records through it)."""
+    return _plain_steps(xp, w_h, mask, reverse, save=False)
+
+
+def masked_lstm_train_plain(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
+                            reverse: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward: (ys, the gate activations
+    i|f|g|o [T, B, 4H], c after each frame [T, B, H]); ys is
+    `masked_lstm_plain`'s, bitwise."""
+    return _plain_steps(xp, w_h, mask, reverse, save=True)
+
+
+def masked_lstm_backward_plain(dys: torch.Tensor, gates: torch.Tensor, cs: torch.Tensor,
+                               w_h: torch.Tensor, mask: torch.Tensor,
+                               reverse: bool) -> torch.Tensor:
+    """Plain version of the backward: dxp [T, B, 4H] for the upstream
+    gradient dys [T, B, H] and the training forward's saved state, BPTT in
+    the reverse of processing order with the carry (dh, dc) from zero. A
+    valid frame takes the cell's derivatives (c_{t-1} is c after the frame
+    before in processing order, 0 at the first) and passes dz_t w_h^T back
+    as dh; a masked frame has dz_t = 0 and passes dh + dy_t and dc on."""
+    T, B, h_size = dys.shape
+    order = range(T - 1, -1, -1) if reverse else range(T)
+    dh = dc = dys.new_zeros(B, h_size)
+    zero = dys.new_zeros(B, h_size)
+    dxp = [None] * T
+    prev = [None] + list(order)[:-1]        # the frame before each, in processing order
+    for t, tp in reversed(list(zip(order, prev))):
+        m = mask[t][:, None]
+        dh_tot = dh + dys[t]
+        i, f, g, o = torch.split(gates[t], h_size, 1)
+        tc = torch.tanh(cs[t])
+        c_prev = cs[tp] if tp is not None else zero
+        dz_o = dh_tot * tc * o * (1 - o)
+        dc_tot = dc + dh_tot * o * (1 - tc * tc)
+        dz = torch.cat([dc_tot * g * i * (1 - i), dc_tot * c_prev * f * (1 - f),
+                        dc_tot * i * (1 - g * g), dz_o], 1)
+        dz = torch.where(m, dz, torch.zeros_like(dz))
+        dxp[t] = dz
+        dc = torch.where(m, dc_tot * f, dc)
+        dh = torch.where(m, zero, dh_tot) + dz @ w_h.T
+    return torch.stack(dxp, 0)
+
+
+def recurrent_weight_grad(ys: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """dW_h [H, 4H] = sum over frames of h_{t-1}^T dz_t, h_{t-1} the output
+    of the frame before in processing order (0 at the first): one matrix
+    product over all frames and rows."""
+    T, B, h_size = ys.shape
+    zero = ys.new_zeros(1, B, h_size)
+    h_prev = torch.cat([ys[1:], zero]) if reverse else torch.cat([zero, ys[:-1]])
+    return h_prev.reshape(T * B, h_size).T @ dxp.reshape(T * B, 4 * h_size)
+
+
 def kernel_takes(H: int, dtype: torch.dtype) -> bool:
-    """Whether the kernel takes this width and type: float32 or float64,
-    1 <= H <= 1024 (h_{t-1} of up to 16 rows staged in shared memory)."""
+    """Whether the kernels take this width and type: float32 or float64,
+    1 <= H <= 1024."""
     return dtype in DTYPES and 1 <= H <= MAX_H
 
 
-def rows_a_block(B: int, H: int) -> int:
-    """Batch rows a CTA (the kernel's NB): the most, up to 16, that still
-    leave a CTA for each SM, so a w_h load feeds as many rows' FMAs as the
-    grid allows; 1 when even that leaves SMs idle."""
-    nb = 16
-    while nb > 1 and -(-H // COLS) * -(-B // nb) < SMS:
-        nb //= 2
-    return nb
-
-
 def _check(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor) -> None:
-    """Raise on what the kernel does not take."""
+    """Raise on what the kernels do not take."""
     if xp.dim() != 3 or w_h.dim() != 2 or not kernel_takes(w_h.shape[0], xp.dtype):
         raise ValueError(f"masked_lstm takes xp [T, B, 4H] and w_h [H, 4H] of float32 or "
                          f"float64 with 1 <= H <= {MAX_H}, not {tuple(xp.shape)} and "
@@ -90,7 +146,7 @@ def _check(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor) -> None:
     T, B, H4 = xp.shape
     H = w_h.shape[0]
     if (H4 != 4 * H or tuple(w_h.shape) != (H, 4 * H) or w_h.dtype != xp.dtype
-            or T < 1 or B < 1 or -(-B // rows_a_block(B, H)) > 65535):
+            or T < 1 or B < 1):
         raise ValueError(f"xp {tuple(xp.shape)} and w_h {tuple(w_h.shape)} {w_h.dtype} do "
                          f"not fit: xp [T >= 1, B, 4H], w_h [H, 4H] of xp's dtype")
     if tuple(mask.shape) != (T, B) or mask.dtype != torch.bool:
@@ -103,50 +159,154 @@ def _check(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor) -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("lstm")
+    return bind(_build.load("lstm"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib`'s entry points typed for ctypes (a build of csrc/lstm.cu)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.masked_lstm_error_string.argtypes = [i]
     lib.masked_lstm_error_string.restype = ctypes.c_char_p
-    lib.masked_lstm_forward.argtypes = [p] * 5 + [i] * 6 + [p]
-    lib.masked_lstm_forward.restype = i
+    for fn in (lib.masked_lstm_forward, lib.masked_lstm_backward):
+        fn.argtypes = [p] * 6 + [i] * 7 + [p]
+        fn.restype = i
+    lib.masked_lstm_grid.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
+    lib.masked_lstm_grid.restype = i
+    lib.masked_lstm_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 2 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.masked_lstm_plan.restype = i
     return lib
 
 
-def _masked_lstm_cuda(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
-                      reverse: bool) -> torch.Tensor:
+def grid(backward: bool, B: int, H: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(U, R): the kernels' grid at (B, H) on the current card, ceil(H / U)
+    CTAs of U hidden units for each of R row groups, at most one CTA an SM
+    (csrc/lstm.cu `grid_plan`). Raises where none fits."""
+    U, R = ctypes.c_int(), ctypes.c_int()
+    if not _lib().masked_lstm_grid(int(backward), B, H, int(dtype == torch.float64),
+                                   ctypes.byref(U), ctypes.byref(R)):
+        raise RuntimeError(f"masked_lstm has no grid for B={B}, H={H} {dtype}: the per-unit "
+                           f"state of the batch rows does not fit in shared memory")
+    return U.value, R.value
+
+
+def kernel_plan(backward: bool, B: int, H: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The plan a kernel takes at (B, H): U units a CTA, R row groups, the
+    grid's CTAs, NB rows a stage, whether w_h's slice sits in shared memory,
+    and the shared memory a CTA (bytes)."""
+    U, R = grid(backward, B, H, dtype)
+    nb, ws, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    _lib().masked_lstm_plan(int(backward), B, H, U, R, int(dtype == torch.float64),
+                            ctypes.byref(nb), ctypes.byref(ws), ctypes.byref(smem))
+    return {"U": U, "R": R, "ctas": -(-H // U) * R, "NB": nb.value,
+            "w_h_in_shared": bool(ws.value), "smem": smem.value}
+
+
+def _raise(rc: int, what: str, shape) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed at [T, B, H] = {list(shape)}: CUDA error {rc} "
+                           f"({_lib().masked_lstm_error_string(rc).decode()}); a grid that "
+                           f"cannot be resident at once, or per-unit state of B rows past "
+                           f"shared memory, is refused, never run")
+
+
+def _forward_cuda(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor, reverse: bool,
+                  save: bool):
     _check(xp, w_h, mask)
     xp, w_h, mask = xp.contiguous(), w_h.contiguous(), mask.contiguous()
     T, B, _ = xp.shape
     H = w_h.shape[0]
     ys = xp.new_empty(T, B, H)
-    c = xp.new_empty(B, H)
-    lib = _lib()
+    gates = xp.new_empty(T, B, 4 * H) if save else None
+    cs = xp.new_empty(T, B, H) if save else None
     with launch_context(xp.device):
-        rc = lib.masked_lstm_forward(
-            xp.data_ptr(), w_h.data_ptr(), mask.data_ptr(), c.data_ptr(), ys.data_ptr(),
-            T, B, H, rows_a_block(B, H), int(reverse), int(xp.dtype == torch.float64),
+        rc = _lib().masked_lstm_forward(
+            xp.data_ptr(), w_h.data_ptr(), mask.data_ptr(), ys.data_ptr(),
+            gates.data_ptr() if save else None, cs.data_ptr() if save else None,
+            T, B, H, *grid(False, B, H, xp.dtype), int(reverse), int(xp.dtype == torch.float64),
             raw_stream(xp.device))
-    if rc != 0:
-        raise RuntimeError(f"masked_lstm_forward failed: CUDA error {rc} "
-                           f"({lib.masked_lstm_error_string(rc).decode()})")
-    masked_lstm.launches += T
-    masked_lstm.calls += 1
-    return ys
+    _raise(rc, "masked_lstm_forward", (T, B, H))
+    masked_lstm.launches += 1
+    return (ys, gates, cs) if save else ys
+
+
+def _masked_lstm_cuda(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
+                      reverse: bool) -> torch.Tensor:
+    return _forward_cuda(xp, w_h, mask, reverse, save=False)
 
 
 _op = kernel_op("masked_lstm", _masked_lstm_cuda, masked_lstm_plain,
                 fake=lambda xp, w_h, mask, reverse: xp.new_empty(*xp.shape[:2], w_h.shape[0]))
 
 
+def masked_lstm_train(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
+                      reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training forward: (ys, gates [T, B, 4H], cs [T, B, H]), what
+    `masked_lstm_backward` takes. On the card one launch of the forward
+    kernel; on the CPU `masked_lstm_train_plain`."""
+    if xp.device.type == "cpu":
+        return masked_lstm_train_plain(xp, w_h, mask, bool(reverse))
+    return _forward_cuda(xp, w_h, mask, bool(reverse), save=True)
+
+
+def masked_lstm_backward(dys: torch.Tensor, gates: torch.Tensor, cs: torch.Tensor,
+                         w_h: torch.Tensor, mask: torch.Tensor,
+                         reverse: bool = False) -> torch.Tensor:
+    """dxp [T, B, 4H] for the upstream gradient dys [T, B, H] and
+    `masked_lstm_train`'s gates and cs. On the card one launch of the
+    backward kernel; on the CPU `masked_lstm_backward_plain`."""
+    if dys.device.type == "cpu":
+        return masked_lstm_backward_plain(dys, gates, cs, w_h, mask, bool(reverse))
+    T, B, H = dys.shape
+    _check(gates, w_h, mask)
+    if (tuple(gates.shape) != (T, B, 4 * H) or tuple(cs.shape) != (T, B, H)
+            or dys.dtype != gates.dtype or cs.dtype != gates.dtype
+            or dys.device != gates.device or cs.device != gates.device):
+        raise ValueError(f"dys {tuple(dys.shape)}, gates {tuple(gates.shape)} and cs "
+                         f"{tuple(cs.shape)} do not fit: [T, B, H], [T, B, 4H], [T, B, H] "
+                         f"of one dtype and device")
+    dys, gates, cs = dys.contiguous(), gates.contiguous(), cs.contiguous()
+    w_h, mask = w_h.contiguous(), mask.contiguous()
+    dxp = gates.new_empty(T, B, 4 * H)
+    with launch_context(dys.device):
+        rc = _lib().masked_lstm_backward(
+            dys.data_ptr(), gates.data_ptr(), cs.data_ptr(), w_h.data_ptr(), mask.data_ptr(),
+            dxp.data_ptr(), T, B, H, *grid(True, B, H, dys.dtype), int(reverse),
+            int(dys.dtype == torch.float64), raw_stream(dys.device))
+    _raise(rc, "masked_lstm_backward", (T, B, H))
+    masked_lstm_backward.launches += 1
+    return dxp
+
+
+class _Recurrence(torch.autograd.Function):
+    """The recurrence under autograd: the training forward, then the
+    backward kernel for dxp and `recurrent_weight_grad` for dW_h."""
+
+    @staticmethod
+    def forward(ctx, xp, w_h, mask, reverse):
+        ys, gates, cs = masked_lstm_train(xp, w_h, mask, reverse)
+        ctx.save_for_backward(ys, gates, cs, w_h, mask)
+        ctx.reverse = reverse
+        return ys
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dys):
+        ys, gates, cs, w_h, mask = ctx.saved_tensors
+        dxp = masked_lstm_backward(dys, gates, cs, w_h, mask, ctx.reverse)
+        dw_h = recurrent_weight_grad(ys, dxp, ctx.reverse) if ctx.needs_input_grad[1] else None
+        return dxp, dw_h, None, None
+
+
 def masked_lstm(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
                 reverse: bool = False) -> torch.Tensor:
     """The masked recurrence: ys [T, B, H] for xp [T, B, 4H], w_h [H, 4H] and
-    mask [T, B] bool. On the card one host call of T kernel launches."""
+    mask [T, B] bool; differentiable in xp and w_h. On the card one kernel
+    launch (two under autograd: forward and backward)."""
     if torch.is_grad_enabled() and (xp.requires_grad or w_h.requires_grad):
-        raise RuntimeError("masked_lstm has no backward; run it under torch.no_grad(), or "
-                           "train through masked_lstm_plain (as models/rnn.MaskedLSTM does)")
+        return _Recurrence.apply(xp, w_h, mask, bool(reverse))
     return _op(xp, w_h, mask, bool(reverse))
 
 
 masked_lstm.launches = 0
-masked_lstm.calls = 0
+masked_lstm_backward.launches = 0

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from deepxi_tpu_torch.models.tcn import (ResNetV2, cyclic_dilation,
-                                         init_flax_like)
+                                         init_flax_like, layer_norm)
 from deepxi_tpu_torch.ops.kernels import tcn_fused, tcn_fused_train
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -272,8 +272,19 @@ def test_apply_fused_train_matches_plain_autograd(cuda, save_acts):
     # three launches a block, and the replayed forward's one a block
     assert tcn_fused_train.fused_block_group_bwd.launches == \
         n[1] + 3 * 10 + (0 if save_acts else 10)
+
+    def ties():
+        """The blocks' ReLU inputs within TIE_TOL of 0, from the block inputs
+        of the plain saving forward (no launch)."""
+        with torch.no_grad():
+            h0 = torch.relu(layer_norm(x @ params["ff_conv.kernel"][0]
+                                       + params["ff_conv.bias"]) * params["ff_ln.scale"])
+            w = [tcn_fused.block_weights(params, i) for i in range(10)]
+            dil = [cyclic_dilation(i, 16) for i in range(10)]
+            _, hs = tcn_fused_train.fused_block_group_whole_saved_ref(h0, w, dil)
+            return tcn_fused_train.relu_ties(hs, w, dil)
     for name, a, b in zip(params, g_fused, g_plain):
-        assert _close(a, b, 2e-4), (name, _rel_err(a, b))
+        assert _close(a, b, 2e-4), (name, _rel_err(a, b), "ReLU ties:", ties())
 
 
 # -- the spectral kernels -------------------------------------------------------
@@ -884,8 +895,8 @@ def test_resampled_wav_feeds_the_card(cuda, tmp_path):
 def test_kernel_ops_equal_their_wrappers(cuda):
     """Each `deepxi::` op called directly (as an exported program calls it)
     gives its public wrapper's output bitwise, and both count the same
-    launches: one a block for the per-block TCN kernels, one a frame for the
-    LSTM recurrence, one a call for the others."""
+    launches: one a block for the per-block TCN kernels, one a call for the
+    others."""
     from deepxi_tpu_torch.ops.kernels import (lstm, mha_block_fused, mha_cache,
                                               mha_flash_stream, mha_fused)
     ops = torch.ops.deepxi
@@ -916,7 +927,7 @@ def test_kernel_ops_equal_their_wrappers(cuda):
          ops.flash_attention_streaming, (q, k, v, valid, True, 64, 128), 1),
         (mha_cache.mha_cache_step, (qc, kc, vc, t), ops.mha_cache_step, (qc, kc, vc, t), 1),
         (lstm.masked_lstm, (xp, w_h, mask, True), ops.masked_lstm, (xp, w_h, mask, True),
-         xp.shape[0]))
+         1))
     for wrapper, args, op, op_args, n in cases:
         n0 = wrapper.launches
         y = wrapper(*args)
@@ -1167,44 +1178,75 @@ def test_new_networks_on_the_card_match_the_cpu(cuda, monkeypatch, nt, kw):
 
 def _lstm_inputs(T, B, H, dtype, seed):
     """xp [T, B, 4H], w_h [H, 4H] and a mask [T, B] with an all-zero frame
-    inside row 0 and row B-1 padded over its last fifth."""
+    inside row 0 and row B-1 padded over its last fifth; from B = 3 on, row 1
+    all masked and row 0's first two frames masked (the reverse direction's
+    last processed frames)."""
     gen = torch.Generator().manual_seed(seed)
     xp = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(dtype)
     w_h = (torch.randn(H, 4 * H, generator=gen) * H ** -0.5).to(dtype)
     mask = torch.ones(T, B, dtype=torch.bool)
     mask[T // 3, 0] = False
     mask[T - T // 5:, B - 1] = False
+    if B >= 3:
+        mask[:, 1] = False
+        mask[:2, 0] = False
     return xp, w_h, mask
 
 
+def _row_rel(a, ref):
+    """The worst batch row's max |a - ref| over ref's max abs."""
+    return ((a - ref).abs().amax(dim=(0, 2)).max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,B,T", [(32, 3, 37), (64, 5, 100), (64, 40, 20)])
-@pytest.mark.parametrize("reverse", [False, True])
-def test_masked_lstm_kernel_matches_plain(cuda, H, B, T, reverse):
-    """The recurrence kernel (csrc/lstm.cu) against `masked_lstm_plain` on
-    the card, f32: every batch row within 1e-4 of the output's scale (the
-    recurrent product sums in another order), a second call bitwise, T
-    launches in one call; float64 within 1e-12. B = 40 takes several rows
-    a CTA."""
+@pytest.mark.parametrize("H", [1, 8, 100, 512, 1024])
+@pytest.mark.parametrize("B", [1, 3, 33])
+@pytest.mark.parametrize("T", [1, 7, 1025])
+def test_masked_lstm_kernel_matches_plain(cuda, H, B, T):
+    """The forward kernel (inference and training, csrc/lstm.cu) and the
+    backward kernel against `masked_lstm_train_plain` and
+    `masked_lstm_backward_plain` on the card, both directions, f32 and f64:
+    ys, the saved gates and cell state and dxp within 1e-4 (f32; the
+    products sum in another order) or 1e-12 (f64) of each output's scale on
+    every batch row; one launch a call; a second call of each bitwise (T =
+    1025 frames of grid barriers: a CTA reading h_{t-1} or dz_t before its
+    writers' stores would show here). H = 1 and 1024 are the domain's
+    edges; H = 100 is no multiple of the units a CTA."""
     from deepxi_tpu_torch.ops.kernels import lstm
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
-        xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, dtype, H + B))
-        with torch.no_grad():
-            n0, c0 = lstm.masked_lstm.launches, lstm.masked_lstm.calls
-            ys = lstm.masked_lstm(xp, w_h, mask, reverse)
-            assert (lstm.masked_lstm.launches - n0, lstm.masked_lstm.calls - c0) == (T, 1)
-            ref = lstm.masked_lstm_plain(xp, w_h, mask, reverse)
-            again = lstm.masked_lstm(xp, w_h, mask, reverse)
-        torch.cuda.synchronize()
-        assert ys.shape == (T, B, H) and torch.equal(ys, again)
-        err = (ys - ref).abs().amax(dim=(0, 2))
-        assert err.max().item() <= tol * ref.abs().max().item(), err
+        for reverse in (False, True):
+            xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, dtype, H + B + T))
+            dys = torch.randn(T, B, H, generator=torch.Generator().manual_seed(T),
+                              dtype=dtype).to(cuda)
+            with torch.no_grad():
+                n0, b0 = lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches
+                ys = lstm.masked_lstm(xp, w_h, mask, reverse)
+                ys_t, gates, cs = lstm.masked_lstm_train(xp, w_h, mask, reverse)
+                dxp = lstm.masked_lstm_backward(dys, gates, cs, w_h, mask, reverse)
+                assert (lstm.masked_lstm.launches - n0,
+                        lstm.masked_lstm_backward.launches - b0) == (2, 1)
+                ref, g_ref, c_ref = lstm.masked_lstm_train_plain(xp, w_h, mask, reverse)
+                dxp_ref = lstm.masked_lstm_backward_plain(dys, g_ref, c_ref, w_h, mask,
+                                                          reverse)
+                again = lstm.masked_lstm(xp, w_h, mask, reverse)
+                dxp_again = lstm.masked_lstm_backward(dys, gates, cs, w_h, mask, reverse)
+            torch.cuda.synchronize()
+            assert ys.shape == (T, B, H) and dxp.shape == (T, B, 4 * H)
+            assert torch.equal(ys, again) and torch.equal(ys, ys_t)
+            assert torch.equal(dxp, dxp_again)
+            for name, a, r in (("ys", ys, ref), ("gates", gates, g_ref), ("cs", cs, c_ref),
+                               ("dxp", dxp, dxp_ref)):
+                assert _row_rel(a, r) <= tol, (name, dtype, reverse, _row_rel(a, r))
 
 
 @pytest.mark.cuda
-def test_masked_lstm_refuses_outside_its_domain(cuda):
-    """A width past 1024, bfloat16, a mask of another shape and an input that
-    requires grad raise on the card, before any launch."""
+def test_masked_lstm_refuses_outside_its_domain(cuda, monkeypatch):
+    """A width past 1024, bfloat16 and a mask of another shape raise on the
+    card before any launch; a grid that cannot be resident at once (one
+    hidden unit a CTA at H = 1024, one row group: 1,024 CTAs of ~90 KiB) is
+    refused by the cooperative launch and raises, never hangs, and the next
+    call runs. The kernels' own grids fit: every row group's CTAs within the
+    SMs."""
     from deepxi_tpu_torch.ops.kernels import lstm
     n0 = lstm.masked_lstm.launches
     for T, B, H, dtype in ((4, 1, 1025, torch.float32), (4, 2, 16, torch.bfloat16)):
@@ -1214,9 +1256,64 @@ def test_masked_lstm_refuses_outside_its_domain(cuda):
     xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(6, 2, 16, torch.float32, 0))
     with pytest.raises(ValueError):
         lstm.masked_lstm(xp, w_h, mask[:5])
-    with pytest.raises(RuntimeError, match="no backward"):
-        lstm.masked_lstm(xp.requires_grad_(True), w_h, mask)
+    xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(4, 33, 1024, torch.float32, 0))
+    with monkeypatch.context() as m:
+        m.setattr(lstm, "grid", lambda backward, B, H, dtype: (1, 1))
+        for fn in (lambda: lstm.masked_lstm(xp, w_h, mask),
+                   lambda: lstm.masked_lstm_train(xp, w_h, mask)):
+            with pytest.raises(RuntimeError, match="cooperative launch"):
+                fn()
     assert lstm.masked_lstm.launches == n0
+    ys = lstm.masked_lstm(xp, w_h, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ys).all() and lstm.masked_lstm.launches == n0 + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B in (1, 3, 8, 33, 96):
+        for H in (1, 100, 512, 1024):
+            for backward in (False, True):
+                for dtype in (torch.float32, torch.float64):
+                    plan = lstm.kernel_plan(backward, B, H, dtype)
+                    assert plan["ctas"] <= sms and plan["NB"] >= 1, (B, H, backward, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt", ["ResLSTM", "ResBiLSTM"])
+def test_lstm_training_runs_the_kernels(cuda, monkeypatch, nt):
+    """A ResLSTM / ResBiLSTM loss under autograd on the card (d_model 64, 2
+    blocks, rows with an interior all-zero frame and a padded tail) runs the
+    forward and the backward kernel once a direction a block and never the
+    plain loop; its gradients are within 2e-4 of each leaf's scale of plain
+    autograd through the plain loop, and a second backward is bitwise."""
+    from deepxi_tpu_torch.models import init_flax_like as init_any, network_selector, rnn
+    from deepxi_tpu_torch.ops.kernels import lstm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    net = init_any(network_selector(nt, 257, 257, d_model=64, n_blocks=2),
+                   torch.Generator().manual_seed(4)).to(cuda)
+    x = torch.rand(3, 120, 257, generator=torch.Generator().manual_seed(5)) + 1e-3
+    x[0, 40:42] = 0.0
+    x[2, 90:] = 0.0
+    x = x.to(cuda)
+    params = list(net.parameters())
+    n_dir = 2 * (2 if nt == "ResBiLSTM" else 1)
+
+    def grads():
+        return torch.autograd.grad(torch.square(net(x) - 0.5).mean(), params)
+
+    with monkeypatch.context() as m:
+        m.setattr(lstm, "_plain_steps", None)        # the plain loop must not run
+        m.setattr(lstm, "masked_lstm_backward_plain", None)
+        n0, b0 = lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches
+        g = grads()
+        assert (lstm.masked_lstm.launches - n0,
+                lstm.masked_lstm_backward.launches - b0) == (n_dir, n_dir)
+        g2 = grads()
+    with monkeypatch.context() as m:
+        m.setattr(rnn, "masked_lstm", lstm.masked_lstm_plain)
+        g_ref = grads()
+    torch.cuda.synchronize()
+    for (p, _), a, b, r in zip(net.named_parameters(), g, g2, g_ref):
+        assert torch.equal(a, b), p
+        assert _rel_err(a, r) <= 2e-4, (p, _rel_err(a, r))
 
 
 @pytest.mark.cuda

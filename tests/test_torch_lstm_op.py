@@ -1,16 +1,21 @@
 """The masked LSTM recurrence as the op `deepxi::masked_lstm`
-(`deepxi_tpu_torch.ops.kernels.lstm`) on the CPU, and the serving export of
-ResLSTM and ResBiLSTM through it against the JAX package's.
+(`deepxi_tpu_torch.ops.kernels.lstm`) and its gradient on the CPU, and the
+serving export of ResLSTM and ResBiLSTM through it against the JAX
+package's.
 
 The op's CPU implementation is its plain version, so it equals it bitwise;
-its fake gives [T, B, H]; under autograd the network runs the plain loop
-and elsewhere the op, with the same numbers. The networks (d_model 32, 2
-blocks, biases moved off zero, the weights carried by `from_flax_params`)
-export through the port's `export_enhancer` at bucket 8192, batch 2, with
-one op call a direction a block; the loaded server gives the live
-enhancer's output and the JAX package's `export_enhancer` -> `load_server`
-bundle on the same weights. The kernel against its plain version on the
-card is in tests/test_torch_cuda.py.
+its fake gives [T, B, H]. Under autograd the recurrence is a Function whose
+CPU forward and backward are the kernels' plain versions: the backward
+(`masked_lstm_backward_plain` and `recurrent_weight_grad`) is held to
+autograd of the plain loop in float64 and float32, the networks' gradients
+and one train step of a small ResLSTM to the JAX package's `jax.grad` and
+train step. The networks (d_model 32, 2 blocks, biases moved off zero, the
+weights carried by `from_flax_params`) export through the port's
+`export_enhancer` at bucket 8192, batch 2, with one op call a direction a
+block; the loaded server gives the live enhancer's output and the JAX
+package's `export_enhancer` -> `load_server` bundle on the same weights.
+The kernels against their plain versions on the card are in
+tests/test_torch_cuda.py.
 """
 
 import jax
@@ -24,6 +29,10 @@ from deepxi_tpu.inp_tgt import inp_tgt_selector
 from deepxi_tpu.models import network_selector as network_selector_j
 from deepxi_tpu.serving import export_enhancer as export_enhancer_j
 from deepxi_tpu.serving import load_server as load_server_j
+from deepxi_tpu.training import TrainState as TrainState_j
+from deepxi_tpu.training import make_optimizer as make_optimizer_j
+from deepxi_tpu.training import make_train_step as make_train_step_j
+from deepxi_tpu.training import masked_loss as masked_loss_j
 from deepxi_tpu_torch import serving
 from deepxi_tpu_torch.compat.artifact import from_flax_params
 from deepxi_tpu_torch.enhance import make_enhancer
@@ -32,6 +41,7 @@ from deepxi_tpu_torch.models import network_selector
 from deepxi_tpu_torch.models import rnn
 from deepxi_tpu_torch.ops.kernels import OP_NAMESPACE, lstm
 from deepxi_tpu_torch.ops.maps import NormalCDF
+from deepxi_tpu_torch.training import TrainState, make_optimizer, make_train_step, masked_loss
 
 SMALL = dict(d_model=32, n_blocks=2)
 BUCKET, BATCH, N_IN = 8192, 2, 7000
@@ -40,6 +50,11 @@ BUCKET, BATCH, N_IN = 8192, 2, 7000
 # bundles' limit); the live enhancer gives the bundle's numbers exactly
 # (held to 1e-6).
 JAX_TOL, LIVE_TOL = 1e-5, 1e-6
+# The plain backward against autograd of the plain loop, of each output's
+# scale (float64, float32); the networks' gradients against jax.grad, of
+# each leaf's scale; the train step's loss and parameters against JAX's.
+BWD_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
+GRAD_TOL_REL, STEP_TOL = 1e-4, 1e-5
 
 
 def _inputs(T=37, B=3, H=16, seed=0):
@@ -68,7 +83,7 @@ def test_op_on_the_cpu_is_the_plain_loop(reverse):
         assert not ys[25:, 2].any()
     else:
         assert torch.equal(ys[25:, 2], ys[24:25, 2].expand(12, -1))
-    assert lstm.masked_lstm.launches == lstm.masked_lstm.calls == 0  # the CPU launches none
+    assert lstm.masked_lstm.launches == 0  # the CPU launches none
 
 
 def test_fake_gives_the_output_shape():
@@ -81,27 +96,162 @@ def test_fake_gives_the_output_shape():
     assert tuple(out.shape) == (5, 2, 8) and out.dtype == torch.float32
 
 
-def test_autograd_takes_the_plain_loop_and_the_op_refuses_it():
-    """With a weight that requires grad the network records through the
-    plain loop (the same numbers as without); the op itself raises."""
+def test_autograd_runs_the_recurrence_function(monkeypatch):
+    """With a weight that requires grad the network records one Function a
+    direction a block (the same numbers as without); its backward reaches
+    the plain backward on the CPU, and the plain loop is taken only as the
+    training forward's plain version."""
     torch.manual_seed(0)
-    net = rnn.ResBiLSTM(12, 7, n_blocks=1, d_model=8)
+    net = rnn.ResBiLSTM(12, 7, n_blocks=2, d_model=8)
     x = torch.rand(2, 9, 12)
+    calls = []
+    plain_bwd = lstm.masked_lstm_backward_plain
+    monkeypatch.setattr(lstm, "masked_lstm_backward_plain",
+                        lambda *a: calls.append(1) or plain_bwd(*a))
     y = net(x)
-    assert y.requires_grad
+    assert y.requires_grad and y.grad_fn is not None
     with torch.no_grad():
         assert torch.equal(net(x), y.detach())
-    xp, w_h, mask = _inputs(T=12, B=1, H=8)
-    with pytest.raises(RuntimeError, match="no backward"):
-        lstm.masked_lstm(xp, w_h.requires_grad_(True), mask)
+    y.sum().backward()
+    assert len(calls) == 4
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.parameters())
+
+
+def _grad_inputs(T, B, H, dtype, seed):
+    """xp, w_h (both requiring grad), the upstream gradient and a mask with
+    interior all-masked frames in row 0, an all-masked row 1 and row 2 padded
+    after 60% (where B and T reach them)."""
+    rng = np.random.RandomState(seed)
+    xp = torch.as_tensor(rng.randn(T, B, 4 * H) * 0.8, dtype=dtype).requires_grad_(True)
+    w_h = torch.as_tensor(rng.randn(H, 4 * H) / np.sqrt(H), dtype=dtype).requires_grad_(True)
+    dys = torch.as_tensor(rng.randn(T, B, H), dtype=dtype)
+    mask = torch.ones(T, B, dtype=torch.bool)
+    mask[T // 4:T // 4 + 2, 0] = False
+    if B > 1:
+        mask[:, 1] = False
+    if B > 2:
+        mask[max(1, int(0.6 * T)):, 2] = False
+    return xp, w_h, dys, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T", [1, 23])
+def test_backward_plain_matches_autograd_of_the_plain_loop(dtype, reverse, T):
+    """dxp from `masked_lstm_backward_plain` on the training forward's saved
+    state, and dW_h from `recurrent_weight_grad`, against autograd of
+    `masked_lstm_plain` (B = 3, H = 6): within 1e-10 (float64) or 1e-5
+    (float32) of each output's scale; the training forward's ys is the
+    plain loop's bitwise, and a masked frame's dxp is exactly 0."""
+    xp, w_h, dys, mask = _grad_inputs(T, 3, 6, dtype, T + reverse)
+    ys = lstm.masked_lstm_plain(xp, w_h, mask, reverse)
+    g_xp, g_w = torch.autograd.grad(ys, [xp, w_h], dys)
+    with torch.no_grad():
+        ys_t, gates, cs = lstm.masked_lstm_train_plain(xp, w_h, mask, reverse)
+        dxp = lstm.masked_lstm_backward_plain(dys, gates, cs, w_h, mask, reverse)
+        dw_h = lstm.recurrent_weight_grad(ys_t, dxp, reverse)
+    assert torch.equal(ys_t, ys.detach())
+    assert gates.shape == (T, 3, 24) and cs.shape == (T, 3, 6)
+    assert not dxp[~mask].any()
+    for got, ref in ((dxp, g_xp), (dw_h, g_w)):
+        scale = ref.abs().max().item()
+        assert scale > 0 or T == 1
+        assert (got - ref).abs().max().item() <= BWD_TOL[dtype] * max(scale, 1e-30)
+
+
+def test_function_gradient_is_the_plain_backward():
+    """`masked_lstm` under autograd gives the plain backward's dxp and dW_h
+    bitwise (the Function adds nothing on the CPU), both directions."""
+    for reverse in (False, True):
+        xp, w_h, dys, mask = _grad_inputs(17, 3, 5, torch.float32, 7)
+        g_xp, g_w = torch.autograd.grad(lstm.masked_lstm(xp, w_h, mask, reverse), [xp, w_h],
+                                        dys)
+        with torch.no_grad():
+            ys, gates, cs = lstm.masked_lstm_train_plain(xp, w_h, mask, reverse)
+            dxp = lstm.masked_lstm_backward_plain(dys, gates, cs, w_h, mask, reverse)
+        assert torch.equal(g_xp, dxp)
+        assert torch.equal(g_w, lstm.recurrent_weight_grad(ys, dxp, reverse))
+
+
+def _net_case(nt, d_model, n_blocks, n_feat, seed):
+    """The JAX network, its parameters with biases moved off zero, and the
+    port's network."""
+    net_j = network_selector_j(nt, n_feat, d_model=d_model, n_blocks=n_blocks)
+    params = net_j.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8, n_feat)))
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a + np.random.RandomState(a.size).uniform(-0.2, 0.2, a.shape)
+                             .astype(np.float32) if a.ndim == 1 else a), params)
+    return net_j, params, network_selector(nt, n_feat, n_feat, d_model=d_model,
+                                           n_blocks=n_blocks)
+
+
+@pytest.mark.parametrize("nt", ["ResLSTM", "ResBiLSTM"])
+def test_network_gradients_match_jax(nt):
+    """Gradients of the masked BCE loss through the Function (d_model 24, 3
+    blocks, 3 rows of 50 frames: row 0 with two interior all-zero frames,
+    row 1 padded after 31, row 2 whole) against `jax.grad` of the JAX
+    network: each leaf within 1e-4 of its scale."""
+    net_j, params, net = _net_case(nt, 24, 3, 20, 3)
+    rng = np.random.RandomState(11)
+    x = (np.abs(rng.randn(3, 50, 20)) + 1e-3).astype(np.float32)
+    x[0, 12:14] = 0.0
+    x[1, 31:] = 0.0
+    tgt = rng.uniform(0.05, 0.95, (3, 50, 20)).astype(np.float32)
+    mask = (np.arange(50)[None] < np.array([50, 31, 50])[:, None]).astype(np.float32)
+    g_j = from_flax_params(jax.grad(lambda p: masked_loss_j(
+        net_j.apply(p, jnp.asarray(x)), jnp.asarray(tgt), jnp.asarray(mask),
+        "BinaryCrossentropy"))(jax.tree_util.tree_map(jnp.asarray, params)))
+    p = {k: v.requires_grad_(True) for k, v in from_flax_params(params).items()}
+    loss = masked_loss(torch.func.functional_call(net, p, (torch.as_tensor(x),)),
+                       torch.as_tensor(tgt), torch.as_tensor(mask), "BinaryCrossentropy")
+    g = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    assert set(g) == set(g_j)
+    for k in g:
+        scale = g_j[k].abs().max().item()
+        assert scale > 0, k
+        assert (g[k] - g_j[k]).abs().max().item() <= GRAD_TOL_REL * scale, k
+
+
+def test_train_step_matches_jax(its):
+    """Three steps of a small ResLSTM (d_model 16, 2 blocks) through the
+    trainers' `make_train_step` (example synthesis, forward, the Function's
+    backward, clip and Adam) against the JAX package's on the same weights
+    and batch (noise as long as the speech, so both offsets are 0; one row
+    shorter, so the mask pads it): each step's loss within 1e-5 of JAX's
+    (the second and third on the parameters the earlier steps updated).
+    Parameters are not held elementwise: Adam's first update is lr g /
+    (|g| + eps), so an element whose gradient is near eps moves by another
+    fraction of lr in each package (1.1e-5 at one ff_dense.kernel element
+    measured here); the gradients themselves are held above."""
+    it_j, it = its
+    net_j, params, net = _net_case("ResLSTM", 16, 2, 257, 6)
+    rng = np.random.RandomState(8)
+    s = (rng.randn(2, 8192) * 3000).astype(np.int16)
+    d = (rng.randn(2, 8192) * 2000).astype(np.int16)
+    lens = np.array([8192, 6000], np.int32)
+    snr = np.array([0.0, 5.0], np.float32)
+    tx_j = make_optimizer_j("ResLSTM")
+    step_j = jax.jit(make_train_step_j(net_j, it_j, tx_j))
+    st_j = TrainState_j.create(jax.tree_util.tree_map(jnp.asarray, params), tx_j)
+    tx = make_optimizer("ResLSTM")
+    step = make_train_step(net, it, tx)
+    st = TrainState.create(from_flax_params(params), tx)
+    zeros = torch.zeros(2, dtype=torch.int64)
+    losses = []
+    for i in range(3):
+        st_j, m_j = step_j(st_j, jax.random.PRNGKey(i), jnp.asarray(s), jnp.asarray(d),
+                           jnp.asarray(lens), jnp.asarray(lens), jnp.asarray(snr))
+        st, m = step(st, torch.as_tensor(s), torch.as_tensor(d), torch.as_tensor(lens),
+                     torch.as_tensor(lens), torch.as_tensor(snr), offsets=zeros)
+        losses.append(float(m["loss"]))
+        assert abs(losses[-1] - float(m_j["loss"])) <= STEP_TOL * abs(float(m_j["loss"])), i
+    assert st.step == 3 and losses[2] < losses[0]
 
 
 def test_kernel_takes_states_the_domain():
     assert lstm.kernel_takes(512, torch.float32) and lstm.kernel_takes(1, torch.float64)
     assert not lstm.kernel_takes(1025, torch.float32)
     assert not lstm.kernel_takes(64, torch.bfloat16)
-    assert lstm.rows_a_block(1, 512) == 1 and lstm.rows_a_block(32, 512) == 8
-    assert lstm.rows_a_block(96, 512) == 16
 
 
 @pytest.fixture(scope="module")

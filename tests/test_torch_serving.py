@@ -3,7 +3,9 @@ package's (`deepxi_tpu.serving`) on the CPU: the exported offline enhancer
 and the exported streaming step on the JAX tests' small nets (biases moved
 off zero), the same inputs drawn by numpy from a seed and the weights
 carried by `from_flax_params`; the errors and manifests; the `deepxi::`
-kernel ops in every exported graph; a bundle loaded by a fresh interpreter;
+kernel ops in every exported graph; a bundle loaded by a fresh interpreter,
+and the first parallel MKL VML call of fresh interpreters, which once made
+such a child's output differ;
 `DeepXiTorch.export_serving` through `--export 1`; and `utils.profiling`
 against `deepxi_tpu.utils`. The card's checks (each op against its wrapper,
 the server's CUDA graph against the eager hop) are in
@@ -339,6 +341,42 @@ def test_fresh_interpreter_loads_a_bundle(its, tcn, tmp_path):
                         "torch.export.load(sys.argv[1])", paths[0]], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "not registered" in r.stderr
+
+
+VML_CHILD = """
+import numpy as np, torch
+import deepxi_tpu_torch  # noqa: F401  (what every entry point imports first)
+a = torch.from_numpy(np.random.RandomState(0).rand(1 << 18).astype(np.float32) * 100)
+y = torch.sqrt(a)                                   # parallel: 8 chunks, 8 threads
+ref = torch.cat([torch.sqrt(c) for c in a.split(4096)])  # one thread, below the grain
+print(int((y != ref).sum()))
+"""
+
+
+def test_first_parallel_vml_call_of_a_fresh_process_is_exact():
+    """The cause of the fresh interpreter's rare other output above: ATen
+    hands `sqrt` (and exp, log, erfinv, ...) to MKL's VML, and where VML's
+    first call in a process comes from several OpenMP threads at once, one
+    thread now and then computes its chunk at VML's lower accuracy (up to
+    2.4e-3 on values up to 100; in 5-12 of 120 fresh processes run 8 at a
+    time on an 8-core host, and the served output then differs in one
+    utterance). Importing `deepxi_tpu_torch` runs those functions once on
+    one thread first: 32 fresh interpreters, 8 at a time, each give a
+    parallel `torch.sqrt` bitwise equal to the same values taken one chunk
+    at a time."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    env.pop("OMP_NUM_THREADS", None)
+    counts = []
+    for _ in range(4):
+        procs = [subprocess.Popen([sys.executable, "-c", VML_CHILD], cwd=ROOT, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for _ in range(8)]
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err
+            counts.append(int(out.split()[-1]))
+    assert counts == [0] * 32, counts
 
 
 def test_cli_export_round_trips(tmp_path, tcn, its):

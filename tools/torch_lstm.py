@@ -1,39 +1,50 @@
-"""The masked LSTM recurrence, the LSTM bundles, the native wav decoder and
-the JAX-free artifact tool on one card (chip_smoke.py phase 3o).
+"""The masked LSTM recurrence (forward and backward kernels), the LSTM
+bundles, the native wav decoder and the JAX-free artifact tool on one card
+(chip_smoke.py phase 3o).
 
 `lstm_phase(device, fail, card, native_build_s)`:
 
-  * holds the kernel `deepxi::masked_lstm` (csrc/lstm.cu) against
-    `masked_lstm_plain` at reslstm-1.0c's H = 512, B = 1 T = 250 and B = 32
-    T = 1025, forward and reverse, with masked frames inside rows and a
-    padded tail: every batch row within 1e-4 of the output's scale, a second
-    call bitwise; and times both beside the bound, the library call (cuDNN
-    `torch.nn.LSTM` on the same xp with identity input weights, all frames
-    valid, where the two functions agree; checked within 1e-4 first) and,
-    for L1, the whole block from x (`addmm` + kernel against cuDNN with the
-    block's input weights);
+  * holds both kernels of csrc/lstm.cu, each one cooperative launch a call,
+    against their plain versions at reslstm-1.0c's H = 512, B = 1 T = 250,
+    B = 32 T = 1025 and the train shape B = 8 T = 256, forward and reverse,
+    with masked frames inside rows and a padded tail: the forward (`deepxi::
+    masked_lstm` and the training forward's ys, gates and cell state) against
+    `masked_lstm_train_plain`, the backward against
+    `masked_lstm_backward_plain` on the same saved state, every batch row
+    within 1e-4 of each output's scale, a second call of each bitwise; and
+    times both beside their bounds, the plain versions and the library call
+    (cuDNN `torch.nn.LSTM`, TF32 off, on the same xp with identity input
+    weights, all frames valid, where the functions agree; checked within
+    1e-4 first: its forward, and its backward for the gradient of xp and
+    the recurrent weights against the Function's);
   * for reslstm-1.0c and ResBiLSTM at full width on seeded weights (the
-    resnet artifact's statistics, TF32 off): the epoch written as a
-    checkpoint, the bundle written by `python -m deepxi_tpu_torch --export
-    1` (`cli.main`: batch 32, the six buckets; one op call a direction a
-    block in each program), 4 rows served at bucket 65,536 against the live
-    enhancer (1e-6), the op's calls and frame launches a server call
-    counted (zeroed just before it); `infer`'s per-utterance network output
-    (`DeepXiTorch.estimator`) and `make_enhancer` at B = 1 x 4 s on the
-    kernel against the plain loop (`rnn.masked_lstm` swapped for
-    `masked_lstm_plain`): outputs within 1e-4 of the scale, wall ms in turns
-    beside the predictions written in PERF.md before the first run;
+    resnet artifact's statistics, TF32 off): three train steps at B = 8 x
+    4.096 s on one batch through the kernels (the losses must fall; the
+    forward and backward kernels' launches counted, zeroed just before,
+    one each a direction a block a step), the first step's gradients on
+    2 utterances x 32 frames against plain autograd through the plain loop
+    (2e-4 of each leaf's scale), and the step's wall ms on the kernels and
+    on the plain loop, in turns; the epoch written as a checkpoint, the
+    bundle written by `python -m deepxi_tpu_torch --export 1` (`cli.main`:
+    batch 32, the six buckets; one op call a direction a block in each
+    program), 4 rows served at bucket 65,536 against the live enhancer
+    (1e-6), the kernel's launches a server call counted (zeroed just before
+    it); `infer`'s per-utterance network output (`DeepXiTorch.estimator`)
+    and `make_enhancer` at B = 1 x 4 s on the kernel against the plain loop
+    (`rnn.masked_lstm` swapped for `masked_lstm_plain`): outputs within 1e-4
+    of the scale, wall ms in turns beside the predictions written in PERF.md
+    before the first run;
   * the native decoder: its build seconds (measured by the caller before
     any wav was written), a corpus written and read back through it, and a
     loader epoch bitwise equal with ``DEEPXI_TORCH_NO_NATIVE=1``;
-  * reslstm-1.0c trained three steps (B = 4 x 4.096 s, the plain loop under
-    autograd: the op must not launch), `tools/torch_make_artifact.py` (its
+  * reslstm-1.0c trained three steps (B = 4 x 4.096 s, through both
+    kernels: each must launch), `tools/torch_make_artifact.py` (its
     `main`), then `python3 -m deepxi_tpu_torch --enhance <artifact>` in a
     subprocess: rc 0, the wav within one int16 step of `infer`'s.
 
-Returns {"launches": {what: launches}, "row": the kernels-line row's
-measured fields, "times": {what: ms}}. Run alone on a machine with a card:
-python3 tools/torch_lstm.py (records failures and goes on).
+Returns {"launches": {what: launches}, "rows": {kernel: the kernels-line
+row's measured fields}, "times": {what: ms}}. Run alone on a machine with a
+card: python3 tools/torch_lstm.py (records failures and goes on).
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -67,14 +79,18 @@ from deepxi_tpu_torch.framework import DeepXiTorch  # noqa: E402
 from deepxi_tpu_torch.models import rnn  # noqa: E402
 from deepxi_tpu_torch.ops.kernels import lstm  # noqa: E402
 from deepxi_tpu_torch.serving import load_server  # noqa: E402
-from deepxi_tpu_torch.training import TrainState, make_optimizer, save_checkpoint  # noqa: E402
+from deepxi_tpu_torch.training import (TrainState, frame_mask, make_optimizer,  # noqa: E402
+                                       make_train_step, masked_loss, save_checkpoint)
 
-KERNEL_TOL_REL = 1e-4   # the kernel against its plain version, of the output's scale
-LIB_TOL_REL = 1e-4      # cuDNN against the kernel on all-valid frames, before it is timed
+KERNEL_TOL_REL = 1e-4   # a kernel against its plain version, of each output's scale
+LIB_TOL_REL = 1e-4      # cuDNN against the kernels on all-valid frames, before it is timed
 LIVE_TOL = 1e-6         # a bundle against the live enhancer
 NET_TOL_REL = 1e-4      # the network output on the kernel against the plain loop
+GRAD_TOL_REL = 2e-4     # network gradients on the kernels against the plain loop's
 H = 512                 # reslstm-1.0c's d_model
-KERNEL_SHAPES = ((1, 250), (32, 1025))
+# (B, T): a 4 s utterance, the B = 32 long batch, and the train step's batch
+KERNEL_SHAPES = ((1, 250), (32, 1025), (8, 256))
+TRAIN_B, TRAIN_L = 8, 65536   # the preset's mini-batch of 4.096 s buckets
 # H100 SXM: f32 outside the tensor cores, HBM3 (chip_smoke.py's constants)
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 MODELS = {"reslstm-1.0c": ("reslstm-1.0c", {}),
@@ -82,7 +98,9 @@ MODELS = {"reslstm-1.0c": ("reslstm-1.0c", {}),
 SERVE_ROWS, SERVE_BUCKET = 4, 65536
 # wall ms at B = 1 x 4 s predicted in PERF.md before the first run on the card
 # (NVIDIA H100 80GB HBM3): make_enhancer on the kernel
-PREDICTED_MS = {"reslstm-1.0c": (5.0, 20.0), "ResBiLSTM": (10.0, 40.0)}
+PREDICTED_MS = {"reslstm-1.0c": (4.0, 7.0), "ResBiLSTM": (8.0, 12.0)}
+# the train step at B = 8 x 4.096 s on the kernels, predicted likewise
+PREDICTED_STEP_MS = {"reslstm-1.0c": (15.0, 60.0), "ResBiLSTM": (25.0, 90.0)}
 
 
 def _inputs(B, T, seed, dev):
@@ -98,12 +116,14 @@ def _inputs(B, T, seed, dev):
     return xp, w_h, mask.to(dev)
 
 
-def bound_ms(B, T):
-    """(ms, bound_by): 8 B H^2 FLOP a frame at the f32 peak, against xp and
-    ys read and written once, w_h and the mask read once."""
+def bound_ms(B, T, backward=False):
+    """(ms, bound_by): 8 B H^2 FLOP a frame at the f32 peak, against each
+    input read and each output written once: the forward's xp, mask, w_h and
+    ys; the backward's dys, the saved gates and cell state, the mask, w_h and
+    dxp."""
     flops = 8.0 * B * H * H * T
-    nbytes = 4 * (T * B * 4 * H + T * B * H + 4 * H * H) + T * B
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    floats = (T * B * (H + 4 * H + H + 4 * H) if backward else T * B * (4 * H + H)) + 4 * H * H
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, (4 * floats + T * B) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -120,17 +140,9 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _host_ms(fn, dev, iters=3):
-    """Median wall ms of `iters` synchronised calls after one warm-up."""
-    fn()
-    fam._sync(dev)
-    ts = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        fam._sync(dev)
-        ts.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(ts))
+def _rel(a, ref):
+    """The worst batch row's max |a - ref| over ref's max abs ([T, B, ...])."""
+    return ((a - ref).abs().amax(dim=(0, 2)).max() / ref.abs().max()).item()
 
 
 def _cudnn(xp_or_x, w_ih, b_ih, w_h, dev):
@@ -143,73 +155,109 @@ def _cudnn(xp_or_x, w_ih, b_ih, w_h, dev):
         m.weight_hh_l0.copy_(w_h.T)
         m.bias_hh_l0.zero_()
     m.flatten_parameters()
-    return lambda: m(xp_or_x)[0]
+    return m
+
+
+def _check_kernels(B, T, dev, fail, card, errs):
+    """Both kernels against their plain versions at (B, T), both
+    directions; a second call of each bitwise."""
+    xp, w_h, mask = _inputs(B, T, B + T, dev)
+    dys = torch.randn(T, B, H, generator=torch.Generator().manual_seed(T)).to(dev)
+    for reverse in (False, True):
+        with torch.no_grad():
+            ys = lstm.masked_lstm(xp, w_h, mask, reverse)
+            ys_t, gates, cs = lstm.masked_lstm_train(xp, w_h, mask, reverse)
+            dxp = lstm.masked_lstm_backward(dys, gates, cs, w_h, mask, reverse)
+            ref, g_ref, c_ref = lstm.masked_lstm_train_plain(xp, w_h, mask, reverse)
+            dxp_ref = lstm.masked_lstm_backward_plain(dys, g_ref, c_ref, w_h, mask, reverse)
+            again = lstm.masked_lstm(xp, w_h, mask, reverse)
+            dxp_again = lstm.masked_lstm_backward(dys, gates, cs, w_h, mask, reverse)
+        torch.cuda.synchronize()
+        fwd = max(_rel(ys, ref), _rel(gates, g_ref), _rel(cs, c_ref))
+        bwd = _rel(dxp, dxp_ref)
+        errs["masked_lstm"].append(fwd)
+        errs["masked_lstm_backward"].append(bwd)
+        same = (torch.equal(ys, again) and torch.equal(ys, ys_t)
+                and torch.equal(dxp, dxp_again))
+        print(f"[3o] H={H} B={B} T={T} {'reverse' if reverse else 'forward'}: forward kernel "
+              f"(ys, gates, c) worst batch row {fwd:.3e}, backward (dxp) {bwd:.3e} of the "
+              f"scale (tol {KERNEL_TOL_REL:.0e}); a second call of each "
+              f"{'bitwise' if same else 'DIFFERS'}; {card}")
+        if fwd > KERNEL_TOL_REL or bwd > KERNEL_TOL_REL or not same:
+            fail(f"[3o] the LSTM kernels disagree with their plain versions at B={B} T={T} "
+                 f"reverse={reverse} (forward {fwd:.3e}, backward {bwd:.3e}, bitwise {same})")
+
+
+def _time_kernels(B, T, dev, fail, card):
+    """Each kernel timed beside its bound, its plain version and cuDNN (the
+    same function where all frames are valid, checked first)."""
+    xp, w_h, mask = _inputs(B, T, B + T, dev)
+    dys = torch.randn(T, B, H, generator=torch.Generator().manual_seed(T)).to(dev)
+    ones = torch.ones_like(mask)
+    lib = _cudnn(xp, torch.eye(4 * H, device=dev), torch.zeros(4 * H, device=dev), w_h, dev)
+    xq = xp.clone().requires_grad_(True)
+    y_lib = lib(xq)[0]
+    wq = w_h.clone().requires_grad_(True)
+    y_k = lstm.masked_lstm(xq, wq, ones)
+    g_lib = torch.autograd.grad(y_lib, [xq, lib.weight_hh_l0], dys, retain_graph=True)
+    g_k = torch.autograd.grad(y_k, [xq, wq], dys)
+    lib_rel = max(_rel(y_lib, y_k), _rel(g_lib[0], g_k[0]),
+                  ((g_lib[1].T - g_k[1]).abs().max() / g_k[1].abs().max()).item())
+    if lib_rel > LIB_TOL_REL:
+        fail(f"[3o] cuDNN's LSTM is not the kernels' function on valid frames ({lib_rel:.3e})")
+    with torch.no_grad():
+        _, gates, cs = lstm.masked_lstm_train(xp, w_h, mask)
+        _, g_ref, c_ref = lstm.masked_lstm_train_plain(xp, w_h, mask, False)
+        fwd = _cuda_ms(lambda: lstm.masked_lstm(xp, w_h, mask), 10)
+        fwd_train = _cuda_ms(lambda: lstm.masked_lstm_train(xp, w_h, mask), 10)
+        fwd_plain = _cuda_ms(lambda: lstm.masked_lstm_plain(xp, w_h, mask, False), 3)
+        lib_fwd = _cuda_ms(lambda: lib(xp), 10)
+        bwd = _cuda_ms(lambda: lstm.masked_lstm_backward(dys, gates, cs, w_h, mask), 10)
+        bwd_plain = _cuda_ms(lambda: lstm.masked_lstm_backward_plain(
+            dys, g_ref, c_ref, w_h, mask, False), 3)
+    lib_bwd = _cuda_ms(lambda: torch.autograd.grad(y_lib, [xq, lib.weight_hh_l0], dys,
+                                                   retain_graph=True), 10)
+    fb, fby = bound_ms(B, T)
+    bb, bby = bound_ms(B, T, backward=True)
+    print(f"[3o] H={H} B={B} T={T}: forward kernel {fwd:.4f} ms (1 launch; saving "
+          f"{fwd_train:.4f}), plain {fwd_plain:.4f}, cuDNN nn.LSTM forward on xp {lib_fwd:.4f} "
+          f"(identity input weights; within {lib_rel:.1e} rel), bound {fb:.4f} ({fby}, "
+          f"{fb / fwd:.1%}); backward kernel {bwd:.4f} ms (1 launch), plain {bwd_plain:.4f}, "
+          f"cuDNN backward (dx and the weights' gradients) {lib_bwd:.4f}, bound {bb:.4f} ({bby}, "
+          f"{bb / bwd:.1%}); {card}")
+    shape = {"B": B, "T": T, "H": H}
+    return (dict(ms=fwd, saving_ms=fwd_train, plain_ms=fwd_plain, bound_ms=fb, bound_by=fby,
+                 library_ms=lib_fwd, shape=shape),
+            dict(ms=bwd, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby, library_ms=lib_bwd,
+                 shape=shape))
 
 
 def kernel_checks(dev, fail, card):
-    """The kernel against its plain version at the main path's shapes, then
-    each shape timed beside its bound and cuDNN."""
-    rows, errs = {}, []
+    """Both kernels against their plain versions at the main path's shapes,
+    then each shape timed beside its bound and cuDNN; the kernels-line rows
+    (the first shape's times, the others under `at_b<B>_t<T>`)."""
+    errs = {"masked_lstm": [], "masked_lstm_backward": []}
+    rows = {name: {} for name in errs}
     for B, T in KERNEL_SHAPES:
-        xp, w_h, mask = _inputs(B, T, B + T, dev)
-        for reverse in (False, True):
-            with torch.no_grad():
-                ys = lstm.masked_lstm(xp, w_h, mask, reverse)
-                ref = lstm.masked_lstm_plain(xp, w_h, mask, reverse)
-                again = lstm.masked_lstm(xp, w_h, mask, reverse)
-            torch.cuda.synchronize()
-            scale = ref.abs().max().item()
-            row_err = (ys - ref).abs().amax(dim=(0, 2))
-            err = row_err.max().item()
-            errs.append(err)
-            print(f"[3o] masked_lstm H={H} B={B} T={T} {'reverse' if reverse else 'forward'}: "
-                  f"worst batch row {err:.3e} (rel {err / scale:.3e}, tol "
-                  f"{KERNEL_TOL_REL:.0e} of the scale {scale:.3f}); a second call "
-                  f"{'bitwise' if torch.equal(ys, again) else 'DIFFERS'}")
-            if err > KERNEL_TOL_REL * scale or not torch.equal(ys, again):
-                fail(f"[3o] masked_lstm disagrees with its plain version at B={B} T={T} "
-                     f"reverse={reverse} ({err:.3e} of scale {scale:.3e})")
-        ones = torch.ones_like(mask)
-        eye = torch.eye(4 * H, device=dev)
-        lib = _cudnn(xp, eye, torch.zeros(4 * H, device=dev), w_h, dev)
-        with torch.no_grad():
-            y_k = lstm.masked_lstm(xp, w_h, ones)
-            lib_rel = ((lib() - y_k).abs().max() / y_k.abs().max()).item()
-            if lib_rel > LIB_TOL_REL:
-                fail(f"[3o] cuDNN's LSTM is not masked_lstm's function on valid frames "
-                     f"({lib_rel:.3e})")
-            ms = _cuda_ms(lambda: lstm.masked_lstm(xp, w_h, mask), 10)  # noqa: B023
-            plain = _cuda_ms(lambda: lstm.masked_lstm_plain(xp, w_h, mask, False), 3)  # noqa: B023
-            lib_ms = _cuda_ms(lib, 10)
-            # L1's yardstick: the whole block from x [T, B, H], the input
-            # product and bias included
-            gen = torch.Generator().manual_seed(T)
-            x = torch.relu(torch.randn(T, B, H, generator=gen)).to(dev)
-            w_x = (torch.randn(H, 4 * H, generator=gen) * H ** -0.5).to(dev)
-            b = (torch.randn(4 * H, generator=gen) * 0.1).to(dev)
-            block_lib = _cudnn(x, w_x, b, w_h, dev)
+        _check_kernels(B, T, dev, fail, card, errs)
+        for name, times in zip(rows, _time_kernels(B, T, dev, fail, card)):
+            rows[name].update(times if (B, T) == KERNEL_SHAPES[0] else {f"at_b{B}_t{T}": times})
+    for name, row in rows.items():
+        row["max_abs_err"] = max(errs[name])
+    return rows
 
-            def block():
-                xq = torch.addmm(b, x.reshape(T * B, H), w_x).view(T, B, 4 * H)  # noqa: B023
-                return lstm.masked_lstm(xq, w_h, ones)  # noqa: B023
-            blk_rel = ((block_lib() - block()).abs().max() / block().abs().max()).item()
-            if blk_rel > LIB_TOL_REL:
-                fail(f"[3o] cuDNN's LSTM block is not addmm + masked_lstm ({blk_rel:.3e})")
-            blk_ms, blk_lib_ms = _cuda_ms(block, 10), _cuda_ms(block_lib, 10)
-        bound, by = bound_ms(B, T)
-        print(f"[3o] masked_lstm H={H} B={B} T={T}: {ms:.4f} ms ({T} launches); plain "
-              f"{plain:.4f} ms; cuDNN nn.LSTM on xp (identity input weights; within "
-              f"{lib_rel:.1e} rel) {lib_ms:.4f} ms; bound {bound:.4f} ms ({by}), "
-              f"{bound / ms:.1%} of it; the block from x: addmm + kernel {blk_ms:.4f} ms, "
-              f"cuDNN {blk_lib_ms:.4f} ms (within {blk_rel:.1e}); {card}")
-        rows[(B, T)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                            library_ms=lib_ms, block_ms=blk_ms, block_library_ms=blk_lib_ms,
-                            shape={"B": B, "T": T, "H": H})
-        del xp, w_h, mask, ones, eye, lib, block_lib, x
-    first = rows[KERNEL_SHAPES[0]]
-    first["max_abs_err"] = max(errs)
-    first["at_b32_t1025"] = rows[KERNEL_SHAPES[1]]
-    return first
+
+def _host_ms(fn, dev, iters=3):
+    """Median wall ms of `iters` synchronised calls after one warm-up."""
+    fn()
+    fam._sync(dev)
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        fam._sync(dev)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
 
 
 def _setup(name, tmp, dev):
@@ -231,12 +279,12 @@ def _setup(name, tmp, dev):
 
 
 def _counted(fn):
-    """fn()'s result and the op's (calls, frame launches) in it, zeroed just
-    before it."""
-    lstm.masked_lstm.calls = lstm.masked_lstm.launches = 0
+    """fn()'s result and the forward and backward kernels' launches in it,
+    zeroed just before it."""
+    lstm.masked_lstm.launches = lstm.masked_lstm_backward.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, (lstm.masked_lstm.calls, lstm.masked_lstm.launches)
+    return out, (lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches)
 
 
 @contextlib.contextmanager
@@ -249,6 +297,79 @@ def _plain_loop():
         rnn.masked_lstm = lstm.masked_lstm
 
 
+def _train_batch(dev):
+    """B = 8 synthetic utterances and noises of 4.096 s (int16 on the card),
+    their lengths, SNRs and zero noise offsets."""
+    from synth_corpus import synth_noise, synth_utterance
+    rng = np.random.RandomState(23)
+    s = np.stack([synth_utterance(rng, TRAIN_L / 16000) for _ in range(TRAIN_B)])
+    d = np.stack([synth_noise(rng, ("white", "pink")[i % 2], TRAIN_L / 16000)
+                  for i in range(TRAIN_B)])
+    lens = torch.full((TRAIN_B,), TRAIN_L, dtype=torch.int64)
+    lens[1] = TRAIN_L - 20000                 # a padded row
+    snr = torch.tensor([-5.0, 0.0, 5.0, 10.0] * (TRAIN_B // 4))
+    return (torch.as_tensor(s[:, :TRAIN_L], device=dev), torch.as_tensor(d[:, :TRAIN_L],
+                                                                         device=dev),
+            lens, lens, snr, torch.zeros(TRAIN_B, dtype=torch.int64))
+
+
+def train_checks(name, dx, params, dev, fail, card, launches, times):
+    """Three train steps on one batch through the kernels (losses falling,
+    each kernel launched once a direction a block a step), the first step's
+    crop gradients against the plain loop's, and the step's wall ms on the
+    kernels and on the plain loop."""
+    cfg = dx.cfg
+    s, d, s_len, d_len, snr, offs = _train_batch(dev)
+    tx = make_optimizer(cfg.network_type)
+    step = make_train_step(dx.network, dx.inp_tgt, tx, cfg.loss_fnc)
+
+    def three_steps():
+        state, losses = TrainState.create(dict(params), tx), []
+        for _ in range(3):
+            state, m = step(state, s, d, s_len, d_len, snr, offsets=offs)
+            losses.append(float(m["loss"]))
+        return losses
+
+    losses, (n_fwd, n_bwd) = _counted(three_steps)
+    n_dir = cfg.n_blocks * (2 if "Bi" in cfg.network_type else 1)
+    state = TrainState.create(dict(params), tx)
+    t_k = _host_ms(lambda: step(state, s, d, s_len, d_len, snr, offsets=offs), dev)  # noqa: B023
+    with _plain_loop():
+        t_p = _host_ms(lambda: step(state, s, d, s_len, d_len, snr, offsets=offs), dev, 1)  # noqa: B023,E501
+    t_k2 = _host_ms(lambda: step(state, s, d, s_len, d_len, snr, offsets=offs), dev)  # noqa: B023
+
+    with torch.no_grad():
+        inp, tgt, nf = dx.inp_tgt.example(s, d, s_len, d_len, snr, offsets=offs)
+        inp, tgt = inp[:2, :32].contiguous(), tgt[:2, :32].contiguous()
+        mask = frame_mask(inp.shape[1], nf, dev)[:2, :32]
+
+    def grads():
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = masked_loss(functional_call(dx.network, p, (inp,)), tgt, mask, cfg.loss_fnc)
+        return dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+    g_k = grads()
+    with _plain_loop():
+        g_p = grads()
+    err, leaf = max(((g_k[k] - g_p[k]).abs().max().item()
+                     / max(g_p[k].abs().max().item(), 1e-30), k) for k in g_p)
+    t_step = float(np.median([t_k, t_k2]))
+    lo, hi = PREDICTED_STEP_MS[name]
+    launches[f"{name} train, 3 steps B={TRAIN_B} x 4.096 s"] = n_fwd
+    launches[f"{name} train, 3 steps B={TRAIN_B} x 4.096 s, backward"] = n_bwd
+    times.update({f"{name} train step B={TRAIN_B} x 4.096 s": t_step,
+                  f"{name} train step B={TRAIN_B} x 4.096 s, plain loop": t_p})
+    print(f"[3o] {name}: 3 train steps at B={TRAIN_B} x 4.096 s on one batch through the "
+          f"kernels: losses {losses}; forward {n_fwd}, backward {n_bwd} launches (want "
+          f"{3 * n_dir} each); the step {t_k:.1f} / {t_k2:.1f} ms (predicted {lo:g}-{hi:g}), "
+          f"on the plain loop {t_p:.1f} ms; first step's gradients on 2 x 32 frames against "
+          f"the plain loop's: worst {err:.3e} at {leaf} (tol {GRAD_TOL_REL:.0e}); {card}")
+    if (not np.isfinite(losses).all() or not losses[2] < losses[0] or err > GRAD_TOL_REL
+            or n_fwd != 3 * n_dir or n_bwd != 3 * n_dir):
+        fail(f"[3o] {name} training through the kernels (losses {losses}, launches "
+             f"{n_fwd}/{n_bwd}, gradients {err:.3e} at {leaf})")
+
+
 def bundles_and_times(dev, fail, card, tmp, launches, times):
     """Each LSTM's bundle through --export 1 against the live enhancer, and
     its per-utterance network output and make_enhancer at B = 1 x 4 s on the
@@ -256,6 +377,7 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
     noisy = read_wav(os.path.join(FLAGSHIP_ROOT, "c012_white_5dB.wav"))[0]
     for name in MODELS:
         dx, params, cfg, over = _setup(name, os.path.join(tmp, name), dev)
+        train_checks(name, dx, params, dev, fail, card, launches, times)
         out = os.path.join(tmp, name, "serving")
         t0 = time.perf_counter()
         rc = cli.main(["--ver", cfg.ver, "--export", "1", "--test_epoch", "1",
@@ -272,19 +394,18 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
                       for i in range(SERVE_ROWS)])
         server = load_server(out)
         with torch.no_grad():
-            y, (calls, frames) = _counted(lambda: server(x))  # noqa: B023
+            y, (calls, _) = _counted(lambda: server(x))  # noqa: B023
             xp = np.zeros((manifest["batch"], SERVE_BUCKET), np.int16)
             xp[:SERVE_ROWS, :x.shape[1]] = x
             y_live = dx.fast_enhancer("mmse-lsa")(params, xp).cpu().numpy()[:SERVE_ROWS,
                                                                            :y.shape[1]]
         err = np.abs(y - y_live).max()
-        launches[f"{name} server call"] = frames
-        launches[f"{name} server call, op calls"] = calls
+        launches[f"{name} server call"] = calls
         print(f"[3o] {name}: --export 1 wrote {len(manifest['buckets'])} buckets at batch "
               f"{manifest['batch']} in {t_export:.1f} s, {n_ops} masked_lstm calls in the "
               f"L={SERVE_BUCKET} program (want {want_ops}); {SERVE_ROWS} rows served: "
-              f"{calls} op calls, {frames} frame launches; against the live enhancer "
-              f"{err:.3e} (tol {LIVE_TOL:.0e}); {card}")
+              f"{calls} kernel launches; against the live enhancer {err:.3e} (tol "
+              f"{LIVE_TOL:.0e}); {card}")
         if (n_ops != want_ops or calls != want_ops or err > LIVE_TOL
                 or not np.isfinite(y).all() or np.abs(y).max() < 1e-4):
             fail(f"[3o] {name}: the bundle (ops {n_ops}, calls {calls}, error {err:.3e})")
@@ -293,7 +414,7 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
         # and on the plain loop; then make_enhancer
         x1 = dx._padded(noisy, len(noisy))
         est = dx.estimator()
-        (y_k, _), (calls, frames) = _counted(lambda: est(params, x1))  # noqa: B023
+        (y_k, _), (calls, _) = _counted(lambda: est(params, x1))  # noqa: B023
         enh = make_enhancer(dx.inp_tgt, dx.network, "mmse-lsa", device=dev)
         t_est = _host_ms(lambda: est(params, x1), dev)  # noqa: B023
         t_enh = _host_ms(lambda: enh(params, noisy[None]), dev)  # noqa: B023
@@ -302,15 +423,15 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
             t_est_p = _host_ms(lambda: est(params, x1), dev)  # noqa: B023
             t_enh_p = _host_ms(lambda: enh(params, noisy[None]), dev)  # noqa: B023
         rel = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
-        launches[f"{name} infer xi_hat, B=1 x 4 s"] = frames
+        launches[f"{name} infer xi_hat, B=1 x 4 s"] = calls
         times.update({f"{name} estimator B=1 x 4 s": t_est,
                       f"{name} estimator B=1 x 4 s, plain loop": t_est_p,
                       f"{name} make_enhancer B=1 x 4 s": t_enh,
                       f"{name} make_enhancer B=1 x 4 s, plain loop": t_enh_p})
         lo, hi = PREDICTED_MS[name]
         print(f"[3o] {name} B=1 x 4 s (T={y_k.shape[1]}): infer's network output "
-              f"(estimator) {t_est:.2f} ms on the kernel ({calls} op calls, {frames} frame "
-              f"launches), {t_est_p:.2f} ms on the plain loop, within {rel:.2e} of its "
+              f"(estimator) {t_est:.2f} ms on the kernel ({calls} launches), {t_est_p:.2f} ms "
+              f"on the plain loop, within {rel:.2e} of its "
               f"scale (tol {NET_TOL_REL:.0e}); make_enhancer {t_enh:.2f} ms (predicted "
               f"{lo:g}-{hi:g}), plain loop {t_enh_p:.2f} ms; {card}")
         if rel > NET_TOL_REL or calls != want_ops:
@@ -399,12 +520,12 @@ def artifact_flow(dev, fail, card, tmp, times):
     d_list = batch_list(dirs[1], "noise", cfg.data_path)
     dx = DeepXiTorch(cfg, s_list, d_list, device=dev)
     t0 = time.perf_counter()
-    losses, (calls, _) = _counted(lambda: dx.train(verbose=False))
+    losses, (n_fwd, n_bwd) = _counted(lambda: dx.train(verbose=False))
     t_train = time.perf_counter() - t0
-    print(f"[3o] reslstm-1.0c: 3 train steps at B=4 x 4.096 s in {t_train:.1f} s (the plain "
-          f"loop under autograd: {calls} op calls), losses {losses}; {card}")
-    if calls or not np.isfinite(losses).all():
-        fail(f"[3o] reslstm-1.0c training (losses {losses}, op calls {calls})")
+    print(f"[3o] reslstm-1.0c: 3 train steps at B=4 x 4.096 s in {t_train:.1f} s (forward "
+          f"kernel {n_fwd}, backward kernel {n_bwd} launches), losses {losses}; {card}")
+    if n_fwd < 15 or n_bwd != 15 or not np.isfinite(losses).all():
+        fail(f"[3o] reslstm-1.0c training (losses {losses}, launches {n_fwd}/{n_bwd})")
     art = os.path.join(tmp, "artifact")
     t0 = time.perf_counter()
     rc = torch_make_artifact.main(["--work", work, "--ver", "reslstm-1.0c", "--epoch", "1",
@@ -439,18 +560,19 @@ def lstm_phase(device, fail, card="", native_build_s=0.0) -> dict:
     tmp = tempfile.mkdtemp(prefix="deepxi_lstm_")
     try:
         t0 = time.perf_counter()
-        row = kernel_checks(dev, fail, card)
+        rows = kernel_checks(dev, fail, card)
         print(f"[3o] kernel checks and times: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         bundles_and_times(dev, fail, card, tmp, launches, times)
-        print(f"[3o] bundles and B=1 x 4 s times: {time.perf_counter() - t0:.1f} s")
+        print(f"[3o] train steps, bundles and B=1 x 4 s times: "
+              f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         native_checks(dev, fail, card, tmp, native_build_s, times)
         artifact_flow(dev, fail, card, tmp, times)
         print(f"[3o] native decoder and artifact flow: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"launches": launches, "row": row, "times": times}
+    return {"launches": launches, "rows": rows, "times": times}
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ utterances, 6 noise files of 8 s) and a test set (the resnet artifact's
 the package sets it when imported):
 
   * `DeepXiTorch.train` takes three steps at B = 8 x 4.096 s (the plain
-    network under autograd; no kernel of the port may launch): finite
-    losses; the first step's gradients on 2 utterances x 32 frames of its
+    network under autograd: no TCN or spectral kernel may launch; the LSTMs'
+    recurrence runs its forward and backward kernels, which must each launch
+    once a direction a block a step): finite losses; the first step's
+    gradients on 2 utterances x 32 frames of its
     batch, the output layer scaled out of the sigmoid's saturation (as
     phase 3k does), against float64 autograd on the card along the f32
     pass's ReLU sides (a tie takes the f32 side, as phase 3k gives it the
@@ -68,7 +70,7 @@ from deepxi_tpu_torch.data.loader import MiniBatchLoader  # noqa: E402
 from deepxi_tpu_torch.data.wavio import read_wav, save_wav  # noqa: E402
 from deepxi_tpu_torch.framework import DeepXiTorch, build_network  # noqa: E402
 from deepxi_tpu_torch.models.attention import sequence_valid_mask  # noqa: E402
-from deepxi_tpu_torch.ops.kernels import spectral  # noqa: E402
+from deepxi_tpu_torch.ops.kernels import lstm, spectral  # noqa: E402
 from deepxi_tpu_torch.ops.kernels.mha_flash_stream import flash_attention_streaming  # noqa: E402
 from deepxi_tpu_torch.sig.mix import noise_offsets, normalise  # noqa: E402
 from deepxi_tpu_torch.training import (TrainState, frame_mask, make_optimizer,  # noqa: E402
@@ -87,12 +89,13 @@ MODELS = {
     "mhanet-1.1c block": ("mhanet-1.1c", dict(attention_impl="block")),
 }
 # make_enhancer wall ms (B=1 x 4 s, B=96 x 10 s) predicted in PERF.md before the
-# first run on the card (NVIDIA H100 80GB HBM3); the LSTMs' anew before their
-# first run on the recurrence kernel (csrc/lstm.cu)
+# first run on the card (NVIDIA H100 80GB HBM3); the LSTMs' anew before the
+# first run of the persistent recurrence kernel (csrc/lstm.cu, one launch a
+# direction a block)
 PREDICTED_MS = {
     "rdlnet-1.0n": ((25.0, 50.0), (60.0, 120.0)),
-    "reslstm-1.0c": ((5.0, 20.0), (50.0, 120.0)),
-    "ResBiLSTM": ((10.0, 40.0), (100.0, 250.0)),
+    "reslstm-1.0c": ((4.0, 7.0), (60.0, 100.0)),
+    "ResBiLSTM": ((8.0, 12.0), (120.0, 200.0)),
     "MHANet V1": ((2.5, 5.0), (30.0, 60.0)),
     "mhanet-1.1c block": ((2.5, 5.0), (30.0, 60.0)),
 }
@@ -272,21 +275,29 @@ def _model(name, dirs, test_dir, tmp, dev, fail, launches, times, card):
     hold_fail = _hold_fail(fail)
 
     fam._zero()
+    lstm.masked_lstm.launches = lstm.masked_lstm_backward.launches = 0
     t0 = time.perf_counter()
     losses = dx.train(verbose=False)
     fam._sync(dev)
     t_train = time.perf_counter() - t0
     n = fam._counts()
+    n_lstm = (lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches)
+    is_lstm = "LSTM" in type(dx.network).__name__
+    want_lstm = 3 * cfg.n_blocks * (2 if "Bi" in cfg.network_type else 1) if is_lstm else 0
     t_step = _step_ms(dx, s_list, d_list, dev)
     w, leaf, scale, readings = _crop_grads(dx, s_list, d_list, dev)
     print(f"[3l] {name} ({type(dx.network).__name__}, {n_params:,} parameters): 3 train steps "
           f"at B={TRAIN_B} x 4.096 s in {t_train:.2f} s, losses {losses}, kernel launches "
-          f"{ {k: v for k, v in n.items() if v} } (the plain network under autograd: none); "
+          f"{ {k: v for k, v in n.items() if v} } (the plain network under autograd: none), "
+          f"LSTM forward/backward kernels {n_lstm} (want {want_lstm} backward, at least as "
+          f"many forward); "
           f"first step's gradients on 2 x 32 frames (output layer x{scale:.4g}) against "
           f"float64 along the f32 ReLU sides: worst rel err {w:.3e} at {leaf} (tol "
           f"{GRAD_TOL_REL:.0e}); {readings}; {card}")
-    if not (np.isfinite(losses).all() and w <= GRAD_TOL_REL and not any(n.values())):
-        fail(f"[3l] {name}: training (losses {losses}, gradients {w:.3e}, launches {n})")
+    if not (np.isfinite(losses).all() and w <= GRAD_TOL_REL and not any(n.values())
+            and n_lstm[1] == want_lstm and n_lstm[0] >= want_lstm):
+        fail(f"[3l] {name}: training (losses {losses}, gradients {w:.3e}, launches {n}, "
+             f"LSTM {n_lstm})")
     times[f"{name} train step"] = t_step
 
     params = dx._state.params
