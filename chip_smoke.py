@@ -196,8 +196,10 @@ Phases (any failure exits non-zero before the result line):
      backward kernels (one cooperative launch a call each) against their
      plain versions at H = 512, B=1 T=250, B=32 T=1025 and B=8 T=256,
      forward and reverse, masked frames inside and a padded tail (every
-     batch row within 1e-4 of each output's scale, a second call bitwise),
-     timed beside their bounds, the plain versions and cuDNN's
+     batch row within 1e-4 of each output's scale, a second call bitwise;
+     the backward's product on FMAs at B=1 and 8, on the tensor cores at
+     B=32), timed beside their bounds (at the f32 FMA peak and at the
+     split-TF32 tensor-core peak), the plain versions and cuDNN's
      `torch.nn.LSTM` forward and backward (all frames valid; checked
      first); reslstm-1.0c and ResBiLSTM on seeded weights trained 3 steps at
      B=8 x 4.096 s through both kernels (losses falling, launches counted,

@@ -31,42 +31,81 @@
 // What bounds it on this card: operations. The recurrent product is
 // 8 B H^2 FLOP a frame in either direction, against bytes of xp, ys and w_h
 // once; at reslstm-1.0c's H = 512 and B = 32 the FLOPs take 1 us a frame at
-// the f32 peak, and at B = 1 a frame is a few hundred ns of latency. The
-// design keeps everything that does not have to cross CTAs on chip:
-//   * One cooperative launch a call (cudaLaunchCooperativeKernel: the launch
-//     is refused, never hung, when its grid cannot be resident at once). The
-//     grid is ceil(H / U) x R CTAs, at most one an SM: CTA (x, y) owns hidden
-//     units [x U, x U + U) of row group y (ceil(B / R) batch rows) for all T
-//     frames, so the cell state (forward) and the carry (dh, dc) (backward)
-//     of its units stay in shared memory, and its slice of w_h is loaded
-//     into shared memory once: the 4U columns [H, 4U] (forward) or the U
-//     rows [U, 4H] (backward), 128 KiB in f32 at H = 512, U = 16. Where no
-//     slice fits (float64 at large H) the same kernel reads it from L2
-//     (template flag WS = false). More row groups (R up to 4, with U as
-//     large as the SMs then need) mean each CTA stages fewer rows a frame.
+// the f32 peak (0.4 us at the 165 TFLOP/s of three TF32 tensor-core
+// products), and at B <= 8 a frame is a few us of latency: barriers and L2
+// round trips. Both kernels are one cooperative launch a call
+// (cudaLaunchCooperativeKernel: the launch is refused, never hung, when its
+// grid cannot be resident at once), at most one CTA an SM, and keep what does
+// not have to cross CTAs on chip.
+//
+// Forward (`lstm_forward_kernel`):
+//   * The grid is ceil(H / U) x R CTAs: CTA (x, y) owns hidden units
+//     [x U, x U + U) of row group y (ceil(B / R) batch rows) for all T
+//     frames, so the cell state of its units stays in shared memory, and its
+//     slice of w_h, the 4U columns [H, 4U] (128 KiB in f32 at H = 512, U =
+//     16), is loaded into shared memory once. Where no slice fits (float64 at
+//     large H) the same kernel reads it from L2 (template flag WS = false).
+//     More row groups (R up to 4, with U as large as the SMs then need) mean
+//     each CTA stages fewer rows a frame.
 //   * Each frame ends at one grid-wide barrier (cooperative_groups'
 //     grid.sync(), ~1.1 us on this card, which orders the frame's global
-//     writes before every CTA's reads after it). Forward: every CTA stages
-//     h_{t-1} of its rows (= ys of the previous frame, written by the row
-//     group's CTAs) NB rows at a time into shared memory as [H][NB], computes
-//     its 4U columns of the product, applies the cell to its units and writes
-//     ys[t]. Backward: every CTA applies the cell's backward to its units and
-//     writes its columns of dxp[t]; after the barrier it stages dz_t of its
-//     rows (every CTA's columns) NB rows at a time as they lie, [NB][4H], and
-//     reduces dz_t w_h^T over 4H for its units into dh. Each thread's share
-//     of the cell (its xp and mask, or its saved gates and state) is loaded
-//     in one go ahead of the arithmetic.
-//   * The product: 512 threads (16 warps) on f32 or f64 FMAs on the CUDA
-//     cores (no tensor cores), blocked in registers so that shared memory is
-//     not the limit: a forward thread sums four columns of NB rows (each h
-//     value feeds four FMAs, each w_h value NB), a backward thread four
-//     consecutive columns of dz for up to four units; operands are read as
-//     16-byte vectors. A thread takes an interleaved share of the reduction;
-//     the lanes of a warp that share columns fold by shuffles, the 16 warps'
-//     sums meet in shared memory and are added in warp order. Fixed orders
-//     and no atomics: a second call is bitwise equal.
-//   * h_{t-1} and dz_t, written during the launch, are read with ld.global.cg
-//     (L2, never a stale L1 line); xp, w_h and the saved state are read-only.
+//     writes before every CTA's reads after it): every CTA stages h_{t-1} of
+//     its rows (= ys of the previous frame, written by the row group's CTAs)
+//     NB rows at a time into shared memory as [H][NB], computes its 4U
+//     columns of the product, applies the cell to its units and writes ys[t].
+//     Each thread's share of the cell (its xp and mask) is loaded in one go
+//     ahead of the arithmetic.
+//   * The product: 512 threads (16 warps) on f32 or f64 FMAs, blocked in
+//     registers: a thread sums four columns of NB rows (each h value feeds
+//     four FMAs, each w_h value NB); operands are read as 16-byte vectors. A
+//     thread takes an interleaved share of the reduction; the lanes of a warp
+//     that share columns fold by shuffles, the 16 warps' sums meet in shared
+//     memory and are added in warp order.
+//   * h_{t-1}, written during the launch, is read with ld.global.cg (L2,
+//     never a stale L1 line); xp and w_h are read-only.
+//
+// Backward (`lstm_backward_kernel`), a reduce-scatter over the row group:
+//   * The same grid shape (its own plan, `grid_plan(backward)`): CTA (x, y)
+//     owns units [x U, x U + U) of row group y, keeps the carry (dh, dc) of
+//     its units in shared memory, and holds the forward's slice of w_h, its
+//     4U columns [H, 4U], in registers for the FMA route (f32; a thread one
+//     or two rows of it over the 4U columns, 64 values at most; float64
+//     reads them from L2) and in shared memory for the tensor cores.
+//   * A frame: the cell's backward for the CTA's units (its inputs, the saved
+//     gates, c_t, c_{t-1}, dy and the mask, were copied into shared memory by
+//     cp.async while the CTA waited at the previous barrier) writes dz_t's 4U
+//     columns to dxp and to shared memory; then the CTA multiplies them by
+//     its slice, dz_t[:, cols] w_h[:, cols]^T, a partial dh [rows, H] for
+//     every unit, and writes it to scratch in global memory without waiting
+//     on any other CTA, laid out by the CTA that will read it. After the row
+//     group's barrier each CTA sums the group's NX partials of its own units,
+//     one contiguous block (ld.global.cg), lanes of an element summing CTAs
+//     in order and folding by a butterfly. A frame moves 2 rows H values a
+//     CTA through L2, where staging the whole dz_t of the rows (rows 4H) did.
+//     An element's prefetch, cell, carry and sum are one thread's, so the
+//     frame has three CTA barriers and none around the cell's inputs.
+//   * The product, f32-accurate, by one of two routes. From LSTM_TC_ROWS
+//     rows a CTA on the tensor cores: mma.sync m16n8k8 TF32 with split
+//     operands (csrc/mma_tf32x3.cuh; M = 16 units of dh, N = 8 batch rows,
+//     K = 8 of the CTA's columns), the A fragments in shared memory in
+//     fragment order (a lane's four values one 16-byte word, no bank
+//     conflict), split each frame in two instructions, hi the bits with the
+//     low 13 cleared and lo = w - hi exactly, which the tensor cores read as
+//     TF32 by their top 19 bits; dz_t split as the header splits. Below
+//     that, where the tensor cores' fixed 8-row N and the split of w_h each
+//     frame cost more, and in float64, on FMAs: each thread's rows of w_h,
+//     held in registers, against each row of dz_t, read as broadcast 16-byte
+//     words.
+//   * The barrier is the row group's own: its NX CTAs meet on an arrival
+//     counter in the call's scratch (red.release.gpu once the partials are
+//     written, ld.relaxed.gpu polls and fence.acq_rel.gpu before they are
+//     read); the partials are double-buffered by frame parity, so a CTA a
+//     frame ahead never writes what a slower one still reads. The counters
+//     are zeroed in the launch behind one grid.sync(). The cooperative
+//     launch's co-residency is what makes the spin safe; the scratch comes
+//     from the caller each call (PyTorch's caching allocator on the call's
+//     stream), so calls on several streams never share a counter.
+//   * Fixed orders and no atomics in any sum: a second call is bitwise equal.
 // Domain: float32 or float64, 1 <= H <= 1024, B >= 1, T >= 1, U in {1, 2, 4,
 // 8, 16}, 1 <= R <= B; B is bounded by the shared memory the per-unit state of
 // a row group takes. The caller checks the domain (kernel_takes) and raises
@@ -78,11 +117,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace cg = cooperative_groups;
 
 // Phase times for tools/torch_lstm_phases.py, built only with -DLSTM_PHASES=1:
 // thread 0 of CTA (0, 0) adds the %globaltimer ns each phase of each frame
-// takes (the forward's into g_phase_ns[0..4], the backward's into [8..12]).
+// takes (the forward's into g_phase_ns[0..4], the backward's into [8..15]).
 #if LSTM_PHASES
 __device__ unsigned long long g_phase_ns[16];
 __device__ __forceinline__ unsigned long long now_ns() {
@@ -90,7 +131,7 @@ __device__ __forceinline__ unsigned long long now_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-#define PHASES_BEGIN unsigned long long phase_ns[5] = {0, 0, 0, 0, 0}, phase_t0 = now_ns();
+#define PHASES_BEGIN unsigned long long phase_ns[8] = {0, 0, 0, 0, 0, 0, 0, 0}, phase_t0 = now_ns();
 #define PHASE(i)                                                              \
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {               \
     const unsigned long long t1 = now_ns();                                   \
@@ -99,7 +140,7 @@ __device__ __forceinline__ unsigned long long now_ns() {
   }
 #define PHASES_END(at)                                                        \
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)                 \
-    for (int i = 0; i < 5; ++i) g_phase_ns[(at) + i] = phase_ns[i];
+    for (int i = 0; i < 8; ++i) g_phase_ns[(at) + i] = phase_ns[i];
 #else
 #define PHASES_BEGIN
 #define PHASE(i)
@@ -189,18 +230,6 @@ __device__ __forceinline__ void load4(const F* p, F (&v)[4]) {
   } else {
     const double2 a = reinterpret_cast<const double2*>(p)[0];
     const double2 b = reinterpret_cast<const double2*>(p)[1];
-    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
-  }
-}
-
-template <typename F>
-__device__ __forceinline__ void load4_cg(const F* p, F (&v)[4]) {
-  if constexpr (sizeof(F) == 4) {
-    const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  } else {
-    const double2 a = __ldcg(reinterpret_cast<const double2*>(p));
-    const double2 b = __ldcg(reinterpret_cast<const double2*>(p) + 1);
     v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
   }
 }
@@ -373,64 +402,181 @@ lstm_forward_kernel(const F* __restrict__ xp, const F* __restrict__ w_h,
   PHASES_END(0)
 }
 
-// The backward: the same grid; dxp [T, B, 4H] is written, one frame a step,
-// and read back by every CTA of the row group after the frame's barrier. dz_t
-// is staged as it lies, [NB][4H] (16-byte loads and stores). Thread (ug,
-// split) reduces over four consecutive columns a step for UG = min(U, 4)
-// units: each staged dz value feeds UG units' FMAs, w_h's rows are read as
-// 16-byte vectors.
-template <typename F, int NB, bool WS>
+// The backward's layout. The CTA's 4U columns of w_h (column c: gate c / U,
+// unit j0 + c % U) are K, in KST k-steps of 8 (CW = 8 KST columns, those past
+// 4U zero); w_h's H rows are the units of the partial dh. The FMA route
+// holds w_h's rows h = tid, tid + THREADS (HPT of them) over the CW columns
+// in registers (f32) and reads dz_t's rows [rows][CW] as broadcast 16-byte
+// words. The tensor-core route (LSTM_TC_ROWS rows a CTA or more) takes
+// MB = ceil(H / 16) m-blocks of 16 rows, warp w the m-blocks w, w + 16, ..,
+// its A fragments stored in shared memory in fragment order (a lane's four
+// values one 16-byte word), and dz_t's columns permuted so that a lane reads
+// its B fragment's two columns (8 ks + t and 8 ks + t + 4) of a row as one
+// 8-byte word: (row n, column c) at (4 n + c % 4) SP + 2 (c / 8) + (c / 4) % 2,
+// SP chosen so that the 16 lanes of a half-warp hit distinct banks.
+__host__ __device__ constexpr int bwd_kst(int U) { return U >= 2 ? U / 2 : 1; }
+// The FMA route's rows of w_h a thread: h = tid, tid + THREADS (HPT of them,
+// all of the CW columns in registers: 64 values at most).
+__host__ __device__ constexpr int bwd_hpt(int kst) { return kst >= 8 ? 1 : 2; }
+__host__ __device__ constexpr int bwd_sp(int kst) { return 2 * kst + (kst > 1 ? 2 : 0); }
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// The bytes ahead of the partials in the backward's scratch: one arrival
+// counter a row group.
+constexpr size_t SCRATCH_HEAD = 256;
+
+// A CTA's rows from which the f32 product takes the tensor cores (0: never).
+// Measured on an H100 (tools/torch_lstm_phases.py builds both routes, H =
+// 512): FMAs ahead at 1, 2 and 4 rows a CTA, even at 6, the tensor cores
+// ahead at 8 and 24.
+#ifndef LSTM_TC_ROWS
+#define LSTM_TC_ROWS 7
+#endif
+
+// w_h's element (row h, the CTA's column c), or -1 past H or 4U (zero).
+__device__ __forceinline__ long long bwd_w_index(int h, int c, int H, int U, int j0) {
+  if (h >= H || c >= 4 * U || j0 + c % U >= H) return -1;
+  return (long long)h * 4 * H + (long long)(c / U) * H + j0 + c % U;
+}
+
+template <typename F>
+__device__ __forceinline__ F bwd_w_load(const F* w_h, int h, int c, int H, int U, int j0) {
+  const long long i = bwd_w_index(h, c, H, U, j0);
+  return i >= 0 ? __ldg(w_h + i) : F(0);
+}
+
+// One value global -> shared without passing through registers (4 or 8
+// bytes); with `zero` no byte is read and the value is zero.
+template <typename F>
+__device__ __forceinline__ void cp_async_value(F* smem, const F* gmem, bool zero) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(s), "l"(gmem),
+               "n"((int)sizeof(F)), "r"(zero ? 0 : (int)sizeof(F))
+               : "memory");
+}
+
+__device__ __forceinline__ void arrive_release(unsigned* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(p) : "memory");
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void fence_acquire() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+template <typename F>
+__device__ __forceinline__ void load2(const F* p, F& a, F& b) {
+  if constexpr (sizeof(F) == 4) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    a = q.x, b = q.y;
+  } else {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    a = q.x, b = q.y;
+  }
+}
+
+// The backward: grid (ceil(H / U), R) CTAs of THREADS, one cooperative
+// launch (see the header comment). dxp [T, B, 4H] is written and never read
+// back; `part` [2][R][NX reader][NX writer][rows][U] holds the partial dh of
+// each CTA (the writer) for the units of each CTA (the reader), by frame
+// parity, so that a CTA's partials lie in one block; `counters` [R] the row
+// groups' arrivals.
+template <typename F, int KST>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_backward_kernel(const F* __restrict__ dys, const F* __restrict__ gates,
                      const F* __restrict__ cs, const F* __restrict__ w_h,
-                     const uint8_t* __restrict__ mask, F* dxp, int T, int B, int H, int U,
-                     int R, int reverse) {
+                     const int* __restrict__ mask, F* __restrict__ dxp, F* part,
+                     unsigned* counters, int T, int B, int H, int U, int R, int reverse,
+                     int tc) {
+  constexpr int HPT = bwd_hpt(KST), CW = 8 * KST, SP = bwd_sp(KST);
+  constexpr bool WREG = sizeof(F) == 4;          // w_h's rows in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int UG = min(U, 4), NUG = U / UG, SPLITS = THREADS / NUG;
-  const int H4 = 4 * H;
   const Rows rw = cta_rows(B, R);
-  F* wt = reinterpret_cast<F*>(smem_raw);        // [U][4H]: w_h's rows of the units
-  F* zs = wt + (WS ? (size_t)H4 * U : 0);        // [NB][4H]: dz_t of NB rows
-  F* part = zs + (size_t)H4 * NB;                // [WARPS][NB][U]
-  F* dh_s = part + WARPS * NB * U;               // [rows][U]: the carry dh
-  F* dc_s = dh_s + (size_t)rw.stride * U;        // [rows][U]: the carry dc
+  const int NX = gridDim.x, MB = (H + 15) / 16, E = rw.count * U, EU = rw.stride * U;
+  const size_t H4 = 4 * (size_t)H;
+  // [MB][KST][32][4] f32: the A fragments (tensor-core route only)
+  float* wf = reinterpret_cast<float*>(smem_raw);
+  F* dz_r = reinterpret_cast<F*>(wf + (tc ? (size_t)MB * KST * 128 : 0));  // [round16(rows)][CW]
+  F* dz_p = dz_r + (size_t)round16(rw.stride) * CW;   // [round16(rows)][4][SP]: dz_t, permuted
+  F* dh_s = dz_p + (size_t)round16(rw.stride) * 4 * SP;   // [rows][U]: the carry dh
+  F* dc_s = dh_s + EU;                           // [rows][U]: the carry dc
+  F* pre = dc_s + EU;                            // [8][rows][U]: the next cell's inputs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ug = tid % NUG, split = tid / NUG;
-  const int j0 = blockIdx.x * U;
-  if constexpr (WS) {
-    for (int i = tid; i < H4 * U; i += THREADS) {
-      const int u = i / H4;
-      wt[i] = j0 + u < H ? w_h[(size_t)j0 * H4 + i] : F(0);
+  const int g = lane >> 2, t4 = lane & 3;
+  const int j0 = blockIdx.x * U, y = blockIdx.y, ush = __ffs(U) - 1;
+
+  // the FMA route: the thread's rows of w_h (h = tid + k THREADS) over the
+  // CW columns
+  F wr[WREG ? HPT : 1][WREG ? CW : 1];
+  if constexpr (WREG) {
+#pragma unroll
+    for (int k = 0; k < HPT; ++k)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) wr[k][c] = bwd_w_load(w_h, tid + k * THREADS, c, H, U, j0);
+    // the fragments: (h, c), (h + 8, c), (h, c + 4), (h + 8, c + 4) for h =
+    // 16 mb + g, c = 8 ks + t
+    for (int i = tid; tc && i < MB * KST * 32; i += THREADS) {
+      const int ln = i & 31, mb = i / (32 * KST), ks = (i >> 5) % KST;
+      const int h = 16 * mb + (ln >> 2), c = 8 * ks + (ln & 3);
+      float4 v;
+      v.x = bwd_w_load(w_h, h, c, H, U, j0), v.y = bwd_w_load(w_h, h + 8, c, H, U, j0);
+      v.z = bwd_w_load(w_h, h, c + 4, H, U, j0), v.w = bwd_w_load(w_h, h + 8, c + 4, H, U, j0);
+      reinterpret_cast<float4*>(wf)[i] = v;
     }
   }
-  for (int i = tid; i < 2 * rw.stride * U; i += THREADS) dh_s[i] = F(0);
-  __syncthreads();
-  // the thread's UG rows of w_h (null past H: their sums stay zero)
-  const F* wrow[4];
+  for (int i = tid; i < round16(rw.stride) * (CW + 4 * SP) + 2 * EU; i += THREADS) dz_r[i] = F(0);
+  if (blockIdx.x == 0 && tid == 0) counters[y] = 0u;
+
+  // Element e (row e / U, unit e % U) belongs to the lanes [L e', L e' + L)
+  // of the pass that holds it (e' = e mod THREADS / L): L, a power of two up
+  // to 32, lanes sum its partials; the first of them, its owner, prefetches
+  // its cell inputs, runs its cell and keeps its carry, so none of that
+  // crosses threads.
+  int L = 1;
+  while (L < 32 && L < NX && 2 * L * E <= THREADS) L *= 2;
+  const int per_pass = THREADS / L, l = tid % L;
+  const bool owner = l == 0;
+
+  auto frame = [&](int p) { return reverse ? T - 1 - p : p; };
+  // the owned elements' cell inputs of the frame at place p (in processing
+  // order) into pre, by cp.async: gates, c, c_{t-1}, dy and the row's mask
+  auto prefetch = [&](int p) {
+    const int t = frame(p), tp = p > 0 ? frame(p - 1) : t;
+    for (int e = tid / L; owner && e < E; e += per_pass) {
+      const int n = e / U, j = j0 + e % U;
+      if (j >= H) continue;
+      const size_t row = (size_t)t * B + rw.first + n;
+      const F* gr = gates + row * H4 + j;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = ug * UG + i;
-    wrow[i] = i < UG && j0 + u < H ? (WS ? wt + (size_t)u * H4 : w_h + (size_t)(j0 + u) * H4)
-                                   : nullptr;
-  }
-  cg::grid_group grid = cg::this_grid();
+      for (int q = 0; q < 4; ++q) cp_async_value(pre + q * EU + e, gr + (size_t)q * H, false);
+      cp_async_value(pre + 4 * EU + e, cs + row * H + j, false);
+      cp_async_value(pre + 5 * EU + e, cs + ((size_t)tp * B + rw.first + n) * H + j, p == 0);
+      cp_async_value(pre + 6 * EU + e, dys + row * H + j, false);
+      cp_async_value(reinterpret_cast<int*>(pre + 7 * EU + e), mask + row, false);
+    }
+    cp_async_commit();
+  };
+  prefetch(T - 1);
+  cg::this_grid().sync();                        // the zeroed counters, before any arrival
   PHASES_BEGIN
 
   for (int step = 0; step < T; ++step) {
-    const int p = T - 1 - step;                  // the frame's place in processing order
-    const int t = reverse ? T - 1 - p : p;
-    const int tp = reverse ? t + 1 : t - 1;      // the frame before it (p > 0)
-    for (int e = tid; e < rw.count * U; e += THREADS) {
-      const int b = rw.first + e / U, j = j0 + e % U;
+    const int p = T - 1 - step, t = frame(p), par = step & 1;
+    cp_async_wait<0>();                          // the owner's own copies
+    PHASE(7)                                     // the prefetch's wait
+
+    for (int e = tid / L; owner && e < E; e += per_pass) {
+      const int n = e / U, u = e - n * U, j = j0 + u;
       if (j >= H) continue;
-      const size_t row = (size_t)t * B + b;
-      // every load of the element first (one round trip), then the math
-      const F* gr = gates + row * (size_t)H4 + j;
-      const F ig = gr[0], fg = gr[H], gg = gr[2 * (size_t)H], og = gr[3 * (size_t)H];
-      const F c = cs[row * H + j];
-      const F c_prev = p > 0 ? cs[((size_t)tp * B + b) * H + j] : F(0);
-      const F dh = dh_s[e] + dys[row * H + j];
-      const bool m = mask[row] != 0;
+      const F ig = pre[e], fg = pre[EU + e], gg = pre[2 * EU + e], og = pre[3 * EU + e];
+      const F c = pre[4 * EU + e], c_prev = pre[5 * EU + e];
+      const F dh = dh_s[e] + pre[6 * EU + e];
+      const bool m = *reinterpret_cast<const int*>(pre + 7 * EU + e) != 0;
       F dz[4] = {F(0), F(0), F(0), F(0)};
       if (m) {
         const F tc = tanh_(c);
@@ -442,88 +588,167 @@ lstm_backward_kernel(const F* __restrict__ dys, const F* __restrict__ gates,
         dc_s[e] = dct * fg;
       }
       dh_s[e] = m ? F(0) : dh;
-      F* dr = dxp + row * (size_t)H4 + j;
-      dr[0] = dz[0], dr[H] = dz[1], dr[2 * (size_t)H] = dz[2], dr[3 * (size_t)H] = dz[3];
+      F* dr = dxp + ((size_t)t * B + rw.first + n) * H4 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dr[(size_t)q * H] = dz[q];
+        const int cc = q * U + u;
+        dz_r[n * CW + cc] = dz[q];
+        if (tc) dz_p[(4 * n + (cc & 3)) * SP + 2 * (cc >> 3) + ((cc >> 2) & 1)] = dz[q];
+      }
     }
     PHASE(0)                                     // the cell
     if (p == 0) break;                           // dh before the first frame is not needed
-    grid.sync();
-    PHASE(1)                                     // the barrier
+    __syncthreads();                             // dz_t whole
+    PHASE(1)                                     // the CTA barrier after the cell
 
-    for (int b0 = 0; b0 < rw.count; b0 += NB) {
-      const int nb = min(NB, rw.count - b0);
-      const F* src = dxp + ((size_t)t * B + rw.first + b0) * H4;
-#pragma unroll 4
-      for (int i = tid; i < NB * H; i += THREADS) {   // NB rows of H groups of 4
-        const int n = i / H, c = 4 * (i - n * H);
-        F v[4] = {F(0), F(0), F(0), F(0)};
-        if (n < nb) load4_cg<F>(src + (size_t)n * H4 + c, v);
-        store4<F>(zs + (size_t)n * H4 + c, v);
-      }
-      __syncthreads();
-      PHASE(2)                                   // staging
-      F acc[NB][4];
+    // the partial dh [rows, H] of this CTA's columns: (row n, unit h) at
+    // out + (h / U) NX EU + n U + h % U
+    F* out = part + (((size_t)par * R + y) * NX * NX + blockIdx.x) * EU;
+    const int xr_stride = NX * EU;
+    auto put = [&](int n, int h, F v) { out[(h >> ush) * xr_stride + n * U + (h & (U - 1))] = v; };
+    if constexpr (WREG) {
+      // tensor cores: an n-block of 8 rows a pass, its K = CW columns summed
+      // in the fragment (three products a k-step, small terms first)
+      for (int n0 = 0; tc && n0 < rw.count; n0 += 8) {
+        constexpr int MBW = 4;                   // m-blocks a warp, at most (H <= 1024)
+        float acc[MBW][1][4];
 #pragma unroll
-      for (int n = 0; n < NB; ++n)
+        for (int i = 0; i < MBW; ++i) zero(acc[i]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[n][i] = F(0);
-#pragma unroll 2
-      for (int c = 4 * split; c < H4; c += 4 * SPLITS) {
-        F w[4][4];
+        for (int ks = 0; ks < KST; ++ks) {
+          FragB b[1];
+          float b0, b1;
+          load2(dz_p + (4 * (n0 + g) + t4) * SP + 2 * ks, b0, b1);
+          set_b(b[0], b0, b1);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (wrow[i] != nullptr) {
-            load4<F>(wrow[i] + c, w[i]);
-          } else {
-            w[i][0] = w[i][1] = w[i][2] = w[i][3] = F(0);
+          for (int i = 0; i < MBW; ++i) {
+            const int mb = warp + 16 * i;
+            if (mb >= MB) continue;
+            const float4 w = reinterpret_cast<const float4*>(wf)[(mb * KST + ks) * 32 + lane];
+            const float x[4] = {w.x, w.y, w.z, w.w};
+            FragA a;
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              a.hi[v] = __float_as_uint(x[v]) & 0xffffe000u;
+              a.lo[v] = __float_as_uint(x[v] - __uint_as_float(a.hi[v]));
+            }
+            mma_tf32x3<1>(acc[i], a, b);
           }
         }
 #pragma unroll
-        for (int n = 0; n < NB; ++n) {
-          F z[4];
-          load4<F>(zs + (size_t)n * H4 + c, z);
+        for (int i = 0; i < MBW; ++i) {
+          const int h = 16 * (warp + 16 * i) + g, n = n0 + 2 * t4;
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[n][i] = fma_(z[0], w[i][0], fma_(z[1], w[i][1], fma_(z[2], w[i][2],
-                                                                  fma_(z[3], w[i][3], acc[n][i]))));
+          for (int v = 0; v < 4; ++v) {
+            const int hv = h + (v >> 1) * 8, nv = n + (v & 1);
+            if (hv < H && nv < rw.count) put(nv, hv, acc[i][0][v]);
+          }
         }
       }
-      fold_lanes<F, NB * 4>(reinterpret_cast<F(&)[NB * 4]>(acc), NUG);
-      if (lane < NUG) {
-#pragma unroll
-        for (int n = 0; n < NB; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (i < UG) part[(warp * NB + n) * U + ug * UG + i] = acc[n][i];
-      }
-      __syncthreads();
-      PHASE(3)                                   // the product
-      for (int e = tid; e < nb * U; e += THREADS) {
-        const int n = e / U, u = e - n * U;
-        if (j0 + u >= H) continue;
-        F s = F(0);
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += part[(w * NB + n) * U + u];
-        dh_s[(b0 + n) * U + u] += s;
-      }
-      __syncthreads();
-      PHASE(4)                                   // the warps' sums
     }
+    if (!tc) {
+      // FMAs: RP rows a pass; the thread's HPT rows of w_h against each row
+      // of dz_t, read as broadcast 16-byte words
+      constexpr int RP = HPT == 1 && sizeof(F) == 4 ? 4 : 2;
+      for (int n0 = 0; n0 < rw.count; n0 += RP) {
+        F acc[RP][HPT];
+#pragma unroll
+        for (int r = 0; r < RP; ++r)
+#pragma unroll
+          for (int k = 0; k < HPT; ++k) acc[r][k] = F(0);
+#pragma unroll
+        for (int c = 0; c < CW; c += 4) {
+          F w[HPT][4];
+#pragma unroll
+          for (int k = 0; k < HPT; ++k)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              if constexpr (WREG) {
+                w[k][v] = wr[k][c + v];
+              } else {
+                w[k][v] = bwd_w_load(w_h, tid + k * THREADS, c + v, H, U, j0);
+              }
+            }
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            if (n0 + r >= rw.count) break;
+            F z[4];
+            load4(dz_r + (n0 + r) * CW + c, z);
+#pragma unroll
+            for (int k = 0; k < HPT; ++k)
+              acc[r][k] = fma_(w[k][3], z[3], fma_(w[k][2], z[2], fma_(w[k][1], z[1],
+                                                                       fma_(w[k][0], z[0], acc[r][k]))));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < HPT; ++k) {
+          const int h = tid + k * THREADS;
+#pragma unroll
+          for (int r = 0; r < RP; ++r)
+            if (h < H && n0 + r < rw.count) put(n0 + r, h, acc[r][k]);
+        }
+      }
+    }
+    PHASE(2)                                     // the product
+    __syncthreads();                             // every partial stored
+    PHASE(3)                                     // the CTA barrier after it
+    if (tid == 0) arrive_release(counters + y);  // the bar.sync above makes the release
+                                                 // cover every thread's partials
+    prefetch(p - 1);                             // the next cell's inputs, under the wait
+    if (tid == 0) {
+      const unsigned target = (unsigned)NX * (unsigned)(step + 1);
+      while (load_relaxed(counters + y) < target) {
+      }
+      fence_acquire();
+    }
+    PHASE(4)                                     // the row group's barrier
+    __syncthreads();
+    PHASE(5)                                     // the CTA barrier after it
+
+    // dh += the group's NX partials of the CTA's units, one block of NX EU
+    // values (element e of writer xw at xw EU + e): lane l of the element's
+    // L sums writers l, l + L, .. in order (8 loads in flight), then a
+    // butterfly over the L lanes, a fixed order; the owner adds the sum
+    const F* src = part + (((size_t)par * R + y) * NX + blockIdx.x) * NX * EU;
+    for (int e0 = 0; e0 < E; e0 += per_pass) {
+      const int e = e0 + tid / L;
+      F sum = F(0);
+      if (e < E && j0 + e % U < H) {
+        for (int x0 = l; x0 < NX; x0 += 8 * L) {
+          F v[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int xs = x0 + r * L;
+            v[r] = xs < NX ? __ldcg(src + xs * EU + e) : F(0);
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) sum += v[r];
+        }
+      }
+      for (int off = 1; off < L; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (owner && e < E) dh_s[e] += sum;
+    }
+    PHASE(6)                                     // the sums
   }
   PHASES_END(8)
 }
 
-// Shared memory of a plan, in values: the w_h slice (when WS), the staged
-// rows, the warps' sums (and the forward's product) and the per-unit state of
+// Shared memory of the forward's plan, in values: the w_h slice (when WS),
+// the staged rows, the warps' sums and the product, and the cell state of
 // the CTA's `rows`.
 size_t forward_values(int rows, int H, int U, int nb, bool ws) {
   return (ws ? (size_t)H * 4 * U : 0) + staged_values(H, nb) +
          (size_t)(WARPS + 1) * nb * 4 * U + (size_t)rows * U;
 }
 
-size_t backward_values(int rows, int H, int U, int nb, bool ws) {
-  return (ws ? (size_t)4 * H * U : 0) + (size_t)4 * H * nb + (size_t)WARPS * nb * U +
-         (size_t)2 * rows * U;
+// Shared memory of the backward, in bytes: the A fragments (tensor-core
+// route), dz_t as rows and permuted, the carry (dh, dc) and the next cell's
+// eight inputs (the mask among them).
+size_t backward_bytes(size_t value_bytes, int rows, int H, int U, bool tc) {
+  const int kst = bwd_kst(U);
+  return (tc ? sizeof(float) * 128 * (size_t)((H + 15) / 16) * kst : 0) +
+         value_bytes * ((size_t)round16(rows) * (8 * kst + 4 * bwd_sp(kst)) + (size_t)10 * rows * U);
 }
 
 bool valid(int T, int B, int H, int U, int R) {
@@ -531,19 +756,31 @@ bool valid(int T, int B, int H, int U, int R) {
          (U == 1 || U == 2 || U == 4 || U == 8 || U == 16);
 }
 
-// Rows a stage and w_h's place for a grid: the slice in shared memory where it
-// fits, then the most rows a stage that fit beside it (up to 16 in float32
-// and 4 in float64, where four columns of NB rows of sums take the registers;
-// no more than the CTA's rows need).
-bool stage_plan(bool backward, size_t value_bytes, int B, int H, int U, int R, int* nb,
-                bool* ws, size_t* smem) {
+// Whether the backward takes (U, R) at (B, H): w_h's rows within the
+// threads' registers (HPT a thread) and the row group's state within shared
+// memory; with `tc` whether the product takes the tensor cores (float32,
+// LSTM_TC_ROWS rows a CTA or more, the A fragments within shared memory).
+bool backward_fits(size_t value_bytes, int B, int H, int U, int R, size_t* smem, bool* tc) {
+  const int rows = (B + R - 1) / R;
+  if (H > THREADS * bwd_hpt(bwd_kst(U))) return false;
+  *tc = value_bytes == 4 && LSTM_TC_ROWS > 0 && rows >= LSTM_TC_ROWS &&
+        backward_bytes(value_bytes, rows, H, U, true) <= MAX_SMEM;
+  *smem = backward_bytes(value_bytes, rows, H, U, *tc);
+  return *smem <= MAX_SMEM;
+}
+
+// Rows a stage and w_h's place for the forward's grid: the slice in shared
+// memory where it fits, then the most rows a stage that fit beside it (up to
+// 16 in float32 and 4 in float64, where four columns of NB rows of sums take
+// the registers; no more than the CTA's rows need).
+bool stage_plan(size_t value_bytes, int B, int H, int U, int R, int* nb, bool* ws,
+                size_t* smem) {
   const int rows = (B + R - 1) / R, cap = value_bytes == 8 ? 4 : 16;
   int top = 1;
   while (top < cap && top < rows) top *= 2;
   for (int w = 1; w >= 0; --w) {
     for (int n = top; n >= 1; n /= 2) {
-      const size_t bytes = value_bytes * (backward ? backward_values(rows, H, U, n, w)
-                                                   : forward_values(rows, H, U, n, w));
+      const size_t bytes = value_bytes * forward_values(rows, H, U, n, w);
       if (bytes <= MAX_SMEM) {
         *nb = n, *ws = w != 0, *smem = bytes;
         return true;
@@ -554,9 +791,11 @@ bool stage_plan(bool backward, size_t value_bytes, int B, int H, int U, int R, i
 }
 
 // The grid: R row groups of ceil(H / U) CTAs, at most one CTA an SM. The most
-// row groups (up to 4, no more than B) for which some U keeps the grid within
-// the SMs and w_h's slice in shared memory: each CTA then stages only its row
-// group's h_{t-1} (or dz_t) a frame. One group where none does.
+// row groups (up to 4, no more than B) for which the smallest U that keeps the
+// grid within the SMs also takes the kernel's plan (forward: w_h's slice in
+// shared memory, so each CTA stages only its row group's h_{t-1} a frame;
+// backward: `backward_fits`, so each CTA reads only its row group's
+// partials). One group where none does.
 bool grid_plan(bool backward, size_t value_bytes, int B, int H, int* U, int* R) {
   int sms = 0, dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -569,7 +808,8 @@ bool grid_plan(bool backward, size_t value_bytes, int B, int H, int* U, int* R) 
       int nb;
       bool ws;
       size_t smem;
-      if (stage_plan(backward, value_bytes, B, H, u, r, &nb, &ws, &smem) && (ws || r == 1)) {
+      if (backward ? backward_fits(value_bytes, B, H, u, r, &smem, &ws)
+                   : stage_plan(value_bytes, B, H, u, r, &nb, &ws, &smem) && (ws || r == 1)) {
         *U = u, *R = r;
         return true;
       }
@@ -607,23 +847,38 @@ int forward_nb(const void* xp, const void* w_h, const void* mask, void* ys, void
   }
 }
 
-template <typename F, int NB, bool WS>
-int backward_nb(const void* dys, const void* gates, const void* cs, const void* w_h,
-                const void* mask, void* dxp, int T, int B, int H, int U, int R, int reverse,
-                size_t smem, cudaStream_t st) {
-  if constexpr (sizeof(F) == 8 && NB > 4) {
-    return (int)cudaErrorInvalidValue;           // no plan takes it
-  } else {
-    const F* a_dy = static_cast<const F*>(dys);
-    const F* a_g = static_cast<const F*>(gates);
-    const F* a_c = static_cast<const F*>(cs);
-    const F* a_w = static_cast<const F*>(w_h);
-    const uint8_t* a_m = static_cast<const uint8_t*>(mask);
-    F* a_dx = static_cast<F*>(dxp);
-    void* args[] = {&a_dy, &a_g, &a_c, &a_w, &a_m, &a_dx, &T, &B, &H, &U, &R, &reverse};
-    return cooperative((const void*)lstm_backward_kernel<F, NB, WS>, dim3((H + U - 1) / U, R),
-                       args, smem, st);
+template <typename F, int KST>
+int backward_kst(const void* dys, const void* gates, const void* cs, const void* w_h,
+                 const void* mask, void* dxp, void* scratch, int T, int B, int H, int U, int R,
+                 int reverse, int tc, size_t smem, cudaStream_t st) {
+  const F* a_dy = static_cast<const F*>(dys);
+  const F* a_g = static_cast<const F*>(gates);
+  const F* a_c = static_cast<const F*>(cs);
+  const F* a_w = static_cast<const F*>(w_h);
+  const int* a_m = static_cast<const int*>(mask);
+  F* a_dx = static_cast<F*>(dxp);
+  unsigned* a_ctr = static_cast<unsigned*>(scratch);
+  F* a_part = reinterpret_cast<F*>(static_cast<char*>(scratch) + SCRATCH_HEAD);
+  void* args[] = {&a_dy, &a_g, &a_c, &a_w, &a_m, &a_dx, &a_part, &a_ctr,
+                  &T, &B, &H, &U, &R, &reverse, &tc};
+  return cooperative((const void*)lstm_backward_kernel<F, KST>, dim3((H + U - 1) / U, R), args,
+                     smem, st);
+}
+
+template <typename F>
+int backward_typed(const void* dys, const void* gates, const void* cs, const void* w_h,
+                   const void* mask, void* dxp, void* scratch, int T, int B, int H, int U, int R,
+                   int reverse, int tc, size_t smem, cudaStream_t st) {
+#define LSTM_BWD(KST_)                                                                      \
+  return backward_kst<F, KST_>(dys, gates, cs, w_h, mask, dxp, scratch, T, B, H, U, R, reverse, \
+                               tc, smem, st);
+  switch (bwd_kst(U)) {
+    case 1: LSTM_BWD(1)
+    case 2: LSTM_BWD(2)
+    case 4: LSTM_BWD(4)
+    default: LSTM_BWD(8)
   }
+#undef LSTM_BWD
 }
 
 // One instantiation a (rows a stage, w_h in shared memory) pair.
@@ -667,7 +922,7 @@ int masked_lstm_forward(const void* xp, const void* w_h, const void* mask, void*
   bool ws;
   size_t smem;
   if (!valid(T, B, H, U, R) || (gates == nullptr) != (cs == nullptr) ||
-      !stage_plan(false, f64 ? 8 : 4, B, H, U, R, &nb, &ws, &smem))
+      !stage_plan(f64 ? 8 : 4, B, H, U, R, &nb, &ws, &smem))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (f64) {
@@ -678,24 +933,37 @@ int masked_lstm_forward(const void* xp, const void* w_h, const void* mask, void*
                 reverse, smem, st)
 }
 
+// The bytes of scratch `masked_lstm_backward` takes at (B, H) on the grid
+// (U, R): the row groups' counters and two frames of every CTA's partial dh
+// (-1 outside the domain). The caller allocates it each call, on the call's
+// stream; its contents need not be set.
+long long masked_lstm_backward_scratch(int B, int H, int U, int R, int f64) {
+  if (!valid(1, B, H, U, R)) return -1;
+  const long long rows = (B + R - 1) / R, nx = (H + U - 1) / U;
+  return (long long)SCRATCH_HEAD + 2LL * R * nx * nx * rows * U * (f64 ? 8 : 4);
+}
+
 // dxp [T, B, 4H] for the upstream gradient dys [T, B, H] and the training
-// forward's gates [T, B, 4H] and cs [T, B, H] (with the same w_h, mask,
-// reverse and type). One cooperative launch on `stream`; returns as above.
+// forward's gates [T, B, 4H] and cs [T, B, H] (with the same w_h, reverse
+// and type, and its mask as int32 [T, B], nonzero = valid, which the
+// backward copies into shared memory a word a row); `scratch` holds
+// masked_lstm_backward_scratch's bytes.
+// The grid (U, R) is masked_lstm_grid's (backward), or any that
+// `backward_fits`. One cooperative launch on `stream`; returns as above.
 int masked_lstm_backward(const void* dys, const void* gates, const void* cs, const void* w_h,
-                         const void* mask, void* dxp, int T, int B, int H, int U, int R,
-                         int reverse, int f64, void* stream) {
-  int nb;
-  bool ws;
+                         const void* mask, void* dxp, void* scratch, int T, int B, int H, int U,
+                         int R, int reverse, int f64, void* stream) {
   size_t smem;
-  if (!valid(T, B, H, U, R) || !stage_plan(true, f64 ? 8 : 4, B, H, U, R, &nb, &ws, &smem))
+  bool tc;
+  if (!valid(T, B, H, U, R) || scratch == nullptr ||
+      !backward_fits(f64 ? 8 : 4, B, H, U, R, &smem, &tc))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (f64) {
-    LSTM_DISPATCH(backward_nb, double, nb, ws, dys, gates, cs, w_h, mask, dxp, T, B, H, U, R,
-                  reverse, smem, st)
-  }
-  LSTM_DISPATCH(backward_nb, float, nb, ws, dys, gates, cs, w_h, mask, dxp, T, B, H, U, R,
-                reverse, smem, st)
+  if (f64)
+    return backward_typed<double>(dys, gates, cs, w_h, mask, dxp, scratch, T, B, H, U, R,
+                                  reverse, 0, smem, st);
+  return backward_typed<float>(dys, gates, cs, w_h, mask, dxp, scratch, T, B, H, U, R, reverse,
+                               tc, smem, st);
 }
 
 #if LSTM_PHASES
@@ -705,16 +973,24 @@ int masked_lstm_phases(unsigned long long* out) {
 }
 #endif
 
-// The stage plan a grid takes, for the record: rows a stage, whether w_h's
-// slice sits in shared memory, and the bytes of shared memory a CTA (returns
-// 0 when no plan fits).
+// The plan a grid takes, for the record: rows a stage (the backward: the
+// CTA's rows, all of them at once), whether w_h's slice sits in shared memory
+// (the backward: its tensor-core fragments, when the product takes the
+// tensor cores; its FMA route holds w_h's rows in registers in float32 and
+// reads them from L2 in float64), and the bytes of shared memory a CTA
+// (returns 0 when no plan fits).
 int masked_lstm_plan(int backward, int B, int H, int U, int R, int f64, int* nb, int* ws,
                      long long* smem) {
   bool w = false;
   size_t s = 0;
   *nb = 0;
-  if (!valid(1, B, H, U, R) || !stage_plan(backward != 0, f64 ? 8 : 4, B, H, U, R, nb, &w, &s))
+  if (!valid(1, B, H, U, R)) return 0;
+  if (backward) {
+    if (!backward_fits(f64 ? 8 : 4, B, H, U, R, &s, &w)) return 0;
+    *nb = (B + R - 1) / R;
+  } else if (!stage_plan(f64 ? 8 : 4, B, H, U, R, nb, &w, &s)) {
     return 0;
+  }
   *ws = w, *smem = (long long)s;
   return 1;
 }

@@ -25,9 +25,11 @@ walks from the last (padded) frame to the first. Returns ys [T, B, H], the
 output after each frame.
 
 On the card each kernel is one cooperative launch a call on the current
-stream (every CTA resident for all T frames, a grid-wide barrier a frame),
-its outputs and saved state from PyTorch's caching allocator, no host
-synchronisation. `masked_lstm.launches` counts the forward's launches (the
+stream (every CTA resident for all T frames; a barrier a frame, grid-wide in
+the forward, the row group's own in the backward), its outputs, saved state
+and the backward's scratch (its barrier counters and partial sums) from
+PyTorch's caching allocator on that stream, no host synchronisation.
+`masked_lstm.launches` counts the forward's launches (the
 op's and the training forward's), `masked_lstm_backward.launches` the
 backward's, both where they launch. The kernels take float32 or float64 and
 1 <= H <= 1024 (`kernel_takes`); outside that, or where the grid cannot be
@@ -167,9 +169,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.masked_lstm_error_string.argtypes = [i]
     lib.masked_lstm_error_string.restype = ctypes.c_char_p
+    lib.masked_lstm_forward.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.masked_lstm_backward.argtypes = [p] * 7 + [i] * 7 + [p]
     for fn in (lib.masked_lstm_forward, lib.masked_lstm_backward):
-        fn.argtypes = [p] * 6 + [i] * 7 + [p]
         fn.restype = i
+    lib.masked_lstm_backward_scratch.argtypes = [i] * 5
+    lib.masked_lstm_backward_scratch.restype = ctypes.c_longlong
     lib.masked_lstm_grid.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
     lib.masked_lstm_grid.restype = i
     lib.masked_lstm_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 2 + [
@@ -192,8 +197,9 @@ def grid(backward: bool, B: int, H: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 def kernel_plan(backward: bool, B: int, H: int, dtype: torch.dtype = torch.float32) -> dict:
     """The plan a kernel takes at (B, H): U units a CTA, R row groups, the
-    grid's CTAs, NB rows a stage, whether w_h's slice sits in shared memory,
-    and the shared memory a CTA (bytes)."""
+    grid's CTAs, NB rows a stage (the backward's: the CTA's rows, all at
+    once), whether w_h's slice sits in shared memory (the backward holds it
+    in registers in float32), and the shared memory a CTA (bytes)."""
     U, R = grid(backward, B, H, dtype)
     nb, ws, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     _lib().masked_lstm_plan(int(backward), B, H, U, R, int(dtype == torch.float64),
@@ -265,14 +271,19 @@ def masked_lstm_backward(dys: torch.Tensor, gates: torch.Tensor, cs: torch.Tenso
         raise ValueError(f"dys {tuple(dys.shape)}, gates {tuple(gates.shape)} and cs "
                          f"{tuple(cs.shape)} do not fit: [T, B, H], [T, B, 4H], [T, B, H] "
                          f"of one dtype and device")
-    dys, gates, cs = dys.contiguous(), gates.contiguous(), cs.contiguous()
-    w_h, mask = w_h.contiguous(), mask.contiguous()
+    dys, gates, cs, w_h = dys.contiguous(), gates.contiguous(), cs.contiguous(), w_h.contiguous()
     dxp = gates.new_empty(T, B, 4 * H)
+    f64 = int(dys.dtype == torch.float64)
+    U, R = grid(True, B, H, dys.dtype)
+    # the row groups' barrier counters and partial sums: this call's own
+    scratch = torch.empty(_lib().masked_lstm_backward_scratch(B, H, U, R, f64),
+                          dtype=torch.uint8, device=dys.device)
+    mask32 = mask.contiguous().to(torch.int32)  # a word a row, copied by cp.async
     with launch_context(dys.device):
         rc = _lib().masked_lstm_backward(
-            dys.data_ptr(), gates.data_ptr(), cs.data_ptr(), w_h.data_ptr(), mask.data_ptr(),
-            dxp.data_ptr(), T, B, H, *grid(True, B, H, dys.dtype), int(reverse),
-            int(dys.dtype == torch.float64), raw_stream(dys.device))
+            dys.data_ptr(), gates.data_ptr(), cs.data_ptr(), w_h.data_ptr(), mask32.data_ptr(),
+            dxp.data_ptr(), scratch.data_ptr(), T, B, H, U, R, int(reverse), f64,
+            raw_stream(dys.device))
     _raise(rc, "masked_lstm_backward", (T, B, H))
     masked_lstm_backward.launches += 1
     return dxp

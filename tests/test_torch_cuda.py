@@ -1200,7 +1200,7 @@ def _row_rel(a, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H", [1, 8, 100, 512, 1024])
-@pytest.mark.parametrize("B", [1, 3, 33])
+@pytest.mark.parametrize("B", [1, 3, 8, 33, 96])
 @pytest.mark.parametrize("T", [1, 7, 1025])
 def test_masked_lstm_kernel_matches_plain(cuda, H, B, T):
     """The forward kernel (inference and training, csrc/lstm.cu) and the
@@ -1208,10 +1208,13 @@ def test_masked_lstm_kernel_matches_plain(cuda, H, B, T):
     `masked_lstm_backward_plain` on the card, both directions, f32 and f64:
     ys, the saved gates and cell state and dxp within 1e-4 (f32; the
     products sum in another order) or 1e-12 (f64) of each output's scale on
-    every batch row; one launch a call; a second call of each bitwise (T =
-    1025 frames of grid barriers: a CTA reading h_{t-1} or dz_t before its
-    writers' stores would show here). H = 1 and 1024 are the domain's
-    edges; H = 100 is no multiple of the units a CTA."""
+    every batch row; one launch a call; a second call of each bitwise (T = 1025 frames
+    of barriers: a CTA reading h_{t-1} or a partial dh before its writers'
+    stores would show here). H = 1 and 1024 are the domain's edges; H = 100
+    is no multiple of the units a CTA. B = 8 is the train shape (the
+    backward's product on FMAs); B = 33 and 96 take the tensor cores (7 rows
+    a CTA or more), B = 96 stages the forward's rows in two f32 passes a row
+    group."""
     from deepxi_tpu_torch.ops.kernels import lstm
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
         for reverse in (False, True):
@@ -1243,30 +1246,36 @@ def test_masked_lstm_kernel_matches_plain(cuda, H, B, T):
 def test_masked_lstm_refuses_outside_its_domain(cuda, monkeypatch):
     """A width past 1024, bfloat16 and a mask of another shape raise on the
     card before any launch; a grid that cannot be resident at once (one
-    hidden unit a CTA at H = 1024, one row group: 1,024 CTAs of ~90 KiB) is
-    refused by the cooperative launch and raises, never hangs, and the next
-    call runs. The kernels' own grids fit: every row group's CTAs within the
-    SMs."""
+    hidden unit a CTA at H = 1024, one row group: 1,024 CTAs) is refused by
+    the cooperative launch of either kernel and raises, never hangs (the
+    backward's row-group barrier spins only on co-resident CTAs), and the
+    next call of each runs. The kernels' own grids fit: every row group's
+    CTAs within the SMs."""
     from deepxi_tpu_torch.ops.kernels import lstm
-    n0 = lstm.masked_lstm.launches
-    for T, B, H, dtype in ((4, 1, 1025, torch.float32), (4, 2, 16, torch.bfloat16)):
-        xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, torch.float32, 0))
-        with pytest.raises(ValueError):
-            lstm.masked_lstm(xp.to(dtype), w_h.to(dtype), mask)
-    xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(6, 2, 16, torch.float32, 0))
-    with pytest.raises(ValueError):
-        lstm.masked_lstm(xp, w_h, mask[:5])
     xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(4, 33, 1024, torch.float32, 0))
+    with torch.no_grad():
+        _, gates, cs = lstm.masked_lstm_train(xp, w_h, mask)
+    n0, b0 = lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches
+    for T, B, H, dtype in ((4, 1, 1025, torch.float32), (4, 2, 16, torch.bfloat16)):
+        xo, wo, mo = (t.to(cuda) for t in _lstm_inputs(T, B, H, torch.float32, 0))
+        with pytest.raises(ValueError):
+            lstm.masked_lstm(xo.to(dtype), wo.to(dtype), mo)
+    x6, w6, m6 = (t.to(cuda) for t in _lstm_inputs(6, 2, 16, torch.float32, 0))
+    with pytest.raises(ValueError):
+        lstm.masked_lstm(x6, w6, m6[:5])
     with monkeypatch.context() as m:
         m.setattr(lstm, "grid", lambda backward, B, H, dtype: (1, 1))
         for fn in (lambda: lstm.masked_lstm(xp, w_h, mask),
-                   lambda: lstm.masked_lstm_train(xp, w_h, mask)):
+                   lambda: lstm.masked_lstm_train(xp, w_h, mask),
+                   lambda: lstm.masked_lstm_backward(torch.ones_like(cs), gates, cs, w_h, mask)):
             with pytest.raises(RuntimeError, match="cooperative launch"):
                 fn()
-    assert lstm.masked_lstm.launches == n0
+    assert (lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches) == (n0, b0)
     ys = lstm.masked_lstm(xp, w_h, mask)
+    dxp = lstm.masked_lstm_backward(torch.ones_like(cs), gates, cs, w_h, mask)
     torch.cuda.synchronize()
-    assert torch.isfinite(ys).all() and lstm.masked_lstm.launches == n0 + 1
+    assert torch.isfinite(ys).all() and torch.isfinite(dxp).all()
+    assert (lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches) == (n0 + 1, b0 + 1)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for B in (1, 3, 8, 33, 96):
         for H in (1, 100, 512, 1024):
@@ -1274,6 +1283,65 @@ def test_masked_lstm_refuses_outside_its_domain(cuda, monkeypatch):
                 for dtype in (torch.float32, torch.float64):
                     plan = lstm.kernel_plan(backward, B, H, dtype)
                     assert plan["ctas"] <= sms and plan["NB"] >= 1, (B, H, backward, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, B", [(512, 8), (512, 33), (100, 33), (1024, 96)])
+def test_masked_lstm_backward_tensor_core_route(cuda, monkeypatch, H, B):
+    """The backward's split-TF32 tensor-core route at every row count
+    (csrc/lstm.cu built with LSTM_TC_ROWS=1; the default build takes it from
+    7 rows a CTA) against `masked_lstm_backward_plain` within 1e-4 of the scale on
+    every batch row, both directions, with its A fragments in shared memory
+    (the plan says so), and a second call bitwise."""
+    from deepxi_tpu_torch.ops.kernels import _build, lstm
+    lib = lstm.bind(_build.load("lstm", {"LSTM_TC_ROWS": 1}))
+    monkeypatch.setattr(lstm, "_lib", lambda: lib)
+    assert lstm.kernel_plan(True, B, H)["w_h_in_shared"]
+    T = 257
+    for reverse in (False, True):
+        xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, torch.float32, H + B))
+        dys = torch.randn(T, B, H, generator=torch.Generator().manual_seed(B)).to(cuda)
+        with torch.no_grad():
+            _, gates, cs = lstm.masked_lstm_train(xp, w_h, mask, reverse)
+            dxp = lstm.masked_lstm_backward(dys, gates, cs, w_h, mask, reverse)
+            again = lstm.masked_lstm_backward(dys, gates, cs, w_h, mask, reverse)
+            _, g_ref, c_ref = lstm.masked_lstm_train_plain(xp, w_h, mask, reverse)
+            ref = lstm.masked_lstm_backward_plain(dys, g_ref, c_ref, w_h, mask, reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(dxp, again)
+        assert _row_rel(dxp, ref) <= 1e-4, (reverse, _row_rel(dxp, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 32])
+def test_masked_lstm_backward_on_two_streams(cuda, B):
+    """Two backward calls in flight at once on two streams, on the same
+    saved state with different upstream gradients, each give their lone
+    call's dxp bitwise: each call's row-group barrier counters and partial
+    sums are its own scratch (B = 8: the product on FMAs, 32: on the tensor
+    cores)."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    T, H = 129, 512
+    xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, torch.float32, 11))
+    gen = torch.Generator().manual_seed(12)
+    dys = [torch.randn(T, B, H, generator=gen).to(cuda) for _ in range(2)]
+    with torch.no_grad():
+        _, gates, cs = lstm.masked_lstm_train(xp, w_h, mask)
+        alone = [lstm.masked_lstm_backward(d, gates, cs, w_h, mask) for d in dys]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(cuda) for _ in dys]
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        b0 = lstm.masked_lstm_backward.launches
+        outs = []
+        for st, d in zip(streams, dys):
+            with torch.cuda.stream(st):
+                outs.append(lstm.masked_lstm_backward(d, gates, cs, w_h, mask))
+        torch.cuda.synchronize()
+    assert lstm.masked_lstm_backward.launches == b0 + 2
+    for a, o in zip(alone, outs):
+        assert torch.equal(a, o)
+    assert not torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.cuda

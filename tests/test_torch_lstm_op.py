@@ -18,6 +18,8 @@ The kernels against their plain versions on the card are in
 tests/test_torch_cuda.py.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -246,6 +248,135 @@ def test_train_step_matches_jax(its):
         losses.append(float(m["loss"]))
         assert abs(losses[-1] - float(m_j["loss"])) <= STEP_TOL * abs(float(m_j["loss"])), i
     assert st.step == 3 and losses[2] < losses[0]
+
+
+# The backward kernel's split-TF32 product (csrc/lstm.cu, its tensor-core
+# route, from LSTM_TC_ROWS rows a CTA), emulated: w_h's hi is its bits
+# with the low 13 cleared and lo = w - hi exactly, read by the tensor cores as
+# TF32 (their top 19 bits); dz's hi and lo are rounded as
+# csrc/mma_tf32x3.cuh's `tf32` rounds (+0x1000, then the low 13 cleared).
+TF32_MASK = 0xFFFFE000
+TC_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """Torch on one thread: a loop of ~100 small operations a frame, which
+    threads only make contend under the suite's parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    return (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    return ((x.view(torch.int32) + 0x1000) & TF32_MASK).view(torch.float32)
+
+
+def _tc_route(w_h: torch.Tensor, U: int, L: int):
+    """dz [B, 4H] -> dz @ w_h.T as the tensor-core route sums it in f32: a CTA
+    (U units) a partial dh over its 4U columns, in k-steps of 8 columns, each
+    the three products lo.hi, hi.lo, hi.hi (8-term sums in f32) added to the
+    fragment in f32; then the group's sum as the kernel folds it: lane l of L
+    sums CTAs l, l + L, .., then a butterfly over the L lanes."""
+    H = w_h.shape[0]
+    nx, ks, c = H // U, U // 2, torch.arange(4 * U)
+    cols = (c // U)[None] * H + (torch.arange(nx) * U)[:, None] + (c % U)[None]   # [NX, 4U]
+    w = w_h[:, cols].reshape(H, nx, ks, 8).permute(2, 1, 3, 0)                   # [KS, NX, 8, H]
+    w_hi = _tf32_trunc(w)
+    w_lo = _tf32_trunc(w - w_hi)
+    a = torch.stack([w_lo, w_hi, w_hi], 1)                                      # [KS, 3, NX, 8, H]
+
+    def product(dz):
+        z = dz[:, cols].reshape(dz.shape[0], nx, ks, 8).permute(2, 1, 0, 3)    # [KS, NX, B, 8]
+        z_hi = _tf32_round(z)
+        z_lo = _tf32_round(z - z_hi)
+        p = torch.stack([z_hi, z_lo, z_hi], 1) @ a                              # [KS, 3, NX, B, H]
+        p = p.reshape(3 * ks, nx, dz.shape[0], H)
+        acc = p[0]
+        for i in range(1, 3 * ks):
+            acc = acc + p[i]
+        s = acc[:L]
+        for x0 in range(L, nx, L):
+            s = s + acc[x0:x0 + L]
+        while s.shape[0] > 1:            # lane 0's butterfly: a pairwise tree
+            s = s[0::2] + s[1::2]
+        return s[0]
+    return product
+
+
+def _bptt(dys, gates, cs, mask, product):
+    """`masked_lstm_backward_plain` (forward order) with dz_t w_h^T taken by
+    `product`."""
+    T, B, h_size = dys.shape
+    dh = dc = zero = dys.new_zeros(B, h_size)
+    dxp = [None] * T
+    for t in range(T - 1, -1, -1):
+        m = mask[t][:, None]
+        dh_tot = dh + dys[t]
+        i, f, g, o = torch.split(gates[t], h_size, 1)
+        tc = torch.tanh(cs[t])
+        c_prev = cs[t - 1] if t > 0 else zero
+        dc_tot = dc + dh_tot * o * (1 - tc * tc)
+        dz = torch.cat([dc_tot * g * i * (1 - i), dc_tot * c_prev * f * (1 - f),
+                        dc_tot * i * (1 - g * g), dh_tot * tc * o * (1 - o)], 1)
+        dz = torch.where(m, dz, torch.zeros_like(dz))
+        dxp[t] = dz
+        dc = torch.where(m, dc_tot * f, dc)
+        dh = torch.where(m, zero, dh_tot) + product(dz)
+    return torch.stack(dxp, 0)
+
+
+@pytest.fixture(scope="module")
+def long_sequence():
+    """T = 1025, B = 2, H = 512 from numpy: xp ~ N(0, 0.25), w_h ~ N(0, 1/H),
+    dys ~ N(0, 1), and tests/test_torch_cuda.py::_lstm_inputs' mask (row 0
+    masked at T // 3, row 1 padded over its last fifth); the f32 forward's
+    saved state and the float64 forward and backward (the reference)."""
+    T, B, H = 1025, 2, 512
+    rng = np.random.RandomState(19)
+    xp = torch.as_tensor((rng.randn(T, B, 4 * H) * 0.5).astype(np.float32))
+    w_h = torch.as_tensor((rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32))
+    dys = torch.as_tensor(rng.randn(T, B, H).astype(np.float32))
+    mask = torch.ones(T, B, dtype=torch.bool)
+    mask[T // 3, 0] = False
+    mask[T - T // 5:, B - 1] = False
+    with _one_thread():
+        _, gates, cs = lstm.masked_lstm_train_plain(xp, w_h, mask, False)
+        _, g64, c64 = lstm.masked_lstm_train_plain(xp.double(), w_h.double(), mask, False)
+        ref = lstm.masked_lstm_backward_plain(dys.double(), g64, c64, w_h.double(), mask, False)
+    return dict(dys=dys, gates=gates, cs=cs, w_h=w_h, mask=mask, ref=ref)
+
+
+def test_split_tf32_backward_holds_float64_over_1025_frames(long_sequence):
+    """BPTT over 1,025 frames at H = 512, B = 2 with every dz_t w_h^T taken
+    as the backward kernel's tensor-core route takes it (its grid at B = 2:
+    U = 8 units a CTA, 64 CTAs a row group, folded over 32 lanes) stays
+    within 1e-4 of the float64 backward's scale on every batch row, as the
+    FMA route's f32 arithmetic does. Measured on the CPU: both 2.5e-07 of
+    the scale on the worst row (the f32 saved state and cell dominate), the
+    split-TF32 route 7.2e-08 from the f32 plain backward."""
+    d = long_sequence
+    ref = d["ref"]
+    scale = ref.abs().max()
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().amax(dim=(0, 2)) / scale).max().item()
+
+    with _one_thread():
+        tc = _bptt(d["dys"], d["gates"], d["cs"], d["mask"], _tc_route(d["w_h"], 8, 32))
+        f32 = lstm.masked_lstm_backward_plain(d["dys"], d["gates"], d["cs"], d["w_h"],
+                                              d["mask"], False)
+    assert torch.isfinite(tc).all() and tc.shape == ref.shape
+    assert rel(tc, ref) <= TC_TOL, (rel(tc, ref), rel(f32, ref))
+    assert rel(f32, ref) <= TC_TOL, rel(f32, ref)
+    assert 0 < rel(tc, f32) <= 1e-6, rel(tc, f32)
 
 
 def test_kernel_takes_states_the_domain():

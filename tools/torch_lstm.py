@@ -11,8 +11,10 @@ bundles, the native wav decoder and the JAX-free artifact tool on one card
     masked_lstm` and the training forward's ys, gates and cell state) against
     `masked_lstm_train_plain`, the backward against
     `masked_lstm_backward_plain` on the same saved state, every batch row
-    within 1e-4 of each output's scale, a second call of each bitwise; and
-    times both beside their bounds, the plain versions and the library call
+    within 1e-4 of each output's scale, a second call of each bitwise (the
+    backward's product on FMAs at B = 1 and 8, on the tensor cores at B =
+    32); and times both beside their bounds (f32 and tensor-core), the plain
+    versions and the library call
     (cuDNN `torch.nn.LSTM`, TF32 off, on the same xp with identity input
     weights, all frames valid, where the functions agree; checked within
     1e-4 first: its forward, and its backward for the gradient of xp and
@@ -91,8 +93,9 @@ H = 512                 # reslstm-1.0c's d_model
 # (B, T): a 4 s utterance, the B = 32 long batch, and the train step's batch
 KERNEL_SHAPES = ((1, 250), (32, 1025), (8, 256))
 TRAIN_B, TRAIN_L = 8, 65536   # the preset's mini-batch of 4.096 s buckets
-# H100 SXM: f32 outside the tensor cores, HBM3 (chip_smoke.py's constants)
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM: f32 outside the tensor cores, f32-accurate on them (three TF32
+# products, 495 / 3 TFLOP/s), HBM3 (chip_smoke.py's constants)
+PEAK_F32_FLOPS, PEAK_TC_FLOPS, PEAK_BYTES = 67e12, 165e12, 3.35e12
 MODELS = {"reslstm-1.0c": ("reslstm-1.0c", {}),
           "ResBiLSTM": ("reslstm-1.0c", dict(network_type="ResBiLSTM"))}
 SERVE_ROWS, SERVE_BUCKET = 4, 65536
@@ -117,14 +120,17 @@ def _inputs(B, T, seed, dev):
 
 
 def bound_ms(B, T, backward=False):
-    """(ms, bound_by): 8 B H^2 FLOP a frame at the f32 peak, against each
-    input read and each output written once: the forward's xp, mask, w_h and
-    ys; the backward's dys, the saved gates and cell state, the mask, w_h and
-    dxp."""
+    """(ms, bound_by, tc_ms): 8 B H^2 FLOP a frame at the f32 peak, against
+    each input read and each output written once: the forward's xp, mask, w_h
+    and ys; the backward's dys, the saved gates and cell state, the mask, w_h
+    and dxp. tc_ms: the same FLOPs at the 165 TFLOP/s of three TF32
+    tensor-core products an f32 one (csrc/mma_tf32x3.cuh), or the bytes where
+    they take longer."""
     flops = 8.0 * B * H * H * T
     floats = (T * B * (H + 4 * H + H + 4 * H) if backward else T * B * (4 * H + H)) + 4 * H * H
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, (4 * floats + T * B) / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return (max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"),
+            max(flops / PEAK_TC_FLOPS, t_bytes) * 1e3)
 
 
 def _cuda_ms(fn, iters):
@@ -217,19 +223,20 @@ def _time_kernels(B, T, dev, fail, card):
             dys, g_ref, c_ref, w_h, mask, False), 3)
     lib_bwd = _cuda_ms(lambda: torch.autograd.grad(y_lib, [xq, lib.weight_hh_l0], dys,
                                                    retain_graph=True), 10)
-    fb, fby = bound_ms(B, T)
-    bb, bby = bound_ms(B, T, backward=True)
+    fb, fby, ftc = bound_ms(B, T)
+    bb, bby, btc = bound_ms(B, T, backward=True)
     print(f"[3o] H={H} B={B} T={T}: forward kernel {fwd:.4f} ms (1 launch; saving "
           f"{fwd_train:.4f}), plain {fwd_plain:.4f}, cuDNN nn.LSTM forward on xp {lib_fwd:.4f} "
           f"(identity input weights; within {lib_rel:.1e} rel), bound {fb:.4f} ({fby}, "
-          f"{fb / fwd:.1%}); backward kernel {bwd:.4f} ms (1 launch), plain {bwd_plain:.4f}, "
-          f"cuDNN backward (dx and the weights' gradients) {lib_bwd:.4f}, bound {bb:.4f} ({bby}, "
-          f"{bb / bwd:.1%}); {card}")
+          f"{fb / fwd:.1%}) / TC {ftc:.4f} ({ftc / fwd:.1%}); backward kernel {bwd:.4f} ms "
+          f"(1 launch), plain {bwd_plain:.4f}, cuDNN backward (dx and the weights' gradients) "
+          f"{lib_bwd:.4f}, bound {bb:.4f} ({bby}, {bb / bwd:.1%}) / TC {btc:.4f} "
+          f"({btc / bwd:.1%}); {card}")
     shape = {"B": B, "T": T, "H": H}
     return (dict(ms=fwd, saving_ms=fwd_train, plain_ms=fwd_plain, bound_ms=fb, bound_by=fby,
-                 library_ms=lib_fwd, shape=shape),
-            dict(ms=bwd, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby, library_ms=lib_bwd,
-                 shape=shape))
+                 tc_bound_ms=ftc, library_ms=lib_fwd, shape=shape),
+            dict(ms=bwd, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby, tc_bound_ms=btc,
+                 library_ms=lib_bwd, shape=shape))
 
 
 def kernel_checks(dev, fail, card):

@@ -2,7 +2,7 @@
 """Where the time of the PyTorch port's main paths goes on the card.
 
     python3 tools/torch_profile.py enhance [--ver resnet-1.1c|mhanet-1.1c] [--batch 96|64] [--seconds 10] [--iters 5] [--timed 30] [--plain]
-    python3 tools/torch_profile.py train [--ver resnet-1.1c|mhanet-1.1c] [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
+    python3 tools/torch_profile.py train [--ver resnet-1.1c|mhanet-1.1c|reslstm-1.0c|ResBiLSTM] [--batch 8] [--seconds 4.096] [--iters 5] [--timed 30] [--plain]
     python3 tools/torch_profile.py stream [--ver mhanet-1.1c|resnet-1.1c] [--batch 1] [--cache f32|bf16] [--iters 5] [--timed 30] [--plain] [--graph]
     python3 tools/torch_profile.py kernels [--iters 20] [--rows 6,7,11]
 
@@ -14,19 +14,23 @@ backward, update) at full width on `--batch` synthetic utterances of
 `--seconds`, with seeded initial weights and map statistics fitted on the
 batch, through the fused training stack (or, with `--plain`, autograd of the
 plain ResNetV2); for mhanet-1.1c autograd of the plain MHANetV3, its only
-training route. `stream` runs one streaming hop (`step`) of `--batch`
-channels of the checked-in artifact: for mhanet-1.1c at the clock 1023 with
-random K/V caches (`--cache` f32 or bf16) through the KV-cache kernel (or,
-with `--plain`, the einsum route); for resnet-1.1c from zero delay lines.
+training route; for reslstm-1.0c (and ResBiLSTM at its widths) autograd of
+the network with its recurrence on the LSTM kernels (csrc/lstm.cu).
+`stream` runs one streaming hop (`step`) of `--batch` channels of the
+checked-in artifact: for mhanet-1.1c at the clock 1023 with random K/V
+caches (`--cache` f32 or bf16) through the KV-cache kernel (or, with
+`--plain`, the einsum route); for resnet-1.1c from zero delay lines.
 With `--graph` the hop is captured once in a CUDA graph and each call is a
 replay of it (the same hop: `step` returns a new clock, so the captured
 state stays at 1023).
 
 After warm-up it times `--timed` calls without the profiler (host clock,
-each call synchronised: min, median, max), then runs `--iters` calls under
+each call synchronised, and CUDA events around each: min, median, max), then
+runs `--iters` calls under
 `torch.profiler` and prints the device time by kernel (grouped into layers),
 the profiled window's wall time and idle share, and the unprofiled median's
-idle share given the traced device time per call. Needs one NVIDIA card.
+idle share (and the busy share of the CUDA-events median) given the traced
+device time per call. Needs one NVIDIA card.
 
 `kernels` times the redesigned kernels (the TCN forward's four routes, the
 TCN backward in saved and replay mode, the spectral kernels beside cuFFT,
@@ -271,6 +275,10 @@ def layer_enhance(n: str) -> str:
 
 
 def layer_train(n: str) -> str:
+    if "lstm_forward_kernel" in n:
+        return "LSTM forward kernel (saving)"
+    if "lstm_backward_kernel" in n:
+        return "LSTM backward kernel"
     if "tcn_window_kernel" in n:
         return "tcn forward (saving)"
     if "tcn_bwd" in n:
@@ -381,12 +389,16 @@ def enhance_call(args):
         f"{args.ver} {'plain' if args.plain else 'fused'} enhance call")
 
 
+LSTM_VERS = {"reslstm-1.0c": {}, "ResBiLSTM": {"network_type": "ResBiLSTM"}}
+
+
 def train_call(args):
     """The train workload: (one step, its description)."""
     from deepxi_tpu_torch.config import preset
     from deepxi_tpu_torch.framework import build_network
     from deepxi_tpu_torch.inp_tgt import MagXi
     from deepxi_tpu_torch.models import attention
+    from deepxi_tpu_torch.models import init_flax_like as init_any
     from deepxi_tpu_torch.models.tcn import ResNetV2, init_flax_like
     from deepxi_tpu_torch.ops.kernels.tcn_fused_train import \
         resnetv2_apply_fused_train
@@ -411,6 +423,14 @@ def train_call(args):
         net = attention.init_flax_like(build_network(cfg, 257, 257), gen).to(dev)
         tx = make_optimizer(cfg.network_type, cfg.d_model, cfg.warmup_steps)
         apply_fn = None
+    elif args.ver in LSTM_VERS:
+        # reslstm-1.0c, or its widths as ResBiLSTM: the recurrence's kernels
+        # under autograd (models.rnn), one saving forward and one backward
+        # launch a direction a block
+        cfg = preset("reslstm-1.0c", **LSTM_VERS[args.ver])
+        net = init_any(build_network(cfg, 257, 257), gen).to(dev)
+        tx = make_optimizer(cfg.network_type)
+        apply_fn = None
     else:
         net = init_flax_like(ResNetV2(257, 257), gen).to(dev)
         tx = make_optimizer("ResNetV2")
@@ -425,7 +445,8 @@ def train_call(args):
     def call():
         box[0], _ = step(box[0], *batch, offsets=offs)
     plain = args.plain or apply_fn is None
-    return call, f"{args.ver} {'plain' if plain else 'fused'} train step"
+    kind = "LSTM kernels" if args.ver in LSTM_VERS else "plain" if plain else "fused"
+    return call, f"{args.ver} {kind} train step"
 
 
 def main():
@@ -435,9 +456,11 @@ def main():
     ap.add_argument("--seconds", type=float)
     ap.add_argument("--iters", type=int, help="profiled calls (5; kernels: 20)")
     ap.add_argument("--timed", type=int, default=30)
-    ap.add_argument("--ver", choices=("resnet-1.1c", "mhanet-1.1c"), default="resnet-1.1c",
+    ap.add_argument("--ver", choices=("resnet-1.1c", "mhanet-1.1c", *LSTM_VERS),
+                    default="resnet-1.1c",
                     help="enhance, stream: the checked-in artifact to run; train: "
-                         "the preset to train")
+                         "the preset to train (reslstm-1.0c, and ResBiLSTM at its widths, "
+                         "train only)")
     ap.add_argument("--cache", choices=("f32", "bf16"), default="f32",
                     help="stream: the MHANet K/V cache type")
     ap.add_argument("--plain", action="store_true", help="the plain network")
@@ -448,6 +471,8 @@ def main():
     args = ap.parse_args()
     if args.graph and args.path != "stream":
         sys.exit("--graph applies to stream")
+    if args.ver in LSTM_VERS and args.path != "train":
+        sys.exit(f"--ver {args.ver} applies to train")
     train = args.path == "train"
     args.batch = args.batch or (8 if train else 1 if args.path == "stream"
                                 else 64 if args.ver == "mhanet-1.1c" else 96)
@@ -470,13 +495,17 @@ def main():
         call()
     torch.cuda.synchronize()
 
-    ts = []
+    ts, ev = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(args.timed):
         t0 = time.perf_counter()
+        start.record()
         call()
+        end.record()
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
-    ts = np.asarray(ts)
+        ev.append(start.elapsed_time(end))
+    ts, ev = np.asarray(ts), np.asarray(ev)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -494,7 +523,8 @@ def main():
     print(f"card: {torch.cuda.get_device_name(0)}; {what}, batch {args.batch}"
           + ("" if args.path == "stream" else f" x {args.seconds} s"))
     print(f"unprofiled: {args.timed} calls, ms per call min {ts.min():.3f} median "
-          f"{np.median(ts):.3f} max {ts.max():.3f}")
+          f"{np.median(ts):.3f} max {ts.max():.3f}; CUDA events min {ev.min():.3f} median "
+          f"{np.median(ev):.3f} max {ev.max():.3f}")
     if busy_ms == 0:
         sys.exit("the trace holds no device time")
     n_ops = sum(len(v) for v in kernels.values())
@@ -504,7 +534,7 @@ def main():
           f"and copies) per call")
     print(f"traced device time per call over the unprofiled median: idle share "
           f"{1 - busy_ms / per / np.median(ts):.1%} (estimate: two windows of one "
-          f"process)")
+          f"process); busy share of the CUDA-events median {busy_ms / per / np.median(ev):.1%}")
     layers = {}
     for name, t in kernels.items():
         layers[layer_of(name.lower())] = layers.get(layer_of(name.lower()), 0.0) + sum(t)
