@@ -37,6 +37,7 @@ from deepxi_tpu_torch.ops.kernels.spectral import (enhance_frames_fused,
                                                    stft_reim, synthesis_from_reim)
 from deepxi_tpu_torch.sig.mix import normalise
 from deepxi_tpu_torch.sig.stft import hop_rows, overlap_and_add
+from deepxi_tpu_torch.utils.profiling import annotate
 
 
 def make_enhancer(inp_tgt, network: torch.nn.Module, gtype: str = "mmse-lsa",
@@ -58,12 +59,14 @@ def make_enhancer(inp_tgt, network: torch.nn.Module, gtype: str = "mmse-lsa",
 
     @torch.no_grad()
     def enhance(params, x_int16) -> torch.Tensor:
-        x = normalise(torch.as_tensor(x_int16, device=dev))
-        Y = stft_reim(x, N_d, N_s, K)
-        re, im = Y[..., :nb], Y[..., nb:]
-        mag = torch.sqrt(re * re + im * im)
-        Y_hat = inp_tgt.spectrum_hat(Y, mag, net_apply(params, mag), gtype)
-        return synthesis_from_reim(Y_hat, N_d, N_s, K)
+        with annotate("deepxi.enhance"):
+            with annotate("deepxi.enhance.input"):
+                x = normalise(torch.as_tensor(x_int16, device=dev))
+            Y = stft_reim(x, N_d, N_s, K)
+            re, im = Y[..., :nb], Y[..., nb:]
+            mag = torch.sqrt(re * re + im * im)
+            Y_hat = inp_tgt.spectrum_hat(Y, mag, net_apply(params, mag), gtype)
+            return synthesis_from_reim(Y_hat, N_d, N_s, K)
 
     return enhance
 

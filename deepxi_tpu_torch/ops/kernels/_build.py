@@ -21,6 +21,8 @@ import subprocess
 import time
 from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
+from deepxi_tpu_torch.utils.profiling import annotate
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -122,6 +124,7 @@ def load(name: str, defines: Optional[Mapping[str, int]] = None) -> ctypes.CDLL:
     spec: Spec = (name, defines) if defines else name
     key = tag(spec)
     if key not in _LIBS:
-        build([spec])
-        _LIBS[key] = ctypes.CDLL(library_path(spec))
+        with annotate("deepxi.kernels.build"):
+            build([spec])
+            _LIBS[key] = ctypes.CDLL(library_path(spec))
     return _LIBS[key]

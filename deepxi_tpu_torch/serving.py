@@ -38,6 +38,7 @@ from torch.utils import _pytree as pytree
 
 from deepxi_tpu_torch import resolve_device
 from deepxi_tpu_torch.ops.kernels import load_ops
+from deepxi_tpu_torch.utils.profiling import annotate
 
 # Warm-up steps on a side stream before the streaming step is captured (as
 # tools/torch_profile.captured): the first calls allocate what later calls
@@ -279,9 +280,9 @@ class StreamingServer:
             return tuple(self._init())
 
     def step(self, state, chunk):
-        chunk = torch.as_tensor(chunk, device=self.device).to(torch.int16)
-        state = tuple(state)
-        with torch.no_grad():
+        with annotate("deepxi.stream.step"), torch.no_grad():
+            chunk = torch.as_tensor(chunk, device=self.device).to(torch.int16)
+            state = tuple(state)
             if self.device.type != "cuda":
                 new, y = self._step(state, chunk)
                 return tuple(new), y
@@ -289,32 +290,36 @@ class StreamingServer:
                 self._capture(state, chunk)
             else:
                 self._chunk.copy_(chunk)
-                for a, b in zip(self._state, state):
+                with annotate("deepxi.stream.state"):
+                    for a, b in zip(self._state, state):
+                        if a is not b:
+                            a.copy_(b)
+            with annotate("deepxi.stream.replay"):
+                self._graph.replay()
+            self.replays += 1
+            with annotate("deepxi.stream.state"):
+                for a, b in zip(self._state, self._new):
                     if a is not b:
                         a.copy_(b)
-            self._graph.replay()
-            self.replays += 1
-            for a, b in zip(self._state, self._new):
-                if a is not b:
-                    a.copy_(b)
             return self._state, self._y.clone()
 
     def _capture(self, state, chunk) -> None:
         """Capture one step on `state` (which becomes the captured state)
         and a copy of `chunk`. The warm-ups write the cache row that the
         first replay writes again, from the same state and chunk."""
-        self._state, self._chunk = state, chunk.clone()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUPS):
-                self._step(self._state, self._chunk)
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            new, self._y = self._step(self._state, self._chunk)
-        self._new, self._graph = tuple(new), graph
+        with annotate("deepxi.stream.capture"):
+            self._state, self._chunk = state, chunk.clone()
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUPS):
+                    self._step(self._state, self._chunk)
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                new, self._y = self._step(self._state, self._chunk)
+            self._new, self._graph = tuple(new), graph
 
 
 def load_streaming_server(out_dir: str) -> StreamingServer:

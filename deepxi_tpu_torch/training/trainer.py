@@ -23,6 +23,8 @@ from typing import Callable, Dict, Optional, Union
 import torch
 from torch.func import functional_call
 
+from deepxi_tpu_torch.utils.profiling import annotate
+
 
 def transformer_schedule(d_model: int, warmup_steps: int) -> Callable[[int], float]:
     """rsqrt(d_model) * min(rsqrt(step), step * warmup^-1.5), step >= 1."""
@@ -175,38 +177,41 @@ def make_train_step(network: torch.nn.Module, inp_tgt, tx: ClipAdam,
     def train_step(state: TrainState, s, d, s_len, d_len, snr,
                    generator: Optional[torch.Generator] = None,
                    offsets: Optional[torch.Tensor] = None, **example_kw):
-        params = state.params
-        if mesh is not None:
-            if offsets is None:
-                offsets = noise_offsets(s_len, d_len, generator)
-            s, d, s_len, d_len, snr, offsets = shard_batch(
-                mesh, (s, d, s_len, d_len, snr, offsets))
-            example_kw = {k: shard_batch(mesh, v) for k, v in example_kw.items()}
-            params = gather_params(mesh, params, shardings)
-        inp, tgt, n_frames = inp_tgt.example(s, d, s_len, d_len, snr,
-                                             generator, offsets, **example_kw)
-        params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        pred = net_apply(params, inp)
-        loss = masked_loss(pred, tgt, frame_mask(inp.shape[1], n_frames, inp.device),
-                           loss_fnc)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        if mesh is not None:
-            keys = list(grads)
-            flat = torch.cat([grads[k].reshape(-1) for k in keys]
-                             + [loss.detach().reshape(1)])
-            flat = data.all_reduce(flat) / data.size
-            loss, pos = flat[-1], 0
-            for k in keys:
-                n = grads[k].numel()
-                g = flat[pos:pos + n].view_as(grads[k])
-                grads[k] = local_shard(mesh, g, shardings[k])
-                pos += n
-        updates, opt_state = tx.update(grads, state.opt_state)
-        with torch.no_grad():
-            keys = list(state.params)
-            new = dict(zip(keys, torch._foreach_add([state.params[k] for k in keys],
-                                                    [updates[k] for k in keys])))
-        return TrainState(state.step + 1, new, opt_state), {"loss": loss.detach()}
+        with annotate("deepxi.train.step"):
+            params = state.params
+            if mesh is not None:
+                if offsets is None:
+                    offsets = noise_offsets(s_len, d_len, generator)
+                s, d, s_len, d_len, snr, offsets = shard_batch(
+                    mesh, (s, d, s_len, d_len, snr, offsets))
+                example_kw = {k: shard_batch(mesh, v) for k, v in example_kw.items()}
+                params = gather_params(mesh, params, shardings)
+            with annotate("deepxi.train.example"):
+                inp, tgt, n_frames = inp_tgt.example(s, d, s_len, d_len, snr,
+                                                     generator, offsets, **example_kw)
+            params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            pred = net_apply(params, inp)
+            loss = masked_loss(pred, tgt, frame_mask(inp.shape[1], n_frames, inp.device),
+                               loss_fnc)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            if mesh is not None:
+                keys = list(grads)
+                flat = torch.cat([grads[k].reshape(-1) for k in keys]
+                                 + [loss.detach().reshape(1)])
+                flat = data.all_reduce(flat) / data.size
+                loss, pos = flat[-1], 0
+                for k in keys:
+                    n = grads[k].numel()
+                    g = flat[pos:pos + n].view_as(grads[k])
+                    grads[k] = local_shard(mesh, g, shardings[k])
+                    pos += n
+            with annotate("deepxi.train.update"):
+                updates, opt_state = tx.update(grads, state.opt_state)
+                with torch.no_grad():
+                    keys = list(state.params)
+                    new = dict(zip(keys, torch._foreach_add([state.params[k] for k in keys],
+                                                            [updates[k] for k in keys])))
+            return TrainState(state.step + 1, new, opt_state), {"loss": loss.detach()}
 
     return train_step
 

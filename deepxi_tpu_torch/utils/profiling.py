@@ -1,9 +1,9 @@
 """Tracing and profiling hooks (follows deepxi_tpu/utils/profiling.py).
 
 `trace` records a `torch.profiler` trace (host and, on the card, device
-activity) into a directory; `annotate` names a region of it (and, on the
-card, an NVTX range); `StageTimer` accumulates wall-clock stage times that
-wait for the card's work, so reported times include the device's.
+activity) into a directory; `annotate` names a host span of any running
+profiler's trace; `StageTimer` accumulates wall-clock stage times that wait
+for the card's work, so reported times include the device's.
 """
 
 from __future__ import annotations
@@ -13,7 +13,11 @@ import time
 from typing import Dict, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
 from torch.utils import _pytree as pytree
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _synchronize_cuda(tree) -> None:
@@ -80,12 +84,12 @@ def trace(log_dir: Optional[str]):
         yield
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named region of the profiler timeline (`record_function`), and an
-    NVTX range on the card."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
+    """`with annotate(name):` a host span of the running `torch.profiler`
+    trace, on the clock of its device events: a function-scope
+    `RecordFunction`, so it adds no annotation to the device's track and no
+    op to a `torch.export` graph. With no profiler running (or under a
+    compiler's trace) it is a shared no-op context, one C call's cost."""
+    if _profiler_enabled() and not torch.compiler.is_compiling():
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
