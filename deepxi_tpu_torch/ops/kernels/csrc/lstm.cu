@@ -32,13 +32,15 @@
 // 8 B H^2 FLOP a frame in either direction, against bytes of xp, ys and w_h
 // once; at reslstm-1.0c's H = 512 and B = 32 the FLOPs take 1 us a frame at
 // the f32 peak (0.4 us at the 165 TFLOP/s of three TF32 tensor-core
-// products), and at B <= 8 a frame is a few us of latency: barriers and L2
-// round trips. Both kernels are one cooperative launch a call
-// (cudaLaunchCooperativeKernel: the launch is refused, never hung, when its
-// grid cannot be resident at once), at most one CTA an SM, and keep what does
-// not have to cross CTAs on chip.
+// products; mma.sync m16n8k8 TF32 measured 320 TFLOP/s on this card, 6
+// cycles an instruction a sub-partition, 25 cycles dependent: 0.6 us), and at
+// B <= 8 a frame is a few us of latency: barriers and L2 round trips. Both
+// kernels are one cooperative launch a call (cudaLaunchCooperativeKernel: the
+// launch is refused, never hung, when its grid cannot be resident at once),
+// at most one CTA an SM, and keep what does not have to cross CTAs on chip.
 //
-// Forward (`lstm_forward_kernel`):
+// Forward (`lstm_forward_kernel`; `lstm_forward_kernel_tc` on the tensor
+// cores):
 //   * The grid is ceil(H / U) x R CTAs: CTA (x, y) owns hidden units
 //     [x U, x U + U) of row group y (ceil(B / R) batch rows) for all T
 //     frames, so the cell state of its units stays in shared memory, and its
@@ -51,18 +53,45 @@
 //     grid.sync(), ~1.1 us on this card, which orders the frame's global
 //     writes before every CTA's reads after it): every CTA stages h_{t-1} of
 //     its rows (= ys of the previous frame, written by the row group's CTAs)
-//     NB rows at a time into shared memory as [H][NB], computes its 4U
-//     columns of the product, applies the cell to its units and writes ys[t].
+//     into shared memory (the FMA route NB rows at a time as [H][NB]),
+//     computes its 4U columns of the product, applies the cell to its units
+//     and writes ys[t].
 //     Each thread's share of the cell (its xp and mask) is loaded in one go
 //     ahead of the arithmetic.
-//   * The product: 512 threads (16 warps) on f32 or f64 FMAs, blocked in
-//     registers: a thread sums four columns of NB rows (each h value feeds
-//     four FMAs, each w_h value NB); operands are read as 16-byte vectors. A
-//     thread takes an interleaved share of the reduction; the lanes of a warp
-//     that share columns fold by shuffles, the 16 warps' sums meet in shared
-//     memory and are added in warp order.
-//   * h_{t-1}, written during the launch, is read with ld.global.cg (L2,
-//     never a stale L1 line); xp and w_h are read-only.
+//   * The product, f32-accurate, by one of two routes, chosen by the rows a
+//     CTA in the call's shape (`stage_plan`):
+//   * FMAs (float64, and float32 below LSTM_FWD_TC_ROWS = 6 rows a CTA):
+//     512 threads (16 warps) blocked in registers: a thread sums four
+//     columns of NB rows (each h value feeds four FMAs, each w_h value NB);
+//     operands are read as 16-byte vectors. A thread takes an interleaved
+//     share of the reduction; the lanes of a warp that share columns fold by
+//     shuffles, the 16 warps' sums meet in shared memory ([WARPS][NB][4U])
+//     and are added in warp order. That buffer beside the slice holds NB = 8
+//     rows at H = 512, so 24 rows a CTA take three serial stages a frame.
+//   * Tensor cores (`lstm_forward_kernel_tc`, float32 from 6 rows a CTA, U
+//     >= 4, H % 4 == 0, up to 32 rows a CTA: more take the FMA route): all
+//     of the CTA's rows in one stage a frame, mma.sync m16n8k8 TF32 with
+//     both operands split as csrc/mma_tf32x3.cuh splits (three products, small terms
+//     first; 8 k-steps summed in a fragment, then in f32). M = the CTA's 4U
+//     columns, N = its rows, K = H in S = 64 / U parts: warp w takes m-block
+//     w % (U / 4) of part w / (U / 4) for every n-block, and the cell adds
+//     the S parts in order. Shared memory at H = 512, U = 16, 24 rows (the
+//     232,448 bytes a CTA may have, exactly): w_h's slice as A fragments in
+//     fragment order, [4][64][32] x 16 bytes (a lane's four values one
+//     16-byte word, no bank conflict), written once a launch; h_{t-1} of the
+//     rows [24][1040], each value split once a frame as it is staged and
+//     stored as pairs (hi, hi, lo, lo) so that a lane's B fragment is one
+//     16-byte word (a fragment's k column t is read as k = 2t and t + 4 as
+//     2t + 1); the parts' sums [4][24][68] over the staged rows once the
+//     product is done; the cell state. The n-block count is a template
+//     argument and the warp index is broadcast by a shuffle, so that no
+//     mma.sync sits under a branch the compiler cannot see is warp-uniform
+//     (under one it wraps every mma.sync in a WARPSYNC, and the product took
+//     twice as long). The threshold is measured (tools/torch_lstm_phases.py
+//     forces each route; PERF.md, row 12): at H = 512 FMAs are ahead at 1,
+//     2 and 4 rows a CTA, the tensor cores from 6 (by 7% at 6, 1.8x at 24).
+//   * h_{t-1}, written during the launch, is read through L2
+//     (ld.global.cg, never a stale L1 line); xp and w_h are read-only.
 //
 // Backward (`lstm_backward_kernel`), a reduce-scatter over the row group:
 //   * The same grid shape (its own plan, `grid_plan(backward)`): CTA (x, y)
@@ -396,6 +425,229 @@ lstm_forward_kernel(const F* __restrict__ xp, const F* __restrict__ w_h,
       __syncthreads();
       PHASE(3)                                   // the cell
     }
+    if (step + 1 < T) grid.sync();
+    PHASE(4)                                     // the barrier
+  }
+  PHASES_END(0)
+}
+
+// A CTA's rows from which the forward's f32 product takes the tensor cores
+// (0: never). Measured on an H100 (tools/torch_lstm_phases.py builds both
+// routes, H = 512; PERF.md, row 12): FMAs ahead at 1, 2 and 4 rows a CTA,
+// the tensor cores at 6, 8 and 24.
+#ifndef LSTM_FWD_TC_ROWS
+#define LSTM_FWD_TC_ROWS 6
+#endif
+
+// The forward's tensor-core layout (U in {4, 8, 16}, H % 4 == 0): M = the
+// CTA's 4U columns in MB = U / 4 m-blocks of 16, K = H padded to KP (a
+// multiple of 32) in KS = KP / 8 k-steps, N = the CTA's rows (at most 32) in
+// n-blocks of 8. A fragment's k column t is read as k = 8 ks + 2 t and t + 4
+// as 8 ks + 2 t + 1 (a sum over k takes its k in any order, so long as A's
+// columns and B's rows agree), so that a lane's B fragment, split, is one
+// 16-byte word of a staged row: the staged rows are [NT8][SP] with pair p =
+// k / 2 of a row at 4 p as (hi 2p, hi 2p+1, lo 2p, lo 2p+1) (SP = 2 KP + 16:
+// a quarter-warp's 16-byte reads hit distinct banks). After the product the
+// same words hold the K-parts' sums [S][NT8][PS] (PS = 4U + 4: a fragment's
+// stores hit distinct banks); S = 16 / MB K-parts, one a warp of each m-block.
+__host__ __device__ constexpr int tc_kp(int H) { return (H + 31) / 32 * 32; }
+__host__ __device__ constexpr int tc_parts(int U) { return WARPS / (U / 4); }
+constexpr int TC_NT = 32;                        // rows a CTA, at most: 4 n-blocks
+constexpr int TC_LD = 8;                         // 16-byte loads a thread a frame, at most
+constexpr int TC_KG = 8;                         // k-steps summed on the tensor cores a time
+
+// Shared memory of the tensor-core route, in bytes: the A fragments, the
+// CTA's `rows` staged (rounded up to 8) or the K-parts' sums in their place,
+// and the rows' cell state.
+size_t tc_forward_bytes(int rows, int H, int U) {
+  const size_t nt8 = (rows + 7) / 8 * 8, staged = nt8 * (2 * tc_kp(H) + 16),
+               sums = (size_t)tc_parts(U) * nt8 * (4 * U + 4);
+  return sizeof(float) * ((size_t)tc_kp(H) * 4 * U + (staged > sums ? staged : sums) +
+                          (size_t)rows * U);
+}
+
+// One k-step of a warp's tile: p[i] += A(ks) B_i(ks) for its NBK n-blocks,
+// A the fragment of w_h's slice at wa[32 ks] (split as csrc/mma_tf32x3.cuh
+// splits), B_i the staged pair of n-block i at column 16 ks of hb, split.
+template <int NBK>
+__device__ __forceinline__ void tc_kstep(float (&p)[NBK][4], const float4* wa, const float* hb,
+                                         int SP, int ks) {
+  const float4 w = wa[32 * ks];
+  FragA a;
+  set_a(a, w.x, w.y, w.z, w.w);
+  FragB b[NBK];
+#pragma unroll
+  for (int i = 0; i < NBK; ++i) {
+    const float4 h = *reinterpret_cast<const float4*>(hb + (size_t)8 * i * SP + 16 * ks);
+    b[i].hi[0] = __float_as_uint(h.x), b[i].hi[1] = __float_as_uint(h.y);
+    b[i].lo[0] = __float_as_uint(h.z), b[i].lo[1] = __float_as_uint(h.w);
+  }
+  mma_tf32x3<NBK>(p, a, b);
+}
+
+// acc += the warp's tile over k-steps [k0, k1): TC_KG k-steps a fresh
+// fragment, added to the sum in f32.
+template <int NBK>
+__device__ __forceinline__ void tc_sum(float (&acc)[NBK][4], const float4* wa, const float* hb,
+                                       int SP, int k0, int k1) {
+  int ks = k0;
+  for (; ks + TC_KG <= k1; ks += TC_KG) {
+    float p[NBK][4];
+    zero(p);
+#pragma unroll
+    for (int s = 0; s < TC_KG; ++s) tc_kstep(p, wa, hb, SP, ks + s);
+    add_to(acc, p);
+  }
+  if (ks < k1) {
+    float p[NBK][4];
+    zero(p);
+    for (; ks < k1; ++ks) tc_kstep(p, wa, hb, SP, ks);
+    add_to(acc, p);
+  }
+}
+
+// A warp's tile: its m-block of the CTA's NBK n-blocks over its K-part's
+// k-steps [ks0, ks1); once every warp is done with the staged rows, stored
+// over them as the part's sums at out: (row 8 i + 2 t + v % 2, column g + 8
+// (v / 2)) of the tile.
+template <int NBK>
+__device__ __forceinline__ void tc_tile(const float4* wa, const float* hb, float* out, int SP,
+                                        int PS, int ks0, int ks1) {
+  float acc[NBK][4];
+  zero(acc);
+  tc_sum(acc, wa, hb, SP, ks0, ks1);
+  __syncthreads();                               // the staged rows read by every warp
+#pragma unroll
+  for (int i = 0; i < NBK; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) out[(8 * i + (v & 1)) * PS + 8 * (v >> 1)] = acc[i][v];
+}
+
+// The forward on the tensor cores (float32): the grid, the frames, the cell
+// and the barrier as `lstm_forward_kernel`'s, all of the CTA's rows (at most
+// TC_NT) in one stage a frame: h_{t-1} of its rows read
+// through L2 (ld.global.cg, all of a thread's loads in flight at once),
+// split and stored as pairs; then warp w takes m-block w % MB of its K-part
+// w / MB for every n-block of the rows, A = w_h's slice transposed from the
+// fragments in shared memory, TC_KG k-steps summed in a fresh fragment and
+// added to the part's sum in f32; the cell adds the S parts in order.
+__global__ void __launch_bounds__(THREADS, 1)
+lstm_forward_kernel_tc(const float* __restrict__ xp, const float* __restrict__ w_h,
+                       const uint8_t* __restrict__ mask, float* ys, float* __restrict__ gates,
+                       float* __restrict__ cs, int T, int B, int H, int U, int R, int reverse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int COLS = 4 * U, MB = U / 4, S = tc_parts(U), KP = tc_kp(H), KS = KP / 8;
+  const int SP = 2 * KP + 16, PS = COLS + 4, NT8 = ((B + R - 1) / R + 7) / 8 * 8;
+  const int HQ = H / 4;
+  const size_t H4 = 4 * (size_t)H;
+  const Rows rw = cta_rows(B, R);
+  float4* wf = reinterpret_cast<float4*>(smem_raw);              // [MB][KS][32]: A fragments
+  float* hs = reinterpret_cast<float*>(wf + (size_t)MB * KS * 32);  // [NT8][SP]: h_{t-1}, split
+  float* part = hs;                                               // [S][NT8][PS]: the K-parts
+  float* c_s = hs + max(NT8 * SP, S * NT8 * PS);                  // [rows][U]: the cell state
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int j0 = blockIdx.x * U;
+  // w_h (k, column c: gate c / U, unit j0 + c % U) into lane 4 (c % 8) + (k % 8) / 2 of
+  // fragment (c / 16, k / 8), value 2 (k % 2) + (c % 16) / 8; zero past H
+  float* wfs = reinterpret_cast<float*>(wf);
+  for (int i = tid; i < KP * COLS; i += THREADS) {
+    const int k = i / COLS, c = i - k * COLS, m = c & 15, r = k & 7, j = j0 + c % U;
+    wfs[(((c >> 4) * KS + (k >> 3)) * 32 + 4 * (m & 7) + (r >> 1)) * 4 + 2 * (r & 1) + (m >> 3)] =
+        k < H && j < H ? __ldg(w_h + (size_t)k * H4 + (size_t)(c / U) * H + j) : 0.f;
+  }
+  for (int i = tid; i < rw.count * U; i += THREADS) c_s[i] = 0.f;
+  cg::grid_group grid = cg::this_grid();
+  // the warp's index as the compiler can see it is one value a warp (as CUTLASS's
+  // canonical_warp_idx_sync): the tile's mma.sync then need no WARPSYNC
+  const int wu = __shfl_sync(0xffffffffu, warp, 0);
+  const int mb = wu % MB, q = wu / MB, ks0 = q * KS / S, ks1 = (q + 1) * KS / S;
+  const float4* wa = wf + (size_t)mb * KS * 32 + lane;
+  const float* hb = hs + (size_t)g * SP + 4 * t4;
+  float* out = part + ((size_t)q * NT8 + 2 * t4) * PS + 16 * mb + g;
+  PHASES_BEGIN
+
+  for (int step = 0; step < T; ++step) {
+    const int t = reverse ? T - 1 - step : step;
+    const float* h_prev = step == 0 ? nullptr : ys + (size_t)(reverse ? t + 1 : t - 1) * B * H;
+    // the cell element (row n, unit u) of this thread, if any (rows U <= THREADS):
+    // its xp, mask and h_{t-1} are loaded now, under the staging and the product
+    const int n_c = tid / U, u_c = tid - n_c * U, j_c = j0 + u_c;
+    const bool cell = n_c < rw.count && j_c < H;
+    const size_t row_c = (size_t)t * B + rw.first + n_c;
+    float xq[4], h_c = 0.f;
+    bool m_c = false;
+    if (cell) {
+#pragma unroll
+      for (int gq = 0; gq < 4; ++gq) xq[gq] = __ldg(xp + row_c * H4 + (size_t)gq * H + j_c);
+      m_c = mask[row_c] != 0;
+      if (h_prev != nullptr) h_c = __ldcg(h_prev + (size_t)(rw.first + n_c) * H + j_c);
+    }
+    // the CTA's NT8 rows of h_{t-1} (contiguous in ys; zeros at the first frame, past
+    // the CTA's rows and past H), split: 4 values a load, two pairs (NT8 KP <= TC_LD
+    // THREADS 4); every load in flight before the first store
+    const float4* src = reinterpret_cast<const float4*>(
+        h_prev != nullptr ? h_prev + (size_t)rw.first * H : ys);
+    float4 v[TC_LD];
+#pragma unroll
+    for (int r = 0; r < TC_LD; ++r) {
+      const int i = tid + r * THREADS, n = i / (KP / 4), k4 = i - n * (KP / 4);
+      v[r] = h_prev != nullptr && n < rw.count && k4 < HQ ? __ldcg(src + n * HQ + k4)
+                                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int r = 0; r < TC_LD; ++r) {
+      const int i = tid + r * THREADS;
+      if (i >= NT8 * KP / 4) break;
+      const int n = i / (KP / 4), k4 = i - n * (KP / 4);
+      const float x[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(x[e], hi[e], lo[e]);
+      float4* d = reinterpret_cast<float4*>(hs + (size_t)n * SP + 8 * k4);
+      d[0] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]), __uint_as_float(lo[0]),
+                         __uint_as_float(lo[1]));
+      d[1] = make_float4(__uint_as_float(hi[2]), __uint_as_float(hi[3]), __uint_as_float(lo[2]),
+                         __uint_as_float(lo[3]));
+    }
+    __syncthreads();
+    PHASE(0)                                   // staging
+
+    switch (NT8 / 8) {
+      case 1: tc_tile<1>(wa, hb, out, SP, PS, ks0, ks1); break;
+      case 2: tc_tile<2>(wa, hb, out, SP, PS, ks0, ks1); break;
+      case 3: tc_tile<3>(wa, hb, out, SP, PS, ks0, ks1); break;
+      default: tc_tile<4>(wa, hb, out, SP, PS, ks0, ks1);
+    }
+    __syncthreads();
+    PHASE(1)                                   // the product
+    PHASE(2)                                   // (no warps' sums: the cell adds the parts)
+
+    if (cell) {
+      float z[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* pz = part + (size_t)n_c * PS + u_c;
+#pragma unroll 4
+      for (int k = 0; k < S; ++k) {
+#pragma unroll
+        for (int gq = 0; gq < 4; ++gq) z[gq] += pz[(size_t)k * NT8 * PS + gq * U];
+      }
+#pragma unroll
+      for (int gq = 0; gq < 4; ++gq) z[gq] = xq[gq] + z[gq];
+      const float ig = sigmoid_(z[0]), fg = sigmoid_(z[1]), gg = tanh_(z[2]), og = sigmoid_(z[3]);
+      const int e = n_c * U + u_c;
+      const float c_old = c_s[e];
+      const float c_new = fg * c_old + ig * gg;
+      const float h_new = og * tanh_(c_new);
+      const float c_keep = m_c ? c_new : c_old;
+      c_s[e] = c_keep;
+      ys[row_c * H + j_c] = m_c ? h_new : h_c;
+      if (gates != nullptr) {
+        float* gr = gates + row_c * H4 + j_c;
+        gr[0] = ig, gr[H] = fg, gr[2 * (size_t)H] = gg, gr[3 * (size_t)H] = og;
+        cs[row_c * H + j_c] = c_keep;
+      }
+    }
+    PHASE(3)                                   // the cell
     if (step + 1 < T) grid.sync();
     PHASE(4)                                     // the barrier
   }
@@ -769,13 +1021,26 @@ bool backward_fits(size_t value_bytes, int B, int H, int U, int R, size_t* smem,
   return *smem <= MAX_SMEM;
 }
 
-// Rows a stage and w_h's place for the forward's grid: the slice in shared
-// memory where it fits, then the most rows a stage that fit beside it (up to
-// 16 in float32 and 4 in float64, where four columns of NB rows of sums take
-// the registers; no more than the CTA's rows need).
-bool stage_plan(size_t value_bytes, int B, int H, int U, int R, int* nb, bool* ws,
+// Rows a stage and w_h's place for the forward's grid. From LSTM_FWD_TC_ROWS
+// rows a CTA in float32 (U >= 4, H % 4 == 0) the tensor cores (`tc`), where
+// all of the CTA's rows fit one stage beside the slice's fragments in shared
+// memory (at most TC_NT rows, rows U <= THREADS). Otherwise FMAs: the slice
+// in shared memory where it fits, then the most rows a stage that fit beside
+// it (up to 16 in float32 and 4 in float64, where four columns of NB rows of
+// sums take the registers; no more than the CTA's rows need).
+bool stage_plan(size_t value_bytes, int B, int H, int U, int R, int* nb, bool* ws, bool* tc,
                 size_t* smem) {
   const int rows = (B + R - 1) / R, cap = value_bytes == 8 ? 4 : 16;
+  *tc = false;
+  if (value_bytes == 4 && LSTM_FWD_TC_ROWS > 0 && rows >= LSTM_FWD_TC_ROWS && U >= 4 &&
+      H % 4 == 0) {
+    const size_t bytes = tc_forward_bytes(rows, H, U);
+    if (rows <= TC_NT && rows * U <= THREADS &&
+        (rows + 7) / 8 * 8 * tc_kp(H) <= 4 * TC_LD * THREADS && bytes <= MAX_SMEM) {
+      *nb = rows, *ws = true, *tc = true, *smem = bytes;
+      return true;
+    }
+  }
   int top = 1;
   while (top < cap && top < rows) top *= 2;
   for (int w = 1; w >= 0; --w) {
@@ -806,10 +1071,10 @@ bool grid_plan(bool backward, size_t value_bytes, int B, int H, int* U, int* R) 
     for (int u = 1; u <= 16; u *= 2) {
       if ((H + u - 1) / u * r > sms) continue;
       int nb;
-      bool ws;
+      bool ws, tc;
       size_t smem;
       if (backward ? backward_fits(value_bytes, B, H, u, r, &smem, &ws)
-                   : stage_plan(value_bytes, B, H, u, r, &nb, &ws, &smem) && (ws || r == 1)) {
+                   : stage_plan(value_bytes, B, H, u, r, &nb, &ws, &tc, &smem) && (ws || r == 1)) {
         *U = u, *R = r;
         return true;
       }
@@ -845,6 +1110,20 @@ int forward_nb(const void* xp, const void* w_h, const void* mask, void* ys, void
     return cooperative((const void*)lstm_forward_kernel<F, NB, WS>, dim3((H + U - 1) / U, R),
                        args, smem, st);
   }
+}
+
+int forward_tc(const void* xp, const void* w_h, const void* mask, void* ys, void* gates,
+               void* cs, int T, int B, int H, int U, int R, int reverse, size_t smem,
+               cudaStream_t st) {
+  const float* a_xp = static_cast<const float*>(xp);
+  const float* a_w = static_cast<const float*>(w_h);
+  const uint8_t* a_m = static_cast<const uint8_t*>(mask);
+  float* a_ys = static_cast<float*>(ys);
+  float* a_g = static_cast<float*>(gates);
+  float* a_c = static_cast<float*>(cs);
+  void* args[] = {&a_xp, &a_w, &a_m, &a_ys, &a_g, &a_c, &T, &B, &H, &U, &R, &reverse};
+  return cooperative((const void*)lstm_forward_kernel_tc, dim3((H + U - 1) / U, R), args, smem,
+                     st);
 }
 
 template <typename F, int KST>
@@ -915,16 +1194,20 @@ int masked_lstm_grid(int backward, int B, int H, int f64, int* U, int* R) {
 // 1 <= R <= B). One cooperative launch on `stream`; returns 0 or the CUDA
 // error (cudaErrorInvalidValue when the shapes or the plan do not fit,
 // cudaErrorCooperativeLaunchTooLarge when the grid cannot be resident at once).
+// *tensor_cores, when not null, is set to whether the product takes the
+// tensor cores (`stage_plan`'s route) before the launch.
 int masked_lstm_forward(const void* xp, const void* w_h, const void* mask, void* ys,
                         void* gates, void* cs, int T, int B, int H, int U, int R, int reverse,
-                        int f64, void* stream) {
+                        int f64, void* stream, int* tensor_cores) {
   int nb;
-  bool ws;
+  bool ws, tc;
   size_t smem;
   if (!valid(T, B, H, U, R) || (gates == nullptr) != (cs == nullptr) ||
-      !stage_plan(f64 ? 8 : 4, B, H, U, R, &nb, &ws, &smem))
+      !stage_plan(f64 ? 8 : 4, B, H, U, R, &nb, &ws, &tc, &smem))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (tensor_cores != nullptr) *tensor_cores = tc;
+  if (tc) return forward_tc(xp, w_h, mask, ys, gates, cs, T, B, H, U, R, reverse, smem, st);
   if (f64) {
     LSTM_DISPATCH(forward_nb, double, nb, ws, xp, w_h, mask, ys, gates, cs, T, B, H, U, R,
                   reverse, smem, st)
@@ -977,21 +1260,22 @@ int masked_lstm_phases(unsigned long long* out) {
 // CTA's rows, all of them at once), whether w_h's slice sits in shared memory
 // (the backward: its tensor-core fragments, when the product takes the
 // tensor cores; its FMA route holds w_h's rows in registers in float32 and
-// reads them from L2 in float64), and the bytes of shared memory a CTA
-// (returns 0 when no plan fits).
+// reads them from L2 in float64), whether the product takes the tensor cores,
+// and the bytes of shared memory a CTA (returns 0 when no plan fits).
 int masked_lstm_plan(int backward, int B, int H, int U, int R, int f64, int* nb, int* ws,
-                     long long* smem) {
-  bool w = false;
+                     int* tc, long long* smem) {
+  bool w = false, c = false;
   size_t s = 0;
   *nb = 0;
   if (!valid(1, B, H, U, R)) return 0;
   if (backward) {
     if (!backward_fits(f64 ? 8 : 4, B, H, U, R, &s, &w)) return 0;
     *nb = (B + R - 1) / R;
-  } else if (!stage_plan(f64 ? 8 : 4, B, H, U, R, nb, &w, &s)) {
+    c = w;
+  } else if (!stage_plan(f64 ? 8 : 4, B, H, U, R, nb, &w, &c, &s)) {
     return 0;
   }
-  *ws = w, *smem = (long long)s;
+  *ws = w, *tc = c, *smem = (long long)s;
   return 1;
 }
 

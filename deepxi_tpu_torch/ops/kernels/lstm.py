@@ -30,10 +30,12 @@ the forward, the row group's own in the backward), its outputs, saved state
 and the backward's scratch (its barrier counters and partial sums) from
 PyTorch's caching allocator on that stream, no host synchronisation.
 `masked_lstm.launches` counts the forward's launches (the
-op's and the training forward's), `masked_lstm_backward.launches` the
-backward's, both where they launch. The kernels take float32 or float64 and
-1 <= H <= 1024 (`kernel_takes`); outside that, or where the grid cannot be
-resident at once, the card raises.
+op's and the training forward's), `masked_lstm.tensor_core_launches` those of
+them whose recurrent product ran on the tensor cores (float32 from
+LSTM_FWD_TC_ROWS rows a CTA, csrc/lstm.cu; `kernel_plan`'s "tensor_cores"),
+`masked_lstm_backward.launches` the backward's, all where they launch. The
+kernels take float32 or float64 and 1 <= H <= 1024 (`kernel_takes`); outside
+that, or where the grid cannot be resident at once, the card raises.
 """
 
 from __future__ import annotations
@@ -169,7 +171,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.masked_lstm_error_string.argtypes = [i]
     lib.masked_lstm_error_string.restype = ctypes.c_char_p
-    lib.masked_lstm_forward.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.masked_lstm_forward.argtypes = [p] * 6 + [i] * 7 + [p, ctypes.POINTER(i)]
     lib.masked_lstm_backward.argtypes = [p] * 7 + [i] * 7 + [p]
     for fn in (lib.masked_lstm_forward, lib.masked_lstm_backward):
         fn.restype = i
@@ -177,7 +179,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.masked_lstm_backward_scratch.restype = ctypes.c_longlong
     lib.masked_lstm_grid.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
     lib.masked_lstm_grid.restype = i
-    lib.masked_lstm_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 2 + [
+    lib.masked_lstm_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.masked_lstm_plan.restype = i
     return lib
@@ -199,13 +201,18 @@ def kernel_plan(backward: bool, B: int, H: int, dtype: torch.dtype = torch.float
     """The plan a kernel takes at (B, H): U units a CTA, R row groups, the
     grid's CTAs, NB rows a stage (the backward's: the CTA's rows, all at
     once), whether w_h's slice sits in shared memory (the backward holds it
-    in registers in float32), and the shared memory a CTA (bytes)."""
+    in registers in float32, or its tensor-core fragments in shared memory),
+    whether the recurrent product runs on the tensor cores (float32, from a
+    build constant of rows a CTA: the forward's LSTM_FWD_TC_ROWS, the
+    backward's LSTM_TC_ROWS), and the shared memory a CTA (bytes)."""
     U, R = grid(backward, B, H, dtype)
-    nb, ws, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    nb, ws, tc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     _lib().masked_lstm_plan(int(backward), B, H, U, R, int(dtype == torch.float64),
-                            ctypes.byref(nb), ctypes.byref(ws), ctypes.byref(smem))
+                            ctypes.byref(nb), ctypes.byref(ws), ctypes.byref(tc),
+                            ctypes.byref(smem))
     return {"U": U, "R": R, "ctas": -(-H // U) * R, "NB": nb.value,
-            "w_h_in_shared": bool(ws.value), "smem": smem.value}
+            "w_h_in_shared": bool(ws.value), "tensor_cores": bool(tc.value),
+            "smem": smem.value}
 
 
 def _raise(rc: int, what: str, shape) -> None:
@@ -225,14 +232,16 @@ def _forward_cuda(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor, rever
     ys = xp.new_empty(T, B, H)
     gates = xp.new_empty(T, B, 4 * H) if save else None
     cs = xp.new_empty(T, B, H) if save else None
+    tc = ctypes.c_int()
     with launch_context(xp.device):
         rc = _lib().masked_lstm_forward(
             xp.data_ptr(), w_h.data_ptr(), mask.data_ptr(), ys.data_ptr(),
             gates.data_ptr() if save else None, cs.data_ptr() if save else None,
             T, B, H, *grid(False, B, H, xp.dtype), int(reverse), int(xp.dtype == torch.float64),
-            raw_stream(xp.device))
+            raw_stream(xp.device), ctypes.byref(tc))
     _raise(rc, "masked_lstm_forward", (T, B, H))
     masked_lstm.launches += 1
+    masked_lstm.tensor_core_launches += tc.value
     return (ys, gates, cs) if save else ys
 
 
@@ -320,4 +329,5 @@ def masked_lstm(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
 
 
 masked_lstm.launches = 0
+masked_lstm.tensor_core_launches = 0
 masked_lstm_backward.launches = 0

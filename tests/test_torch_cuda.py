@@ -1211,10 +1211,12 @@ def test_masked_lstm_kernel_matches_plain(cuda, H, B, T):
     every batch row; one launch a call; a second call of each bitwise (T = 1025 frames
     of barriers: a CTA reading h_{t-1} or a partial dh before its writers'
     stores would show here). H = 1 and 1024 are the domain's edges; H = 100
-    is no multiple of the units a CTA. B = 8 is the train shape (the
-    backward's product on FMAs); B = 33 and 96 take the tensor cores (7 rows
-    a CTA or more), B = 96 stages the forward's rows in two f32 passes a row
-    group."""
+    is no multiple of the units a CTA. B = 8 is the train shape (both
+    products on FMAs); at B = 33 and 96 both products take the tensor cores
+    where the grid allows (the backward from 7 rows a CTA; the forward from
+    6 with U >= 4 where all of a CTA's rows fit one stage, at most 32, so
+    H = 1024, B = 96 (96 rows a CTA) stays on its FMAs), and float64 stays
+    on FMAs."""
     from deepxi_tpu_torch.ops.kernels import lstm
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
         for reverse in (False, True):
@@ -1310,6 +1312,66 @@ def test_masked_lstm_backward_tensor_core_route(cuda, monkeypatch, H, B):
         torch.cuda.synchronize()
         assert torch.equal(dxp, again)
         assert _row_rel(dxp, ref) <= 1e-4, (reverse, _row_rel(dxp, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, B", [(512, 96), (512, 33), (100, 33), (1024, 96), (512, 8)])
+def test_masked_lstm_forward_tensor_core_route(cuda, monkeypatch, H, B):
+    """The forward's split-TF32 tensor-core route at every row count
+    (csrc/lstm.cu built with LSTM_FWD_TC_ROWS=1; the default build takes it
+    from 6 rows a CTA) against `masked_lstm_train_plain`: ys, the saved gates
+    and cell state within 1e-4 of each output's scale on every batch row,
+    both directions, the op's ys bitwise the training forward's and a second
+    call's; every launch counted as a tensor-core launch. (512, 8) takes the
+    route in one n-block of 8 with 2 rows. (1024, 96) has 96 rows a CTA
+    (U = 8, one row group), more than one stage of the route holds: it keeps
+    the FMA route, within the same limits, and no launch is counted as a
+    tensor-core launch."""
+    from deepxi_tpu_torch.ops.kernels import _build, lstm
+    lib = lstm.bind(_build.load("lstm", {"LSTM_FWD_TC_ROWS": 1}))
+    monkeypatch.setattr(lstm, "_lib", lambda: lib)
+    plan = lstm.kernel_plan(False, B, H)
+    one_stage = -(-B // plan["R"]) <= 32
+    assert one_stage == ((H, B) != (1024, 96))
+    assert plan["tensor_cores"] == one_stage, plan
+    T = 257
+    for reverse in (False, True):
+        xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(T, B, H, torch.float32, H + B + 1))
+        with torch.no_grad():
+            n0, c0 = lstm.masked_lstm.launches, lstm.masked_lstm.tensor_core_launches
+            ys = lstm.masked_lstm(xp, w_h, mask, reverse)
+            ys_t, gates, cs = lstm.masked_lstm_train(xp, w_h, mask, reverse)
+            again = lstm.masked_lstm(xp, w_h, mask, reverse)
+            assert (lstm.masked_lstm.launches - n0,
+                    lstm.masked_lstm.tensor_core_launches - c0) == (3, 3 * one_stage)
+            ref, g_ref, c_ref = lstm.masked_lstm_train_plain(xp, w_h, mask, reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(ys, again) and torch.equal(ys, ys_t)
+        for name, a, r in (("ys", ys, ref), ("gates", gates, g_ref), ("cs", cs, c_ref)):
+            assert _row_rel(a, r) <= 1e-4, (name, reverse, _row_rel(a, r))
+
+
+@pytest.mark.cuda
+def test_masked_lstm_forward_route_by_rows(cuda):
+    """The default build's forward product takes the tensor cores by the
+    rows a CTA in its input shape: at H = 512, B = 96 (24 rows a CTA) it
+    does, at the train shape B = 8 (2 rows) and in float64 it does not; the
+    backward's plan reports its own route. `tensor_core_launches` counts the
+    former's launches only."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    assert lstm.kernel_plan(False, 96, 512)["tensor_cores"]
+    assert not lstm.kernel_plan(False, 8, 512)["tensor_cores"]
+    assert not lstm.kernel_plan(False, 96, 512, torch.float64)["tensor_cores"]
+    assert lstm.kernel_plan(True, 96, 512)["tensor_cores"]
+    assert not lstm.kernel_plan(True, 8, 512)["tensor_cores"]
+    for B, dtype, n_tc in ((96, torch.float32, 1), (8, torch.float32, 0),
+                           (96, torch.float64, 0)):
+        xp, w_h, mask = (t.to(cuda) for t in _lstm_inputs(9, B, 512, dtype, B))
+        n0, c0 = lstm.masked_lstm.launches, lstm.masked_lstm.tensor_core_launches
+        with torch.no_grad():
+            lstm.masked_lstm(xp, w_h, mask)
+        assert (lstm.masked_lstm.launches - n0,
+                lstm.masked_lstm.tensor_core_launches - c0) == (1, n_tc), (B, dtype)
 
 
 @pytest.mark.cuda

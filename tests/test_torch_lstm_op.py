@@ -379,6 +379,102 @@ def test_split_tf32_backward_holds_float64_over_1025_frames(long_sequence):
     assert 0 < rel(tc, f32) <= 1e-6, rel(tc, f32)
 
 
+# The forward kernel's tensor-core route (csrc/lstm.cu `lstm_forward_kernel_tc`,
+# from LSTM_FWD_TC_ROWS rows a CTA), emulated at its grid on an H100: U units
+# a CTA (16 at H = 512, 4 at H = 100), 64 / U K-parts, 8 k-steps a fresh
+# fragment; both operands split as csrc/mma_tf32x3.cuh's `split_tf32`.
+TC_FWD_SHAPES = [(512, 96, 16), (512, 33, 16), (100, 33, 4)]
+TC_FWD_FRAMES = 40
+
+
+def _tc_forward(w_h: torch.Tensor, U: int):
+    """h [B, H] -> h @ w_h as the forward's tensor-core route sums it in f32:
+    K = H padded to KP (a multiple of 32) in k-steps of 8, S = 64 / U parts
+    of them in order; a part sums groups of 8 k-steps, each k-step the three
+    products w_lo.h_hi, w_hi.h_lo, w_hi.h_hi (8-term sums in f32) added to a
+    fresh fragment, each group's fragment added to the part's sum in f32; the
+    cell adds the parts in order."""
+    H = w_h.shape[0]
+    kp = -(-H // 32) * 32
+    ks_n, parts = kp // 8, 64 // U
+    w = torch.nn.functional.pad(w_h, (0, 0, 0, kp - H)).reshape(ks_n, 8, 4 * H)
+    w_hi = _tf32_round(w)
+    w_lo = _tf32_round(w - w_hi)
+
+    def product(h):
+        x = torch.nn.functional.pad(h, (0, kp - H)).reshape(h.shape[0], ks_n, 8).transpose(0, 1)
+        x_hi = _tf32_round(x.contiguous())
+        x_lo = _tf32_round(x - x_hi)
+        total = None
+        for q in range(parts):
+            ks0, ks1 = q * ks_n // parts, (q + 1) * ks_n // parts
+            acc = h.new_zeros(h.shape[0], 4 * H)
+            for kg in range(ks0, ks1, 8):
+                s = slice(kg, min(kg + 8, ks1))
+                prods = (x_hi[s] @ w_lo[s], x_lo[s] @ w_hi[s], x_hi[s] @ w_hi[s])
+                p = torch.zeros_like(acc)
+                for k in range(s.stop - s.start):
+                    for pr in prods:
+                        p = p + pr[k]
+                acc = acc + p
+            total = acc if total is None else total + acc
+        return total
+    return product
+
+
+def _forward_with(xp, mask, reverse, product):
+    """`masked_lstm_plain` with h w_h taken by `product`."""
+    T, B, H4 = xp.shape
+    H = H4 // 4
+    c = h = xp.new_zeros(B, H)
+    ys = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        z = xp[t] + product(h)
+        i, f, g, o = torch.split(z, H, 1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        m = mask[t][:, None]
+        c, h = torch.where(m, c_new, c), torch.where(m, h_new, h)
+        ys[t] = h
+    return torch.stack(ys, 0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H, B, U", TC_FWD_SHAPES)
+def test_split_tf32_forward_holds_the_plain_recurrence(H, B, U, reverse):
+    """The recurrence with every h_{t-1} w_h taken as the forward kernel's
+    tensor-core route takes it, at its grid's U, stays within 1e-4 of
+    `masked_lstm_plain`'s scale on every batch row over 40 frames, both
+    directions, with tests/test_torch_cuda.py::_lstm_inputs' masks (an
+    all-zero frame inside row 0, its first two frames masked, row 1 all
+    masked, the last row padded over its last fifth): the route's sums in
+    another order and split TF32 are f32's arithmetic, not TF32's. Measured
+    on the CPU: 1.5e-7 to 3.0e-7, as far from float64 as the plain f32 loop
+    (1.5e-7 to 2.2e-7 against 1.9e-7 to 2.4e-7); one TF32 product a
+    k-step (the control) 1.3e-4 to 2.0e-4, past the limit."""
+    T = TC_FWD_FRAMES
+    rng = np.random.RandomState(H + B)
+    xp = torch.as_tensor((rng.randn(T, B, 4 * H) * 0.5).astype(np.float32))
+    w_h = torch.as_tensor((rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32))
+    mask = torch.ones(T, B, dtype=torch.bool)
+    mask[T // 3, 0] = False
+    mask[T - T // 5:, B - 1] = False
+    mask[:, 1] = False
+    mask[:2, 0] = False
+    with _one_thread():
+        tc = _forward_with(xp, mask, reverse, _tc_forward(w_h, U))
+        ref = lstm.masked_lstm_plain(xp, w_h, mask, reverse)
+        tf32 = _forward_with(xp, mask, reverse, lambda h: _tf32_round(h) @ _tf32_round(w_h))
+
+    def rel(a):
+        return ((a - ref).abs().amax(dim=(0, 2)) / ref.abs().max()).max().item()
+
+    assert torch.isfinite(tc).all() and tc.shape == ref.shape
+    assert 0 < rel(tc) <= TC_TOL, rel(tc)
+    assert rel(tf32) > TC_TOL, rel(tf32)
+    assert torch.equal(tc[:, 1], torch.zeros_like(tc[:, 1]))   # the all-masked row
+
+
 def test_kernel_takes_states_the_domain():
     assert lstm.kernel_takes(512, torch.float32) and lstm.kernel_takes(1, torch.float64)
     assert not lstm.kernel_takes(1025, torch.float32)

@@ -6,14 +6,16 @@ bundles, the native wav decoder and the JAX-free artifact tool on one card
 
   * holds both kernels of csrc/lstm.cu, each one cooperative launch a call,
     against their plain versions at reslstm-1.0c's H = 512, B = 1 T = 250,
-    B = 32 T = 1025 and the train shape B = 8 T = 256, forward and reverse,
+    B = 32 T = 1025, the train shape B = 8 T = 256 and the offline batch
+    B = 96 T = 626 (checked, not timed), forward and reverse,
     with masked frames inside rows and a padded tail: the forward (`deepxi::
     masked_lstm` and the training forward's ys, gates and cell state) against
     `masked_lstm_train_plain`, the backward against
     `masked_lstm_backward_plain` on the same saved state, every batch row
     within 1e-4 of each output's scale, a second call of each bitwise (the
-    backward's product on FMAs at B = 1 and 8, on the tensor cores at B =
-    32); and times both beside their bounds (f32 and tensor-core), the plain
+    products on FMAs at B = 1 and 8, on the tensor cores at B = 32 and 96;
+    the forward's launches and those on the tensor cores counted against
+    `kernel_plan`'s route); and times both beside their bounds (f32 and tensor-core), the plain
     versions and the library call
     (cuDNN `torch.nn.LSTM`, TF32 off, on the same xp with identity input
     weights, all frames valid, where the functions agree; checked within
@@ -92,6 +94,9 @@ GRAD_TOL_REL = 2e-4     # network gradients on the kernels against the plain loo
 H = 512                 # reslstm-1.0c's d_model
 # (B, T): a 4 s utterance, the B = 32 long batch, and the train step's batch
 KERNEL_SHAPES = ((1, 250), (32, 1025), (8, 256))
+# checked against the plain versions only: the offline batch (24 rows a CTA,
+# the forward's tensor-core route with all of them in one stage)
+CHECK_SHAPES = KERNEL_SHAPES + ((96, 626),)
 TRAIN_B, TRAIN_L = 8, 65536   # the preset's mini-batch of 4.096 s buckets
 # H100 SXM: f32 outside the tensor cores, f32-accurate on them (three TF32
 # products, 495 / 3 TFLOP/s), HBM3 (chip_smoke.py's constants)
@@ -166,10 +171,13 @@ def _cudnn(xp_or_x, w_ih, b_ih, w_h, dev):
 
 def _check_kernels(B, T, dev, fail, card, errs):
     """Both kernels against their plain versions at (B, T), both
-    directions; a second call of each bitwise."""
+    directions; a second call of each bitwise; the forward's launches, and
+    those on the tensor cores, counted against `kernel_plan`'s route."""
     xp, w_h, mask = _inputs(B, T, B + T, dev)
     dys = torch.randn(T, B, H, generator=torch.Generator().manual_seed(T)).to(dev)
+    tc = lstm.kernel_plan(False, B, H)["tensor_cores"]
     for reverse in (False, True):
+        lstm.masked_lstm.launches = lstm.masked_lstm.tensor_core_launches = 0
         with torch.no_grad():
             ys = lstm.masked_lstm(xp, w_h, mask, reverse)
             ys_t, gates, cs = lstm.masked_lstm_train(xp, w_h, mask, reverse)
@@ -185,13 +193,18 @@ def _check_kernels(B, T, dev, fail, card, errs):
         errs["masked_lstm_backward"].append(bwd)
         same = (torch.equal(ys, again) and torch.equal(ys, ys_t)
                 and torch.equal(dxp, dxp_again))
+        counts = (lstm.masked_lstm.launches, lstm.masked_lstm.tensor_core_launches)
         print(f"[3o] H={H} B={B} T={T} {'reverse' if reverse else 'forward'}: forward kernel "
               f"(ys, gates, c) worst batch row {fwd:.3e}, backward (dxp) {bwd:.3e} of the "
               f"scale (tol {KERNEL_TOL_REL:.0e}); a second call of each "
-              f"{'bitwise' if same else 'DIFFERS'}; {card}")
+              f"{'bitwise' if same else 'DIFFERS'}; forward launches {counts[0]}, on the "
+              f"tensor cores {counts[1]}; {card}")
         if fwd > KERNEL_TOL_REL or bwd > KERNEL_TOL_REL or not same:
             fail(f"[3o] the LSTM kernels disagree with their plain versions at B={B} T={T} "
                  f"reverse={reverse} (forward {fwd:.3e}, backward {bwd:.3e}, bitwise {same})")
+        if counts != (3, 3 if tc else 0):
+            fail(f"[3o] the forward's launches at B={B} T={T} are {counts} (all, tensor cores); "
+                 f"kernel_plan's route is {'tensor cores' if tc else 'FMAs'}")
 
 
 def _time_kernels(B, T, dev, fail, card):
@@ -240,13 +253,16 @@ def _time_kernels(B, T, dev, fail, card):
 
 
 def kernel_checks(dev, fail, card):
-    """Both kernels against their plain versions at the main path's shapes,
-    then each shape timed beside its bound and cuDNN; the kernels-line rows
-    (the first shape's times, the others under `at_b<B>_t<T>`)."""
+    """Both kernels against their plain versions at the main path's shapes
+    (CHECK_SHAPES), then each of KERNEL_SHAPES timed beside its bound and
+    cuDNN; the kernels-line rows (the first shape's times, the others under
+    `at_b<B>_t<T>`)."""
     errs = {"masked_lstm": [], "masked_lstm_backward": []}
     rows = {name: {} for name in errs}
-    for B, T in KERNEL_SHAPES:
+    for B, T in CHECK_SHAPES:
         _check_kernels(B, T, dev, fail, card, errs)
+        if (B, T) not in KERNEL_SHAPES:
+            continue
         for name, times in zip(rows, _time_kernels(B, T, dev, fail, card)):
             rows[name].update(times if (B, T) == KERNEL_SHAPES[0] else {f"at_b{B}_t{T}": times})
     for name, row in rows.items():

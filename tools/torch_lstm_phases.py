@@ -1,4 +1,5 @@
-"""Where a frame of the LSTM kernels' time goes, on one card.
+"""Where a frame of the LSTM kernels' time goes, on one card, on each
+route of their recurrent product.
 
     python3 tools/torch_lstm_phases.py      # needs an NVIDIA card
 
@@ -7,10 +8,11 @@ build: thread 0 of CTA (0, 0) adds up the %globaltimer ns of each phase of
 each frame) and runs the forward and the backward 5 times each after a warm-up,
 at reslstm-1.0c's H = 512 and the shapes [3o] times (B=1 T=250, B=8 T=256,
 B=32 T=1025), B=16 and B=24 at T=256 (4 and 6 rows a CTA, where the
-backward's product routes meet) and B=96 T=626 (make_enhancer's B=96 x 10 s),
+product routes meet) and B=96 T=626 (make_enhancer's B=96 x 10 s),
 all frames valid.
 Prints ns a frame for each phase: the forward's staging of h_{t-1}, its
-product, the warps' sums, the cell and the grid barrier; the backward's cell,
+product, the warps' sums (the tensor-core route has none: its cell adds the
+K-parts), the cell and the grid barrier; the backward's cell,
 CTA barrier after it, product (its partial dh written), the CTA barrier after
 it, the row group's barrier (thread 0's arrival, the start of the next
 cell's prefetch and thread 0's wait), the CTA barrier after that, the sums
@@ -19,11 +21,12 @@ phases are CTA (0, 0)'s view, its waits at the barrier included; the sum is
 the frame's time (the last launch's). The mean CUDA-events time of a launch
 is printed beside it, and that of the build without timers.
 
-The backward's product runs on the tensor cores from LSTM_TC_ROWS rows a CTA
-(csrc/lstm.cu) and on FMAs below; two more builds force each route
-(LSTM_TC_ROWS=1: the tensor cores at every shape; a large value: FMAs), and
-the backward is timed on each, so that the threshold rests on a measurement.
-Each route's dxp is printed as its distance from the default build's.
+Both kernels' products run on the tensor cores from a number of rows a CTA
+(csrc/lstm.cu: the forward's LSTM_FWD_TC_ROWS, the backward's LSTM_TC_ROWS)
+and on FMAs below; two more builds (with and without timers) force each
+route (1: the tensor cores at every shape; a large value: FMAs), and each
+kernel is timed on each, so that the thresholds rest on a measurement. Each
+route's ys and dxp are printed as their distance from the default build's.
 """
 
 from __future__ import annotations
@@ -45,9 +48,10 @@ SHAPES = ((1, 250), (8, 256), (16, 256), (24, 256), (32, 1025), (96, 626))
 FORWARD = ("staging", "product", "sums", "cell", "barrier")
 BACKWARD = ("cell", "cell sync", "product", "product sync", "group barrier",
             "barrier sync", "sums", "prefetch wait")
-# the backward's product routes: the build's own threshold, then each forced
-ROUTES = (("default", {}), ("tensor cores", {"LSTM_TC_ROWS": 1}),
-          ("FMAs", {"LSTM_TC_ROWS": 1 << 30}))
+# the product routes: the build's own thresholds, then each forced
+ROUTES = (("default", {}),
+          ("tensor cores", {"LSTM_TC_ROWS": 1, "LSTM_FWD_TC_ROWS": 1}),
+          ("FMAs", {"LSTM_TC_ROWS": 1 << 30, "LSTM_FWD_TC_ROWS": 1 << 30}))
 
 
 def _ms(fn, iters=5) -> float:
@@ -70,15 +74,20 @@ def _lib(defines):
     return lib
 
 
+def _use(lib) -> None:
+    lstm._lib = lambda: lib  # noqa: E731
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    _build.build(["lstm"] + [("lstm", {"LSTM_PHASES": 1, **d}) for _, d in ROUTES])
-    libs = {name: _lib(d) for name, d in ROUTES}
-    plain = lstm.bind(_build.load("lstm"))
+    _build.build([("lstm", {"LSTM_PHASES": 1, **d}) for _, d in ROUTES]
+                 + [("lstm", d) if d else "lstm" for _, d in ROUTES])
+    timed = {name: _lib(d) for name, d in ROUTES}
+    plain = {name: lstm.bind(_build.load("lstm", d or None)) for name, d in ROUTES}
     ns = (ctypes.c_ulonglong * 16)()
     dev = torch.device("cuda")
     for B, T in SHAPES:
@@ -87,34 +96,37 @@ def main() -> int:
         w_h = (torch.randn(H, 4 * H, generator=gen) * H ** -0.5).to(dev)
         dys = torch.randn(T, B, H, generator=gen).to(dev)
         mask = torch.ones(T, B, dtype=torch.bool, device=dev)
-        lstm._lib = lambda: libs["default"]  # noqa: E731
+        _use(plain["default"])
         with torch.no_grad():
-            _, gates, cs = lstm.masked_lstm_train(xp, w_h, mask)
-            ms = _ms(lambda: lstm.masked_lstm(xp, w_h, mask))  # noqa: B023
-            libs["default"].masked_lstm_phases(ns)
-            fwd = [ns[i] / T for i in range(5)]
-        plan, plan_b = lstm.kernel_plan(False, B, H), lstm.kernel_plan(True, B, H)
-        print(f"B={B} T={T} forward {ms:.4f} ms ({plan}): ns a frame "
-              + ", ".join(f"{k} {v:.0f}" for k, v in zip(FORWARD, fwd))
-              + f"; sum {sum(fwd):.0f}; {card}")
-        lstm._lib = lambda: plain  # noqa: E731
-        with torch.no_grad():
-            ms_plain = _ms(lambda: lstm.masked_lstm_backward(dys, gates, cs, w_h, mask))  # noqa: B023,E501
-        print(f"B={B} T={T} backward (the build without timers) {ms_plain:.4f} ms; {card}")
-        ref = None
+            ys_ref, gates, cs = lstm.masked_lstm_train(xp, w_h, mask)
+        dxp_ref = None
         for name, _ in ROUTES:
-            lib = libs[name]
-            lstm._lib = lambda lib=lib: lib  # noqa: E731
+            _use(plain[name])
+            plan, plan_b = lstm.kernel_plan(False, B, H), lstm.kernel_plan(True, B, H)
             with torch.no_grad():
+                ms_f = _ms(lambda: lstm.masked_lstm(xp, w_h, mask))  # noqa: B023
                 ms_b = _ms(lambda: lstm.masked_lstm_backward(dys, gates, cs, w_h, mask))  # noqa: B023,E501
-                lib.masked_lstm_phases(ns)
+                ys = lstm.masked_lstm(xp, w_h, mask)
                 dxp = lstm.masked_lstm_backward(dys, gates, cs, w_h, mask)
-            bwd = [ns[8 + i] / T for i in range(len(BACKWARD))]
-            ref = dxp if ref is None else ref
-            rel = ((dxp - ref).abs().max() / ref.abs().max()).item()
-            print(f"B={B} T={T} backward ({name}) {ms_b:.4f} ms ({plan_b}): ns a frame "
+            dxp_ref = dxp if dxp_ref is None else dxp_ref
+            _use(timed[name])
+            with torch.no_grad():
+                ms_ft = _ms(lambda: lstm.masked_lstm(xp, w_h, mask))  # noqa: B023
+                timed[name].masked_lstm_phases(ns)
+                fwd = [ns[i] / T for i in range(len(FORWARD))]
+                ms_bt = _ms(lambda: lstm.masked_lstm_backward(dys, gates, cs, w_h, mask))  # noqa: B023,E501
+                timed[name].masked_lstm_phases(ns)
+                bwd = [ns[8 + i] / T for i in range(len(BACKWARD))]
+            rel_f = ((ys - ys_ref).abs().max() / ys_ref.abs().max()).item()
+            rel_b = ((dxp - dxp_ref).abs().max() / dxp_ref.abs().max()).item()
+            print(f"B={B} T={T} forward ({name}) {ms_f:.4f} ms, with timers {ms_ft:.4f} ms "
+                  f"({plan}): ns a frame "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in zip(FORWARD, fwd))
+                  + f"; sum {sum(fwd):.0f}; ys within {rel_f:.2e} of the default's; {card}")
+            print(f"B={B} T={T} backward ({name}) {ms_b:.4f} ms, with timers {ms_bt:.4f} ms "
+                  f"({plan_b}): ns a frame "
                   + ", ".join(f"{k} {v:.0f}" for k, v in zip(BACKWARD, bwd))
-                  + f"; sum {sum(bwd):.0f}; dxp within {rel:.2e} of the default's; {card}")
+                  + f"; sum {sum(bwd):.0f}; dxp within {rel_b:.2e} of the default's; {card}")
     return 0
 
 
