@@ -23,7 +23,9 @@ tiling (`tile_q`) does not change the function and is left out.
 `mhanetv3_apply_fused` is the MHANetV3 (or, with ``positional=False``,
 MHANetV2) forward through these blocks for sequences of at most
 `whole_max_t` frames; longer ones run `models.attention.MHANetV3` with
-``attention_impl="stream"``, as the JAX function does.
+``attention_impl="stream"``, as the JAX function does, and are counted by
+its `long_route_calls`. Each call is the host span `deepxi.mha`
+(`utils.profiling.annotate`).
 
 Inference only: raises under autograd when an input or weight requires grad.
 """
@@ -45,6 +47,7 @@ from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
 from deepxi_tpu_torch.ops.kernels import mha_fused
 from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEADS,
                                                     masked_softmax_attention)
+from deepxi_tpu_torch.utils.profiling import annotate
 
 # mhanet-1.1c's widths, the defaults of `random_block_weights`.
 KERNEL_D_MODEL, KERNEL_D_FF = 256, 1024
@@ -249,25 +252,30 @@ def mhanetv3_apply_fused(params: Dict[str, torch.Tensor], x: torch.Tensor,
     Sequences longer than `whole_max_t` frames run the module with streaming
     attention."""
     refuse_autograd([x, *params.values()], "mhanetv3_apply_fused")
-    B, T, F = x.shape
-    if T > whole_max_t:
-        from torch.func import functional_call
-        net = _stream_net(positional, F, params["out_conv.bias"].shape[0],
-                          d_model, n_blocks, n_heads, causal, outp_act, max_len)
-        return functional_call(net, params, (x,))
+    with annotate("deepxi.mha"):
+        B, T, F = x.shape
+        if T > whole_max_t:
+            from torch.func import functional_call
+            mhanetv3_apply_fused.long_route_calls += 1
+            net = _stream_net(positional, F, params["out_conv.bias"].shape[0],
+                              d_model, n_blocks, n_heads, causal, outp_act, max_len)
+            return functional_call(net, params, (x,))
 
-    valid = sequence_valid_mask(x).to(torch.float32)
-    h = x @ params["in_conv.kernel"][0]
-    h = torch.relu(layer_norm_two_pass(h, params["in_ln.scale"], params["in_ln.bias"]))
-    if positional:
-        pos = torch.arange(T, device=x.device) % max_len
-        h = h + params["pos_emb.embedding"][pos][None]
-    Tp = -(-T // 128) * 128
-    if Tp != T:
-        h = torch.nn.functional.pad(h, (0, 0, 0, Tp - T))
-        valid = torch.nn.functional.pad(valid, (0, Tp - T))
-    vf = valid[:, None, :]
-    for i in range(n_blocks):
-        h = fused_transformer_block(h, vf, block_weights(params, i), causal)
-    out = h[:, :T] @ params["out_conv.kernel"][0] + params["out_conv.bias"]
-    return output_activation(out, outp_act)
+        valid = sequence_valid_mask(x).to(torch.float32)
+        h = x @ params["in_conv.kernel"][0]
+        h = torch.relu(layer_norm_two_pass(h, params["in_ln.scale"], params["in_ln.bias"]))
+        if positional:
+            pos = torch.arange(T, device=x.device) % max_len
+            h = h + params["pos_emb.embedding"][pos][None]
+        Tp = -(-T // 128) * 128
+        if Tp != T:
+            h = torch.nn.functional.pad(h, (0, 0, 0, Tp - T))
+            valid = torch.nn.functional.pad(valid, (0, Tp - T))
+        vf = valid[:, None, :]
+        for i in range(n_blocks):
+            h = fused_transformer_block(h, vf, block_weights(params, i), causal)
+        out = h[:, :T] @ params["out_conv.kernel"][0] + params["out_conv.bias"]
+        return output_activation(out, outp_act)
+
+
+mhanetv3_apply_fused.long_route_calls = 0
