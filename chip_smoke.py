@@ -209,7 +209,13 @@ Phases (any failure exits non-zero before the result line):
      (1e-6), the kernel's launches a call counted, infer's network output at
      B=1 x 4 s on the kernel against the plain loop, each timed; the native
      decoder's build, a corpus and a loader epoch with and without it
-     (bitwise); reslstm-1.0c trained 3 steps -> `tools/torch_make_artifact.py`
+     (bitwise); the blocks' input projection (`lstm_input_proj`, split TF32
+     on the tensor cores) against the float64 product at B=1 T=250, B=8
+     T=256, B=96 T=626 and 111 rows (1e-6 of the scale), timed beside its
+     bound, `addmm` and `addmm` with the time-major copy, its launches
+     counted (5 a reslstm-1.0c infer call, 10 ResBiLSTM, none in training;
+     W_x's split only where the weights changed);
+     reslstm-1.0c trained 3 steps -> `tools/torch_make_artifact.py`
      -> `python3 -m deepxi_tpu_torch --enhance`, within one int16 step of
      infer's wav;
   4. times from CUDA events after warm-up (and, for the TCN forward's four
@@ -2466,17 +2472,23 @@ def main():
             row["hybrid_launches"] = hyb["launches"][family_key]
         if family_key in par["launches"]:
             row["parallel_launches"] = par["launches"][family_key]
-    # the LSTM recurrence and its gradient (no Pallas kernel: the JAX package's
-    # nn.scan and XLA's autodiff of it); the forward's launches are [3o]'s
-    # reslstm-1.0c infer call at B=1 x 4 s, the backward's its 3 train steps at
-    # B=8 x 4.096 s; times and errors from [3o]'s kernel checks
-    for name, launched in (("masked_lstm", "reslstm-1.0c infer xi_hat, B=1 x 4 s"),
-                           ("masked_lstm_backward",
-                            "reslstm-1.0c train, 3 steps B=8 x 4.096 s, backward")):
+    # the LSTM recurrence, its gradient and the blocks' input projection (no
+    # Pallas kernel: the JAX package's nn.scan and XLA's autodiff of it); the
+    # forward's and the projection's launches are [3o]'s reslstm-1.0c infer call
+    # at B=1 x 4 s, the backward's its 3 train steps at B=8 x 4.096 s; times and
+    # errors from [3o]'s kernel checks
+    for name, launched, src in (
+            ("masked_lstm", "reslstm-1.0c infer xi_hat, B=1 x 4 s", "lstm.cu"),
+            ("masked_lstm_backward", "reslstm-1.0c train, 3 steps B=8 x 4.096 s, backward",
+             "lstm.cu"),
+            ("lstm_input_proj", "reslstm-1.0c infer xi_hat, B=1 x 4 s, projection",
+             "lstm_input_proj.cu")):
         lstm_row = {"name": name, "route": "cuda",
-                    "source": "deepxi_tpu_torch/ops/kernels/csrc/lstm.cu",
+                    "source": f"deepxi_tpu_torch/ops/kernels/csrc/{src}",
                     "replaces": "deepxi_tpu/models/rnn.py:45",
                     "launches": lstm_out["launches"][launched]}
+        if name == "lstm_input_proj":  # W_x's split, launched where the weights changed
+            lstm_row["split_launches"] = lstm_out["launches"][f"{launched}'s split"]
         lstm_row.update(lstm_out["rows"][name])
         lstm_row["lstm_launches"] = lstm_out["launches"]
         kernels.append(lstm_row)

@@ -10,11 +10,13 @@ A step whose frame is masked (no input feature nonzero, Keras
 ``Masking(0.0)``: an all-zero frame inside an utterance too) keeps the
 state and repeats the previous output, so neither `torch.nn.LSTM` nor
 cuDNN's packed sequences compute it. The input products of all steps are
-hoisted into one product a block; the recurrence is `masked_lstm`
-(`ops/kernels/lstm.py`): the op `deepxi::masked_lstm` where autograd records
-nothing (inference, export), and under autograd (training) its Function,
-whose forward and backward are kernels too (on the card the CUDA kernels, on
-the CPU their plain versions).
+hoisted into one product a block, written time-major: where autograd records
+nothing (inference, export) the op `deepxi::lstm_input_proj`, one kernel on
+the card, and under autograd (training) autograd's `addmm`. The recurrence is
+`masked_lstm` (`ops/kernels/lstm.py`): the op `deepxi::masked_lstm` where
+autograd records nothing, and under autograd its Function, whose forward and
+backward are kernels too (on the card the CUDA kernels, on the CPU their
+plain versions).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from torch import nn
 
 from deepxi_tpu_torch.models.attention import Dense, LayerNorm, sequence_valid_mask
 from deepxi_tpu_torch.models.tcn import output_activation
-from deepxi_tpu_torch.ops.kernels.lstm import masked_lstm
+from deepxi_tpu_torch.ops.kernels import records_grad
+from deepxi_tpu_torch.ops.kernels.lstm import input_product, lstm_input_proj, masked_lstm
 
 GATES = "ifgo"
 
@@ -41,12 +44,12 @@ class LSTMCell(nn.Module):
             self.add_module(f"h{g}", Dense(h, h))
 
     def stacked(self):
-        """(W_x [C, 4h], W_h [h, 4h], b [4h]), the gates concatenated in
-        i|f|g|o order."""
-        ii = [getattr(self, f"i{g}") for g in GATES]
+        """([W_i, W_f, W_g, W_o] the input kernels [C, h], W_h [h, 4h], b
+        [4h]): the recurrent kernels and biases concatenated in i|f|g|o
+        order."""
         hh = [getattr(self, f"h{g}") for g in GATES]
-        return (torch.cat([m.kernel for m in ii], 1), torch.cat([m.kernel for m in hh], 1),
-                torch.cat([m.bias for m in hh]))
+        return ([getattr(self, f"i{g}").kernel for g in GATES],
+                torch.cat([m.kernel for m in hh], 1), torch.cat([m.bias for m in hh]))
 
 
 class MaskedLSTM(nn.Module):
@@ -59,10 +62,13 @@ class MaskedLSTM(nn.Module):
         self.cell = LSTMCell(c_in, h)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        B, T, _ = x.shape
         w_x, w_h, b = self.cell.stacked()
-        # the input products of every step at once, time-major
-        xp = torch.addmm(b, x.reshape(B * T, -1), w_x).reshape(B, T, -1).transpose(0, 1)
+        # the input products of every step at once, time-major: autograd's
+        # addmm in training, else the op (one kernel on the card)
+        if records_grad(x, *w_x, b):
+            xp = input_product(x, w_x, b)
+        else:
+            xp = lstm_input_proj(x, w_x, b)
         ys = masked_lstm(xp, w_h, mask.transpose(0, 1), self.reverse)
         return ys.transpose(0, 1)
 

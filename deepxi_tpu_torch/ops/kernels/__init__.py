@@ -40,11 +40,17 @@ def load_ops() -> None:
         importlib.import_module(f"{__name__}.{name}")
 
 
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records through an op on these tensors: training
+    takes the autograd routes, inference and export the ops."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def refuse_autograd(tensors, what: str, alternative: str = "") -> None:
     """Raise when autograd would record through an inference kernel (as
     `pallas_call`, it has no backward); `alternative` names a route that
     has one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if records_grad(*tensors):
         raise RuntimeError(
             f"{what} has no backward (as the Pallas kernel it replaces); run it "
             "under torch.no_grad()" + (f", or train through {alternative}"

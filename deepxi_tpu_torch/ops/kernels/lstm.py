@@ -36,18 +36,33 @@ LSTM_FWD_TC_ROWS rows a CTA, csrc/lstm.cu; `kernel_plan`'s "tensor_cores"),
 `masked_lstm_backward.launches` the backward's, all where they launch. The
 kernels take float32 or float64 and 1 <= H <= 1024 (`kernel_takes`); outside
 that, or where the grid cannot be resident at once, the card raises.
+
+`lstm_input_proj(x, w_x, b)` is the block's input product, xp [T, B, 4H] =
+x [B, T, C] [W_i|W_f|W_g|W_o] + b written time-major, w_x the four gate
+kernels [C, H]: the op `deepxi::lstm_input_proj` where autograd records
+nothing. On the card the kernels of `csrc/lstm_input_proj.cu` take float32
+with C a multiple of 4 (split TF32 on the tensor cores, the bias and the
+time-major store in the epilogue) and float64 (FMAs); outside that the card
+raises. The float32 kernel reads W_x split K-major into TF32 hi and lo,
+which the split kernel writes when the gate kernels change and which is kept
+while they do not (`_kept_split`). `lstm_input_proj.launches` counts the
+product's launches, `lstm_input_proj.split_launches` the split's. On the
+CPU the op is its plain version `lstm_input_proj_plain`, `addmm` and a copy
+of its transposed view. Under autograd `models/rnn.py` takes
+`input_product`, autograd's `addmm`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.weak import WeakIdKeyDictionary
 
-from deepxi_tpu_torch.ops.kernels import kernel_op, launch_context, raw_stream
+from deepxi_tpu_torch.ops.kernels import kernel_op, launch_context, raw_stream, records_grad
 
 DTYPES = (torch.float32, torch.float64)
 MAX_H = 1024
@@ -323,11 +338,134 @@ def masked_lstm(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor,
     """The masked recurrence: ys [T, B, H] for xp [T, B, 4H], w_h [H, 4H] and
     mask [T, B] bool; differentiable in xp and w_h. On the card one kernel
     launch (two under autograd: forward and backward)."""
-    if torch.is_grad_enabled() and (xp.requires_grad or w_h.requires_grad):
+    if records_grad(xp, w_h):
         return _Recurrence.apply(xp, w_h, mask, bool(reverse))
     return _op(xp, w_h, mask, bool(reverse))
+
+
+def input_product(x: torch.Tensor, w_x: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
+    """x [B, T, C] times the gate kernels w_x [C, H] side by side, plus b, as
+    one `addmm`: the time-major [T, B, 4H] view of its [B, T, 4H] result
+    (what autograd records in training)."""
+    B, T, _ = x.shape
+    return torch.addmm(b, x.reshape(B * T, -1), torch.cat(list(w_x), 1)) \
+        .reshape(B, T, -1).transpose(0, 1)
+
+
+def lstm_input_proj_plain(x: torch.Tensor, w_x: List[torch.Tensor],
+                          b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the input projection: `input_product` copied
+    time-major, xp [T, B, 4H] contiguous."""
+    return input_product(x, w_x, b).contiguous()
+
+
+def _check_proj(x: torch.Tensor, w_x: List[torch.Tensor], b: torch.Tensor) -> None:
+    """Raise unless the card's kernels take these inputs: x [B, T, C], four
+    gate kernels [C, H] and b [4H] of one device, float32 with C a multiple
+    of 4 (TMA's 16-byte rows) or float64."""
+    w0, dt, dev = w_x[0] if w_x else x, x.dtype, x.device
+    ok = (len(w_x) == 4 and x.dim() == 3 and w0.dim() == 2 and x.shape[2] == w0.shape[0]
+          and b.shape == (4 * w0.shape[1],) and b.dtype == dt and b.device == dev
+          and (dt == torch.float64 or (dt == torch.float32 and x.shape[2] % 4 == 0))
+          and all(w.shape == w0.shape and w.dtype == dt and w.device == dev for w in w_x))
+    if not ok:
+        raise ValueError(
+            "lstm_input_proj takes x [B, T, C], four gate kernels [C, H] and b [4H] on one "
+            "device, float32 with C a multiple of 4 or float64, not "
+            f"{tuple(x.shape)} {x.dtype}, {[tuple(w.shape) for w in w_x]}, {tuple(b.shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _proj_lib() -> ctypes.CDLL:
+    from deepxi_tpu_torch.ops.kernels import _build
+    lib = _build.load("lstm_input_proj")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_input_proj_error_string.argtypes = [i]
+    lib.lstm_input_proj_error_string.restype = ctypes.c_char_p
+    lib.lstm_input_proj_split.argtypes = [p] * 5 + [i] * 2 + [p]
+    lib.lstm_input_proj_forward.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.lstm_input_proj_f64.argtypes = [p] * 7 + [i] * 4 + [p]
+    for f in (lib.lstm_input_proj_split, lib.lstm_input_proj_forward, lib.lstm_input_proj_f64):
+        f.restype = i
+    return lib
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"lstm_input_proj failed {what}: error {rc} "
+                           f"({_proj_lib().lstm_input_proj_error_string(rc).decode()})")
+
+
+# the first gate kernel of each W_x kept split -> (what it was split from, the split)
+_SPLITS = WeakIdKeyDictionary()
+
+
+def _kept_split(w_x: List[torch.Tensor], stream: int, split):
+    """`split()`, the float32 kernel's W_x operand, made once for these gate
+    kernels and kept while they stay the same tensors, at the same memory,
+    unchanged in place (their version counters), and read on the same
+    stream; made anew for inference tensors, which count no versions. The
+    entry goes with the first gate kernel."""
+    if any(w.is_inference() for w in w_x):
+        return split()
+    key = (stream,) + tuple((w.data_ptr(), w._version) for w in w_x)
+    kept = _SPLITS.get(w_x[0])
+    if kept is None or kept[0] != key:
+        kept = _SPLITS[w_x[0]] = (key, split())
+    return kept[1]
+
+
+def _lstm_input_proj_cuda(x: torch.Tensor, w_x: List[torch.Tensor],
+                          b: torch.Tensor) -> torch.Tensor:
+    _check_proj(x, w_x, b)
+    B, T, C = x.shape
+    H = w_x[0].shape[1]
+    xp = x.new_empty(T, B, 4 * H)
+    if B * T == 0:
+        return xp
+    x, b, w_x = x.contiguous(), b.contiguous(), [w.contiguous() for w in w_x]
+    lib = _proj_lib()
+    with launch_context(x.device):
+        stream = raw_stream(x.device)
+        if x.dtype == torch.float64:
+            rc = lib.lstm_input_proj_f64(x.data_ptr(), *(w.data_ptr() for w in w_x),
+                                         b.data_ptr(), xp.data_ptr(), B, T, C, H, stream)
+        else:
+            def split():
+                w_split = torch.empty(2, 4 * H, C, dtype=torch.int32, device=x.device)
+                _raise_on(lib.lstm_input_proj_split(*(w.data_ptr() for w in w_x),
+                                                    w_split.data_ptr(), C, H, stream),
+                          f"splitting W_x [{C}, {4 * H}]")
+                lstm_input_proj.split_launches += 1
+                return w_split
+
+            # under CUDA graph capture the graph records the split, so that a
+            # replay reads the weights as they are then
+            w_split = split() if torch.cuda.is_current_stream_capturing() \
+                else _kept_split(w_x, stream, split)
+            rc = lib.lstm_input_proj_forward(x.data_ptr(), w_split.data_ptr(), b.data_ptr(),
+                                             xp.data_ptr(), B, T, C, 4 * H, stream)
+    _raise_on(rc, f"at [B, T, C, 4H] = {[B, T, C, 4 * H]}")
+    lstm_input_proj.launches += 1
+    return xp
+
+
+_proj_op = kernel_op("lstm_input_proj", _lstm_input_proj_cuda, lstm_input_proj_plain,
+                     fake=lambda x, w_x, b: x.new_empty(x.shape[1], x.shape[0], b.shape[0]))
+
+
+def lstm_input_proj(x: torch.Tensor, w_x: Sequence[torch.Tensor],
+                    b: torch.Tensor) -> torch.Tensor:
+    """The LSTM block's input product, time-major: xp [T, B, 4H] = x [B, T, C]
+    [W_i|W_f|W_g|W_o] + b [4H] for the gate kernels w_x [C, H], contiguous;
+    not differentiable (training takes `input_product` under autograd). On
+    the card one launch (two where W_x's split is made), on the CPU
+    `lstm_input_proj_plain`."""
+    return _proj_op(x, list(w_x), b)
 
 
 masked_lstm.launches = 0
 masked_lstm.tensor_core_launches = 0
 masked_lstm_backward.launches = 0
+lstm_input_proj.launches = 0
+lstm_input_proj.split_launches = 0

@@ -912,6 +912,8 @@ def test_kernel_ops_equal_their_wrappers(cuda):
     kc, vc = (torch.randn(3, 2048, 8, 32, generator=gen).to(cuda) for _ in range(2))
     t = torch.tensor(700, dtype=torch.int32, device=cuda)
     xp, w_h, mask = (a.to(cuda) for a in _lstm_inputs(30, 3, 64, torch.float32, 1))
+    b_x, *w_x = (torch.randn(*shape, generator=gen).to(cuda)
+                 for shape in ((64,),) + ((256, 16),) * 4)
     cases = (
         (tcn_fused.fused_block_group_whole, (x, w, dil),
          ops.fused_block_group_whole, (x, flat, dil, 3), 4),
@@ -927,7 +929,8 @@ def test_kernel_ops_equal_their_wrappers(cuda):
          ops.flash_attention_streaming, (q, k, v, valid, True, 64, 128), 1),
         (mha_cache.mha_cache_step, (qc, kc, vc, t), ops.mha_cache_step, (qc, kc, vc, t), 1),
         (lstm.masked_lstm, (xp, w_h, mask, True), ops.masked_lstm, (xp, w_h, mask, True),
-         1))
+         1),
+        (lstm.lstm_input_proj, (h, w_x, b_x), ops.lstm_input_proj, (h, w_x, b_x), 1))
     for wrapper, args, op, op_args, n in cases:
         n0 = wrapper.launches
         y = wrapper(*args)
@@ -1444,6 +1447,172 @@ def test_lstm_training_runs_the_kernels(cuda, monkeypatch, nt):
     for (p, _), a, b, r in zip(net.named_parameters(), g, g2, g_ref):
         assert torch.equal(a, b), p
         assert _rel_err(a, r) <= 2e-4, (p, _rel_err(a, r))
+
+
+def _proj_inputs(B, T, C, H, dtype=torch.float32, seed=0):
+    """x [B, T, C] (~N(0, 1)), the four gate kernels [C, H] (~N(0, 1/C)) and
+    b [4H] (~N(0, 1))."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, T, C, generator=gen, dtype=dtype),
+            [torch.randn(C, H, generator=gen, dtype=dtype) * C ** -0.5 for _ in range(4)],
+            torch.randn(4 * H, generator=gen, dtype=dtype))
+
+
+def _proj_err(xp, ref):
+    return ((xp.cpu().double() - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,H", [(96, 626, 512, 512), (8, 256, 512, 512),
+                                     (1, 250, 512, 512), (3, 37, 512, 512), (2, 45, 36, 10)])
+def test_lstm_input_proj_kernel_matches_float64(cuda, B, T, C, H):
+    """The projection kernel (csrc/lstm_input_proj.cu, split TF32 on the
+    tensor cores) against the float64 product: xp [T, B, 4H] time-major and
+    contiguous, within 1e-6 of its scale (cuBLAS's f32 product: 5e-7 to
+    8.4e-7 at C = 512); the first call launches W_x's split and the product,
+    a second call the product alone, bitwise. B = 96 T = 626 is the offline
+    cell's block, B = 8 T = 256 the train shape, B = 1 T = 250 a 4 s
+    utterance (64-wide tiles), 111 and 90 rows no multiple of the 128-row
+    tile, C = 36 and 4H = 40 no multiple of the 32-deep k-tile and of the
+    tile's columns."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    x, w_x, b = _proj_inputs(B, T, C, H, seed=B + T)
+    ref = lstm.lstm_input_proj_plain(x.double(), [w.double() for w in w_x], b.double())
+    x, w_x, b = x.to(cuda), [w.to(cuda) for w in w_x], b.to(cuda)
+    n0, s0 = lstm.lstm_input_proj.launches, lstm.lstm_input_proj.split_launches
+    with torch.no_grad():
+        xp = lstm.lstm_input_proj(x, w_x, b)
+        again = lstm.lstm_input_proj(x, w_x, b)
+    torch.cuda.synchronize()
+    assert lstm.lstm_input_proj.launches - n0 == 2
+    assert lstm.lstm_input_proj.split_launches - s0 == 1
+    assert xp.shape == (T, B, 4 * H) and xp.is_contiguous() and torch.equal(xp, again)
+    assert _proj_err(xp, ref) <= 1e-6, _proj_err(xp, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_input_proj_splits_again_when_the_weights_change(cuda):
+    """An in-place update of a gate kernel (an optimizer step, a
+    `load_state_dict`) makes the split anew: the next call reads the new
+    weights, within 1e-6 of the float64 product of them."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    x, w_x, b = _proj_inputs(2, 50, 64, 32, seed=3)
+    x, w_x, b = x.to(cuda), [torch.nn.Parameter(w.to(cuda)) for w in w_x], b.to(cuda)
+    with torch.no_grad():
+        lstm.lstm_input_proj(x, w_x, b)
+        s0 = lstm.lstm_input_proj.split_launches
+        w_x[1].mul_(-2.0)
+        w_x[3].add_(0.5)
+        xp = lstm.lstm_input_proj(x, w_x, b)
+    torch.cuda.synchronize()
+    assert lstm.lstm_input_proj.split_launches - s0 == 1
+    ref = lstm.lstm_input_proj_plain(x.double().cpu(), [w.double().cpu() for w in w_x],
+                                     b.double().cpu())
+    assert _proj_err(xp, ref) <= 1e-6, _proj_err(xp, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,H", [(96, 626, 512, 512), (3, 37, 36, 10)])
+def test_lstm_input_proj_float64_kernel(cuda, B, T, C, H):
+    """float64 takes the FMA kernel: one launch, no split, within 1e-13 of
+    the float64 product's scale on the CPU."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    x, w_x, b = _proj_inputs(B, T, C, H, dtype=torch.float64, seed=B + T)
+    ref = lstm.lstm_input_proj_plain(x, w_x, b)
+    n0, s0 = lstm.lstm_input_proj.launches, lstm.lstm_input_proj.split_launches
+    with torch.no_grad():
+        xp = lstm.lstm_input_proj(x.to(cuda), [w.to(cuda) for w in w_x], b.to(cuda))
+    torch.cuda.synchronize()
+    assert lstm.lstm_input_proj.launches - n0 == 1
+    assert lstm.lstm_input_proj.split_launches == s0
+    assert xp.shape == (T, B, 4 * H) and xp.dtype == torch.float64 and xp.is_contiguous()
+    assert _proj_err(xp, ref) <= 1e-13, _proj_err(xp, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_input_proj_routes_and_refuses_on_the_card(cuda):
+    """Inputs the kernels do not take raise on the card before any launch
+    (float32 with an input width that is no multiple of 4, mixed dtypes,
+    float16, shapes that do not fit); no rows give an empty xp and no
+    launch."""
+    from deepxi_tpu_torch.ops.kernels import lstm
+    n0, s0 = lstm.lstm_input_proj.launches, lstm.lstm_input_proj.split_launches
+    x, w_x, b = _proj_inputs(2, 9, 16, 8)
+    x, w_x, b = x.to(cuda), [w.to(cuda) for w in w_x], b.to(cuda)
+    for bad in ((x, [w[:12] for w in w_x], b), (x, w_x, b[:8]), (x[0], w_x, b),
+                (x, w_x[:3], b), (x, w_x, b.double()),
+                (x.half(), [w.half() for w in w_x], b.half()),
+                (x[..., :6], [w[:6] for w in w_x], b)):
+        with pytest.raises(ValueError, match="float32 with C a multiple of 4 or float64"):
+            lstm.lstm_input_proj(*bad)
+    empty = lstm.lstm_input_proj(x[:, :0], w_x, b)
+    assert empty.shape == (0, 2, 32) and empty.device == x.device
+    assert (lstm.lstm_input_proj.launches, lstm.lstm_input_proj.split_launches) == (n0, s0)
+
+
+@pytest.mark.cuda
+def test_resbilstm_inference_takes_the_projection_kernel(cuda, monkeypatch):
+    """A ResBiLSTM call with grad off on the card (d_model 64, 2 blocks, an
+    interior all-zero frame and a padded tail) takes the projection kernel
+    once a direction a block, within 1e-5 of its scale of the same network
+    on cuBLAS's product and the copy."""
+    from deepxi_tpu_torch.models import init_flax_like as init_any, network_selector, rnn
+    from deepxi_tpu_torch.ops.kernels import lstm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    net = init_any(network_selector("ResBiLSTM", 257, 257, d_model=64, n_blocks=2),
+                   torch.Generator().manual_seed(6)).to(cuda)
+    x = torch.rand(3, 120, 257, generator=torch.Generator().manual_seed(7)) + 1e-3
+    x[0, 40:42] = 0.0
+    x[2, 90:] = 0.0
+    x = x.to(cuda)
+    with torch.no_grad():
+        n0, s0 = lstm.lstm_input_proj.launches, lstm.lstm_input_proj.split_launches
+        y = net(x)
+        assert lstm.lstm_input_proj.launches - n0 == 4
+        assert lstm.lstm_input_proj.split_launches - s0 == 4
+        monkeypatch.setattr(rnn, "lstm_input_proj", lstm.lstm_input_proj_plain)
+        y_ref = net(x)
+    torch.cuda.synchronize()
+    assert _rel_err(y, y_ref) <= 1e-5, _rel_err(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_projection_launches_in_reslstm_inference_not_in_training(cuda):
+    """reslstm-1.0c's widths (257 in, d_model 512, 5 blocks): a call with
+    grad off launches the projection 5 times and W_x's split 5 times, a
+    second call the projection alone; a train step's forward and backward
+    neither (its product is autograd's addmm); after an SGD step the next
+    call splits the new weights again and gives the network's output on
+    them."""
+    from deepxi_tpu_torch.models import init_flax_like as init_any, network_selector, rnn
+    from deepxi_tpu_torch.ops.kernels import lstm
+    net = init_any(network_selector("ResLSTM", 257, 257, d_model=512, n_blocks=5),
+                   torch.Generator().manual_seed(8)).to(cuda)
+    x = (torch.rand(2, 100, 257, generator=torch.Generator().manual_seed(9)) + 1e-3).to(cuda)
+
+    def counts():
+        return lstm.lstm_input_proj.launches, lstm.lstm_input_proj.split_launches
+
+    n0, s0 = counts()
+    with torch.no_grad():
+        net(x)
+        assert counts() == (n0 + 5, s0 + 5)
+        net(x)
+    assert counts() == (n0 + 10, s0 + 5)
+    torch.square(net(x) - 0.5).mean().backward()
+    torch.cuda.synchronize()
+    assert counts() == (n0 + 10, s0 + 5)
+    assert all(p.grad is not None for p in net.parameters())
+    with torch.no_grad():
+        for p in net.parameters():
+            p.sub_(0.1 * p.grad)
+        y = net(x)
+        assert counts() == (n0 + 15, s0 + 10)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(rnn, "lstm_input_proj", lstm.lstm_input_proj_plain)
+            y_ref = net(x)
+    torch.cuda.synchronize()
+    assert _rel_err(y, y_ref) <= 1e-5, _rel_err(y, y_ref)
 
 
 @pytest.mark.cuda

@@ -119,6 +119,127 @@ def test_autograd_runs_the_recurrence_function(monkeypatch):
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.parameters())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,T,C,H", [(3, 37, 16, 8), (1, 25, 12, 4), (2, 1, 32, 16)])
+def test_input_proj_on_the_cpu_is_addmm_transposed(B, T, C, H, dtype):
+    """The op `deepxi::lstm_input_proj` on the CPU is its plain version, the
+    block's former `addmm` of the concatenated gate kernels + `transpose` +
+    `contiguous`, bitwise: xp [T, B, 4H] contiguous, no launch counted."""
+    rng = np.random.RandomState(B + T)
+    x, b, *w_x = (torch.as_tensor(rng.randn(*shape), dtype=dtype)
+                  for shape in ((B, T, C), (4 * H,)) + ((C, H),) * 4)
+    n0 = lstm.lstm_input_proj.launches
+    xp = lstm.lstm_input_proj(x, w_x, b)
+    ref = torch.addmm(b, x.reshape(B * T, -1), torch.cat(w_x, 1)).reshape(B, T, -1) \
+        .transpose(0, 1)
+    assert xp.shape == (T, B, 4 * H) and xp.dtype == dtype and xp.is_contiguous()
+    assert torch.equal(xp, ref.contiguous())
+    assert torch.equal(xp, getattr(torch.ops, OP_NAMESPACE).lstm_input_proj(x, w_x, b))
+    assert lstm.lstm_input_proj.launches == n0
+
+
+def test_input_proj_fake_gives_the_time_major_shape():
+    """[T, B, 4H] for x [B, T, C], so torch.export traces the op."""
+    x, b, w_x = torch.zeros(2, 5, 12), torch.zeros(32), [torch.zeros(12, 8)] * 4
+    with FakeTensorMode() as mode:
+        out = getattr(torch.ops, OP_NAMESPACE).lstm_input_proj(
+            mode.from_tensor(x), [mode.from_tensor(w) for w in w_x], mode.from_tensor(b))
+    assert tuple(out.shape) == (5, 2, 32) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("case", ["x 2-d", "three gates", "gate widths differ", "b", "C",
+                                  "dtypes mixed", "float16", "C % 4"])
+def test_input_proj_check_names_what_the_card_takes(case):
+    """The card's kernels take x [B, T, C], four gate kernels [C, H] and b
+    [4H], all float32 with C a multiple of 4 or all float64: anything else
+    raises before a launch (checked here on the CPU tensors)."""
+    x, b, w_x = torch.zeros(2, 5, 12), torch.zeros(32), [torch.zeros(12, 8) for _ in range(4)]
+    lstm._check_proj(x, w_x, b)
+    lstm._check_proj(x.double(), [w.double() for w in w_x], b.double())
+    bad = {"x 2-d": (x[0], w_x, b), "three gates": (x, w_x[:3], b),
+           "gate widths differ": (x, w_x[:3] + [torch.zeros(12, 4)], b),
+           "b": (x, w_x, b[:16]), "C": (x[..., :8], w_x, b),
+           "dtypes mixed": (x, w_x, b.double()),
+           "float16": (x.half(), [w.half() for w in w_x], b.half()),
+           "C % 4": (x[..., :6], [w[:6] for w in w_x], b)}[case]
+    with pytest.raises(ValueError, match="float32 with C a multiple of 4 or float64"):
+        lstm._check_proj(*bad)
+
+
+def test_input_proj_keeps_the_split_while_the_weights_stay():
+    """The float32 kernel's split of W_x is made once for a set of gate
+    kernels and kept while they stay the same tensors unchanged on the same
+    stream: made anew after an in-place update (an optimizer step, a
+    `load_state_dict`), for other tensors or another stream, and every time
+    for inference tensors; dropped with its first gate kernel."""
+    made = []
+
+    def split():
+        made.append(1)
+        return torch.full((1,), float(len(made)))
+
+    w_x = [torch.nn.Parameter(torch.randn(8, 4)) for _ in range(4)]
+    kept = [lstm._kept_split(w_x, 7, split) for _ in range(3)]
+    assert len(made) == 1 and all(k is kept[0] for k in kept)
+    with torch.no_grad():
+        w_x[2].add_(1.0)
+    assert lstm._kept_split(w_x, 7, split).item() == 2.0
+    assert lstm._kept_split(w_x, 7, split).item() == 2.0 and len(made) == 2
+    assert lstm._kept_split(w_x, 8, split).item() == 3.0
+    assert lstm._kept_split(w_x[:3] + [torch.randn(8, 4)], 8, split).item() == 4.0
+    with torch.inference_mode():
+        w_inf = [torch.randn(8, 4) for _ in range(4)]
+    lstm._kept_split(w_inf, 8, split)
+    lstm._kept_split(w_inf, 8, split)
+    assert len(made) == 6
+    n = len(lstm._SPLITS)
+    del w_x, kept
+    assert len(lstm._SPLITS) == n - 1
+
+
+@pytest.mark.parametrize("nt", ["ResLSTM", "ResBiLSTM"])
+def test_autograd_keeps_addmm_and_inference_takes_the_projection_op(monkeypatch, nt):
+    """Under autograd each LSTM block's input product is autograd's `addmm`
+    (the op is never called and counts nothing); with grad off it is the op,
+    once a direction a block, and the network's output is bitwise the
+    same."""
+    torch.manual_seed(1)
+    net = network_selector(nt, 12, 7, d_model=8, n_blocks=2)
+    x = torch.rand(2, 9, 12)
+    calls = []
+    op = rnn.lstm_input_proj
+    monkeypatch.setattr(rnn, "lstm_input_proj", lambda *a: calls.append(1) or op(*a))
+    y = net(x)
+    assert y.requires_grad and not calls
+    y.sum().backward()
+    assert all(p.grad is not None for p in net.parameters())
+    with torch.no_grad():
+        y_op = net(x)
+    assert len(calls) == 2 * (2 if "Bi" in nt else 1)
+    assert torch.equal(y_op, y.detach())
+    assert lstm.lstm_input_proj.launches == 0
+
+
+def test_reslstm_exports_through_the_projection_op():
+    """torch.export of ResLSTM with grad off traces the projection's fake:
+    the program holds `lstm_input_proj` then `masked_lstm` a block, and
+    gives the network's output."""
+    torch.manual_seed(2)
+    net = network_selector("ResLSTM", 12, 7, d_model=8, n_blocks=3).eval()
+    x = torch.rand(2, 9, 12)
+    with torch.no_grad():
+        ep = torch.export.export(net, (x,))
+        ops = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function" and str(n.target).startswith(f"{OP_NAMESPACE}.")]
+        y = net(x)
+        y_ep = ep.graph_module(*[ep.state_dict[s.target] if s.target in ep.state_dict
+                                 else ep.constants[s.target]
+                                 for s in ep.graph_signature.input_specs if s.target], x)[0]
+    assert ops == [f"{OP_NAMESPACE}.lstm_input_proj.default",
+                   f"{OP_NAMESPACE}.masked_lstm.default"] * 3
+    assert torch.equal(y_ep, y)
+
+
 def _grad_inputs(T, B, H, dtype, seed):
     """xp, w_h (both requiring grad), the upstream gradient and a mask with
     interior all-masked frames in row 0, an all-masked row 1 and row 2 padded
@@ -523,7 +644,8 @@ def test_export_holds_one_op_call_a_direction_a_block(bundles):
     calls = [n for n in ep.graph.nodes
              if n.op == "call_function" and str(n.target).startswith(f"{OP_NAMESPACE}.")]
     assert [str(n.target) for n in calls] == \
-        [f"{OP_NAMESPACE}.masked_lstm.default"] * (SMALL["n_blocks"] * (2 if "Bi" in nt else 1))
+        [f"{OP_NAMESPACE}.lstm_input_proj.default", f"{OP_NAMESPACE}.masked_lstm.default"] * \
+        (SMALL["n_blocks"] * (2 if "Bi" in nt else 1))
 
 
 def test_bundle_matches_the_live_enhancer_and_the_jax_server(its, bundles):

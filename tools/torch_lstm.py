@@ -46,6 +46,17 @@ bundles, the native wav decoder and the JAX-free artifact tool on one card
     `main`), then `python3 -m deepxi_tpu_torch --enhance <artifact>` in a
     subprocess: rc 0, the wav within one int16 step of `infer`'s.
 
+  * the input projection (`lstm_input_proj`, csrc/lstm_input_proj.cu)
+    against the float64 product at B = 1 T = 250, B = 8 T = 256, B = 96 T =
+    626 and 111 rows (no multiple of the tile): within 1e-6 of the scale, a
+    second call bitwise and without W_x's split; each of the first three timed by CUDA events (no
+    torch.profiler: its use before phase 4 has left that phase's traces
+    short of device events) beside its bound (operations at 165 TFLOP/s or
+    bytes of x, W_x and xp once), cuBLAS's `addmm` alone and `addmm` with
+    the time-major copy it replaces (the plain version); reslstm-1.0c's infer
+    call launches the projection 5 times, a second call with the same
+    weights no split of W_x, its train steps neither;
+
 Returns {"launches": {what: launches}, "rows": {kernel: the kernels-line
 row's measured fields}, "times": {what: ms}}. Run alone on a machine with a
 card: python3 tools/torch_lstm.py (records failures and goes on).
@@ -87,6 +98,7 @@ from deepxi_tpu_torch.training import (TrainState, frame_mask, make_optimizer,  
                                        make_train_step, masked_loss, save_checkpoint)
 
 KERNEL_TOL_REL = 1e-4   # a kernel against its plain version, of each output's scale
+PROJ_TOL_REL = 1e-6     # the projection against the float64 product, of its scale
 LIB_TOL_REL = 1e-4      # cuDNN against the kernels on all-valid frames, before it is timed
 LIVE_TOL = 1e-6         # a bundle against the live enhancer
 NET_TOL_REL = 1e-4      # the network output on the kernel against the plain loop
@@ -207,6 +219,58 @@ def _check_kernels(B, T, dev, fail, card, errs):
                  f"kernel_plan's route is {'tensor cores' if tc else 'FMAs'}")
 
 
+def proj_checks(dev, fail, card):
+    """The input projection against the float64 product at the LSTM shapes
+    (and 111 rows), then timed at KERNEL_SHAPES' first and third and the
+    offline batch beside its bound, `addmm` alone and the plain version;
+    the kernels-line row."""
+    row, errs = {}, []
+    for B, T in ((1, 250), (8, 256), (96, 626), (3, 37)):
+        gen = torch.Generator().manual_seed(B + T)
+        x = torch.randn(B, T, H, generator=gen)
+        w_x = [torch.randn(H, H, generator=gen) * H ** -0.5 for _ in range(4)]
+        b = torch.randn(4 * H, generator=gen)
+        ref = lstm.lstm_input_proj_plain(x.double(), [w.double() for w in w_x], b.double())
+        x, w_x, b = x.to(dev), [w.to(dev) for w in w_x], b.to(dev)
+        with torch.no_grad():
+            lstm.lstm_input_proj.launches = lstm.lstm_input_proj.split_launches = 0
+            xp = lstm.lstm_input_proj(x, w_x, b)
+            same = torch.equal(xp, lstm.lstm_input_proj(x, w_x, b))
+            err = ((xp.double().cpu() - ref).abs().max() / ref.abs().max()).item()
+            lib_err = ((lstm.lstm_input_proj_plain(x, w_x, b).double().cpu() - ref).abs().max()
+                       / ref.abs().max()).item()
+            errs.append(err)
+            calls = (lstm.lstm_input_proj.launches, lstm.lstm_input_proj.split_launches)
+            print(f"[3o] input projection B={B} T={T} C={H} 4H={4 * H}: {err:.3e} of the "
+                  f"scale from float64 (tol {PROJ_TOL_REL:.0e}; cuBLAS f32 {lib_err:.3e}); a "
+                  f"second call {'bitwise' if same else 'DIFFERS'}; two calls launch the "
+                  f"product {calls[0]} times, W_x's split {calls[1]}; {card}")
+            if err > PROJ_TOL_REL or not same or calls != (2, 1):
+                fail(f"[3o] the input projection at B={B} T={T} ({err:.3e}, bitwise {same}, "
+                     f"launches {calls})")
+            if (B, T) == (3, 37):
+                continue
+            flops = 2.0 * B * T * H * 4 * H
+            t_ops = flops / PEAK_TC_FLOPS
+            t_bytes = 4.0 * (B * T * H + 4 * H * H + 4 * H + B * T * 4 * H) / PEAK_BYTES
+            times = dict(
+                ms=_cuda_ms(lambda: lstm.lstm_input_proj(x, w_x, b), 20),  # noqa: B023
+                plain_ms=_cuda_ms(lambda: lstm.lstm_input_proj_plain(x, w_x, b), 20),  # noqa: B023
+                library_ms=_cuda_ms(lambda: torch.addmm(  # noqa: B023
+                    b, x.reshape(B * T, -1), torch.cat(w_x, 1)), 20),  # noqa: B023
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                shape={"B": B, "T": T, "C": H, "N": 4 * H})
+        print(f"[3o] input projection B={B} T={T}: kernel {times['ms']:.4f} ms "
+              f"({flops / times['ms'] / 1e9:.1f} TFLOP/s), addmm and the copy "
+              f"{times['plain_ms']:.4f}, addmm alone {times['library_ms']:.4f}, bound "
+              f"{times['bound_ms']:.4f} ({times['bound_by']} at 165 TFLOP/s or 3.35 TB/s, "
+              f"{times['bound_ms'] / times['ms']:.1%}); {card}")
+        row.update(times if (B, T) == (1, 250) else {f"at_b{B}_t{T}": times})
+    row["max_abs_err"] = max(errs)
+    return row
+
+
 def _time_kernels(B, T, dev, fail, card):
     """Each kernel timed beside its bound, its plain version and cuDNN (the
     same function where all frames are valid, checked first)."""
@@ -267,6 +331,7 @@ def kernel_checks(dev, fail, card):
             rows[name].update(times if (B, T) == KERNEL_SHAPES[0] else {f"at_b{B}_t{T}": times})
     for name, row in rows.items():
         row["max_abs_err"] = max(errs[name])
+    rows["lstm_input_proj"] = proj_checks(dev, fail, card)
     return rows
 
 
@@ -302,22 +367,24 @@ def _setup(name, tmp, dev):
 
 
 def _counted(fn):
-    """fn()'s result and the forward and backward kernels' launches in it,
-    zeroed just before it."""
+    """fn()'s result and the forward and backward kernels' launches and the
+    projection's calls in it, zeroed just before it."""
     lstm.masked_lstm.launches = lstm.masked_lstm_backward.launches = 0
+    lstm.lstm_input_proj.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, (lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches)
+    return out, (lstm.masked_lstm.launches, lstm.masked_lstm_backward.launches,
+                 lstm.lstm_input_proj.launches)
 
 
 @contextlib.contextmanager
 def _plain_loop():
-    """MaskedLSTM's op swapped for the plain loop."""
-    rnn.masked_lstm = lstm.masked_lstm_plain
+    """MaskedLSTM's ops swapped for the plain loop and the plain product."""
+    rnn.masked_lstm, rnn.lstm_input_proj = lstm.masked_lstm_plain, lstm.lstm_input_proj_plain
     try:
         yield
     finally:
-        rnn.masked_lstm = lstm.masked_lstm
+        rnn.masked_lstm, rnn.lstm_input_proj = lstm.masked_lstm, lstm.lstm_input_proj
 
 
 def _train_batch(dev):
@@ -353,7 +420,7 @@ def train_checks(name, dx, params, dev, fail, card, launches, times):
             losses.append(float(m["loss"]))
         return losses
 
-    losses, (n_fwd, n_bwd) = _counted(three_steps)
+    losses, (n_fwd, n_bwd, n_proj) = _counted(three_steps)
     n_dir = cfg.n_blocks * (2 if "Bi" in cfg.network_type else 1)
     state = TrainState.create(dict(params), tx)
     t_k = _host_ms(lambda: step(state, s, d, s_len, d_len, snr, offsets=offs), dev)  # noqa: B023
@@ -380,6 +447,9 @@ def train_checks(name, dx, params, dev, fail, card, launches, times):
     lo, hi = PREDICTED_STEP_MS[name]
     launches[f"{name} train, 3 steps B={TRAIN_B} x 4.096 s"] = n_fwd
     launches[f"{name} train, 3 steps B={TRAIN_B} x 4.096 s, backward"] = n_bwd
+    launches[f"{name} train, 3 steps B={TRAIN_B} x 4.096 s, projection"] = n_proj
+    if n_proj:
+        fail(f"[3o] {name}: the train steps called the inference projection {n_proj} times")
     times.update({f"{name} train step B={TRAIN_B} x 4.096 s": t_step,
                   f"{name} train step B={TRAIN_B} x 4.096 s, plain loop": t_p})
     print(f"[3o] {name}: 3 train steps at B={TRAIN_B} x 4.096 s on one batch through the "
@@ -417,19 +487,20 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
                       for i in range(SERVE_ROWS)])
         server = load_server(out)
         with torch.no_grad():
-            y, (calls, _) = _counted(lambda: server(x))  # noqa: B023
+            y, (calls, _, proj) = _counted(lambda: server(x))  # noqa: B023
             xp = np.zeros((manifest["batch"], SERVE_BUCKET), np.int16)
             xp[:SERVE_ROWS, :x.shape[1]] = x
             y_live = dx.fast_enhancer("mmse-lsa")(params, xp).cpu().numpy()[:SERVE_ROWS,
                                                                            :y.shape[1]]
         err = np.abs(y - y_live).max()
         launches[f"{name} server call"] = calls
+        launches[f"{name} server call, projection"] = proj
         print(f"[3o] {name}: --export 1 wrote {len(manifest['buckets'])} buckets at batch "
               f"{manifest['batch']} in {t_export:.1f} s, {n_ops} masked_lstm calls in the "
               f"L={SERVE_BUCKET} program (want {want_ops}); {SERVE_ROWS} rows served: "
               f"{calls} kernel launches; against the live enhancer {err:.3e} (tol "
               f"{LIVE_TOL:.0e}); {card}")
-        if (n_ops != want_ops or calls != want_ops or err > LIVE_TOL
+        if (n_ops != want_ops or calls != want_ops or proj != want_ops or err > LIVE_TOL
                 or not np.isfinite(y).all() or np.abs(y).max() < 1e-4):
             fail(f"[3o] {name}: the bundle (ops {n_ops}, calls {calls}, error {err:.3e})")
 
@@ -437,7 +508,11 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
         # and on the plain loop; then make_enhancer
         x1 = dx._padded(noisy, len(noisy))
         est = dx.estimator()
-        (y_k, _), (calls, _) = _counted(lambda: est(params, x1))  # noqa: B023
+        split0 = lstm.lstm_input_proj.split_launches
+        (y_k, _), (calls, _, proj) = _counted(lambda: est(params, x1))  # noqa: B023
+        split = lstm.lstm_input_proj.split_launches - split0
+        again = _counted(lambda: est(params, x1))[1][2]  # noqa: B023
+        split_again = lstm.lstm_input_proj.split_launches - split0 - split
         enh = make_enhancer(dx.inp_tgt, dx.network, "mmse-lsa", device=dev)
         t_est = _host_ms(lambda: est(params, x1), dev)  # noqa: B023
         t_enh = _host_ms(lambda: enh(params, noisy[None]), dev)  # noqa: B023
@@ -447,6 +522,8 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
             t_enh_p = _host_ms(lambda: enh(params, noisy[None]), dev)  # noqa: B023
         rel = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
         launches[f"{name} infer xi_hat, B=1 x 4 s"] = calls
+        launches[f"{name} infer xi_hat, B=1 x 4 s, projection"] = proj
+        launches[f"{name} infer xi_hat, B=1 x 4 s, projection's split"] = split
         times.update({f"{name} estimator B=1 x 4 s": t_est,
                       f"{name} estimator B=1 x 4 s, plain loop": t_est_p,
                       f"{name} make_enhancer B=1 x 4 s": t_enh,
@@ -457,8 +534,12 @@ def bundles_and_times(dev, fail, card, tmp, launches, times):
               f"on the plain loop, within {rel:.2e} of its "
               f"scale (tol {NET_TOL_REL:.0e}); make_enhancer {t_enh:.2f} ms (predicted "
               f"{lo:g}-{hi:g}), plain loop {t_enh_p:.2f} ms; {card}")
-        if rel > NET_TOL_REL or calls != want_ops:
-            fail(f"[3o] {name}: the kernel's network output ({rel:.3e}, {calls} calls)")
+        print(f"[3o] {name} B=1 x 4 s: the projection's launches {proj} (W_x's split {split}) "
+              f"on the first call, {again} ({split_again}) on the second")
+        if (rel > NET_TOL_REL or calls != want_ops or proj != want_ops
+                or (again, split_again) != (want_ops, 0)):
+            fail(f"[3o] {name}: the kernel's network output ({rel:.3e}, {calls} calls, "
+                 f"{proj} projection launches, {split} splits; then {again}, {split_again})")
         del dx, server, est, enh
 
 
@@ -543,7 +624,7 @@ def artifact_flow(dev, fail, card, tmp, times):
     d_list = batch_list(dirs[1], "noise", cfg.data_path)
     dx = DeepXiTorch(cfg, s_list, d_list, device=dev)
     t0 = time.perf_counter()
-    losses, (n_fwd, n_bwd) = _counted(lambda: dx.train(verbose=False))
+    losses, (n_fwd, n_bwd, _) = _counted(lambda: dx.train(verbose=False))
     t_train = time.perf_counter() - t0
     print(f"[3o] reslstm-1.0c: 3 train steps at B=4 x 4.096 s in {t_train:.1f} s (forward "
           f"kernel {n_fwd}, backward kernel {n_bwd} launches), losses {losses}; {card}")
