@@ -819,7 +819,8 @@ def main():
     # rows and the d = 16 reach do not fit beside the weights, so every
     # shape takes the 16-row tile.
     w = tcn_fused.random_block_weights(20, gen, dev)
-    pack2_rows = tcn_fused._lib(256, 64, 3).tcn_max_window_rows(0)
+    pack2_rows = _build.load(*tcn_fused.build_spec("tcn_fused", 256, 64, 3)) \
+        .tcn_max_window_rows(0)
     for B, T in ((3, 250), (3, 1024), (4, 250), (4, 1024), (96, 625)):
         x = torch.relu(torch.randn(B, T, 256, generator=gen)).to(dev)
         for ln in tcn_fused.PACK2_LN_MODES:

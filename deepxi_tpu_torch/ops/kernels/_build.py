@@ -9,6 +9,11 @@ constants, the widths as preprocessor defines: `("tcn_fused", {"TCN_C": 32,
 `csrc/*.cuh`, the defines and the flags, so an edited source never loads a
 stale library and every set of widths has its own. `build/` is listed in
 `.gitignore`. Only sources in the repository are built.
+
+`load` hands back the library with every entry point of `ENTRY_POINTS`
+typed for ctypes, and `check` raises on a launch's return code with the
+text of `deepxi_error_string`, which every library exports
+(`csrc/deepxi_error.cuh`): binding a kernel is one entry in the table.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 from deepxi_tpu_torch.utils.profiling import annotate
 
@@ -32,7 +37,61 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 Spec = Union[str, Tuple[str, Mapping[str, int]]]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(_I)
+
+# What each csrc/<name>.cu exports, as (restype, argtypes): the C signatures
+# in ctypes' words. An entry point that a build leaves out (masked_lstm_phases
+# outside LSTM_PHASES builds) stays untyped there.
+ENTRY_POINTS: Dict[str, Dict[str, Tuple[type, List[type]]]] = {
+    "lstm": {
+        "masked_lstm_grid": (_I, [_I] * 4 + [_IP] * 2),
+        "masked_lstm_forward": (_I, [_P] * 6 + [_I] * 7 + [_P, _IP]),
+        "masked_lstm_backward_scratch": (_LL, [_I] * 5),
+        "masked_lstm_backward": (_I, [_P] * 7 + [_I] * 7 + [_P]),
+        "masked_lstm_phases": (_I, [_P]),
+        "masked_lstm_plan": (_I, [_I] * 6 + [_IP] * 3 + [ctypes.POINTER(_LL)]),
+    },
+    "lstm_input_proj": {
+        "lstm_input_proj_split": (_I, [_P] * 5 + [_I] * 2 + [_P]),
+        "lstm_input_proj_forward": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+        "lstm_input_proj_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    },
+    "mha_attention": {
+        "mha_attention_forward": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+    },
+    "mha_block_fused": {
+        "mha_block_grid": (_I, [_I, _I, _IP]),
+        "mha_block_forward": (_I, [_P] * 19 + [_I] * 3 + [ctypes.c_float, _P]),
+    },
+    "mha_cache": {
+        "mha_cache_forward": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    },
+    "spectral": {
+        "stft_mag_forward": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+        "enhance_frames_forward": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    },
+    "tcn_fused": {
+        "tcn_max_window_rows": (_I, [_I]),
+        "tcn_block_floats": (_I, []),
+        "tcn_block_forward": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+        "tcn_block_forward_pack2": (_I, [_P] * 3 + [_I] * 5 + [_P]),
+        "tcn_group_forward": (_I, [_P] * 3 + [_IP] + [_I] * 5 + [_P]),
+    },
+    "tcn_fused_train": {
+        "tcn_train_block_floats": (_I, []),
+        "tcn_train_block_t_floats": (_I, []),
+        "tcn_train_wgrad_tiles": (_I, []),
+        "tcn_train_max_window_rows": (_I, [_I]),
+        "tcn_group_backward": (_I, [ctypes.POINTER(_P)] + [_P] * 5 + [_IP] + [_I] * 5
+                               + [_P] * 10 + [_IP]),
+    },
+}
+# every library's decoder of its return codes (csrc/deepxi_error.cuh)
+_DECODER = {"deepxi_error_string": (ctypes.c_char_p, [_I])}
+
+# the typed libraries, by `load`'s arguments
+_LIBS: Dict[Union[str, tuple], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -120,11 +179,25 @@ def build(specs: Iterable[Spec]) -> Dict[str, float]:
 
 def load(name: str, defines: Optional[Mapping[str, int]] = None) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu` with `defines`, building it on
-    first use."""
-    spec: Spec = (name, defines) if defines else name
-    key = tag(spec)
-    if key not in _LIBS:
+    first use, every entry point it has typed. A hit is one lookup."""
+    key = (name, *defines.items()) if defines else name
+    lib = _LIBS.get(key)
+    if lib is None:
+        spec: Spec = (name, defines) if defines else name
         with annotate("deepxi.kernels.build"):
             build([spec])
-            _LIBS[key] = ctypes.CDLL(library_path(spec))
-    return _LIBS[key]
+            lib = ctypes.CDLL(library_path(spec))
+        for fn_name, (restype, argtypes) in {**_DECODER, **ENTRY_POINTS[name]}.items():
+            fn = getattr(lib, fn_name, None)
+            if fn is not None:
+                fn.restype, fn.argtypes = restype, argtypes
+        _LIBS[key] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise RuntimeError unless `rc`, what an entry point of `lib` returned,
+    is 0: naming `what`, the code and its text."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: error {rc} "
+                           f"({lib.deepxi_error_string(rc).decode()})")

@@ -146,6 +146,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "deepxi_error.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace cg = cooperative_groups;
@@ -1175,10 +1176,6 @@ int backward_typed(const void* dys, const void* gates, const void* cs, const voi
 }  // namespace
 
 extern "C" {
-
-const char* masked_lstm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // The grid the kernels take at (B, H) on the current device: U hidden units a
 // CTA and R row groups (the grid is ceil(H / U) x R). Returns 0 when no grid

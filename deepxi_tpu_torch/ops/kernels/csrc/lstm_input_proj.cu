@@ -50,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "deepxi_error.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -427,9 +428,6 @@ EncodeTiled encoder() {
   return fn;
 }
 
-constexpr int ENCODER_MISSING = 10000;  // error codes past CUDA's own
-constexpr int ENCODE_FAILED = 10001;
-
 // A map of an f32 tensor of `rank` dims (innermost first, innermost packed)
 // read in boxes of `box` with 128-byte swizzle, zeros past its edges.
 int encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
@@ -473,12 +471,6 @@ int launch(const void* x, const void* w_split, const void* bias, void* xp, int B
 }  // namespace
 
 extern "C" {
-
-const char* lstm_input_proj_error_string(int code) {
-  if (code == ENCODER_MISSING) return "libcuda has no cuTensorMapEncodeTiled";
-  if (code == ENCODE_FAILED) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // w_split [2][4H][K] (int32 bits, 16-byte aligned) = the gate kernels w_i,
 // w_f, w_g, w_o [K, H] (float32) side by side, K-major, in TF32 hi and lo:

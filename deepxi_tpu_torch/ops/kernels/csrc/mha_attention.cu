@@ -26,13 +26,10 @@
 //
 // valid is the caller's bool tensor, read as bytes: no conversion launch.
 
+#include "deepxi_error.cuh"
 #include "mha_common.cuh"
 
 extern "C" {
-
-const char* mha_attention_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // out[b, t, h, :] = softmax-weighted values for q, k, v [B, T, NH, DK] and
 // valid [B, T] (bool, one byte each). skip_bq = 0: every invalid row visits n_keys keys

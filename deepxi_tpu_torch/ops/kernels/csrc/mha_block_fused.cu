@@ -61,6 +61,7 @@
 
 #include <cooperative_groups.h>
 
+#include "deepxi_error.cuh"
 #include "mha_common.cuh"
 
 namespace {
@@ -561,10 +562,6 @@ cudaError_t launch_post(const float* x, const float* o, const PostWeights& w,
 }  // namespace
 
 extern "C" {
-
-const char* mha_block_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // The launch shapes mha_block_forward takes for B x T rows, into out[5]:
 // rows a CTA and CTAs of the projections, rows a slab, cluster size and

@@ -59,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "deepxi_error.cuh"
+
 namespace {
 
 #if !defined(MHA_NH) || !defined(MHA_DK)
@@ -421,15 +423,6 @@ int launch(const void* q, const void* k, const void* v, const void* clock, void*
 }  // namespace
 
 extern "C" {
-
-const char* mha_cache_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-// Keys a stage holds for this build's widths (bf16 != 0: bfloat16 caches).
-int mha_cache_tile_keys(int bf16) {
-  return bf16 ? Tile<__nv_bfloat16>::TK : Tile<float>::TK;
-}
 
 // out [B, NH, DK] f32 for q [B, NH, DK] f32, caches k, v [B, L, NH, DK]
 // (bf16 != 0: bfloat16, else float32) and the clock, a device int32. S key

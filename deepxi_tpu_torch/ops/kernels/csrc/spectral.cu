@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "deepxi_error.cuh"
+
 namespace {
 
 constexpr int MAX_POINTS = 2048;  // complex points (F frames x M) a CTA holds
@@ -361,10 +363,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }  // namespace
 
 extern "C" {
-
-const char* spectral_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // out [B, T, K/2+1] = |rfft_K(hamming(N_d) frame)| of x2d [B, T+1, N_s],
 // N_d = 2 N_s, F frames a CTA; win [N_d], tw [K/2+1] complex. Returns 0 or

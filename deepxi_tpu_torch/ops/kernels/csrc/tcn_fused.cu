@@ -48,6 +48,7 @@
 // ONE_PASS), as the JAX ln_mode says; the LN of h stays two-pass in both. An
 // odd B gives the last CTA a zero second row, computed and never written.
 
+#include "deepxi_error.cuh"
 #include "tcn_common.cuh"
 
 namespace {
@@ -211,10 +212,6 @@ int tcn_max_window_rows(int device) {
 }
 
 int tcn_block_floats() { return BLOCK_FLOATS; }
-
-const char* tcn_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // One bottleneck block over x [B, T, C] -> y (not in place): w points at
 // the block's packed weights, d is its dilation; halo = 2d.

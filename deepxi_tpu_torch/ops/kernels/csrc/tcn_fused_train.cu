@@ -52,6 +52,7 @@
 // the 165 TFLOP/s of f32-accurate tensor-core products (three dense TF32
 // products, 495 TFLOP/s, for one).
 
+#include "deepxi_error.cuh"
 #include "tcn_common.cuh"
 
 namespace {
@@ -550,10 +551,6 @@ int tcn_train_max_window_rows(int device) {
     return -1;
   return (optin - (int)(SMEM_W_FLOATS * sizeof(float))) /
          (int)(ACT_ROW_FLOATS * sizeof(float));
-}
-
-const char* tcn_train_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 // Backward of a group of G blocks, in reverse, three launches a block on

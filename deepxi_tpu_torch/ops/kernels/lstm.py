@@ -55,14 +55,14 @@ of its transposed view. Under autograd `models/rnn.py` takes
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.weak import WeakIdKeyDictionary
 
-from deepxi_tpu_torch.ops.kernels import kernel_op, launch_context, raw_stream, records_grad
+from deepxi_tpu_torch.ops.kernels import (_build, kernel_op, launch_context, raw_stream,
+                                          records_grad)
 
 DTYPES = (torch.float32, torch.float64)
 MAX_H = 1024
@@ -175,29 +175,9 @@ def _check(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor) -> None:
         raise ValueError("xp, w_h and mask must be on one device")
 
 
-@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from deepxi_tpu_torch.ops.kernels import _build
-    return bind(_build.load("lstm"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """`lib`'s entry points typed for ctypes (a build of csrc/lstm.cu)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.masked_lstm_error_string.argtypes = [i]
-    lib.masked_lstm_error_string.restype = ctypes.c_char_p
-    lib.masked_lstm_forward.argtypes = [p] * 6 + [i] * 7 + [p, ctypes.POINTER(i)]
-    lib.masked_lstm_backward.argtypes = [p] * 7 + [i] * 7 + [p]
-    for fn in (lib.masked_lstm_forward, lib.masked_lstm_backward):
-        fn.restype = i
-    lib.masked_lstm_backward_scratch.argtypes = [i] * 5
-    lib.masked_lstm_backward_scratch.restype = ctypes.c_longlong
-    lib.masked_lstm_grid.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
-    lib.masked_lstm_grid.restype = i
-    lib.masked_lstm_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3 + [
-        ctypes.POINTER(ctypes.c_longlong)]
-    lib.masked_lstm_plan.restype = i
-    return lib
+    """csrc/lstm.cu's library (a test or a tool puts a build variant here)."""
+    return _build.load("lstm")
 
 
 def grid(backward: bool, B: int, H: int, dtype: torch.dtype) -> Tuple[int, int]:
@@ -230,12 +210,9 @@ def kernel_plan(backward: bool, B: int, H: int, dtype: torch.dtype = torch.float
             "smem": smem.value}
 
 
-def _raise(rc: int, what: str, shape) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed at [T, B, H] = {list(shape)}: CUDA error {rc} "
-                           f"({_lib().masked_lstm_error_string(rc).decode()}); a grid that "
-                           f"cannot be resident at once, or per-unit state of B rows past "
-                           f"shared memory, is refused, never run")
+# what a failed launch's message adds to its shape
+_REFUSED = ("(a grid that cannot be resident at once, or per-unit state of B rows past "
+            "shared memory, is refused, never run)")
 
 
 def _forward_cuda(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor, reverse: bool,
@@ -248,13 +225,14 @@ def _forward_cuda(xp: torch.Tensor, w_h: torch.Tensor, mask: torch.Tensor, rever
     gates = xp.new_empty(T, B, 4 * H) if save else None
     cs = xp.new_empty(T, B, H) if save else None
     tc = ctypes.c_int()
+    lib = _lib()
     with launch_context(xp.device):
-        rc = _lib().masked_lstm_forward(
+        rc = lib.masked_lstm_forward(
             xp.data_ptr(), w_h.data_ptr(), mask.data_ptr(), ys.data_ptr(),
             gates.data_ptr() if save else None, cs.data_ptr() if save else None,
             T, B, H, *grid(False, B, H, xp.dtype), int(reverse), int(xp.dtype == torch.float64),
             raw_stream(xp.device), ctypes.byref(tc))
-    _raise(rc, "masked_lstm_forward", (T, B, H))
+    _build.check(lib, rc, f"masked_lstm_forward at [T, B, H] = {[T, B, H]} {_REFUSED}")
     masked_lstm.launches += 1
     masked_lstm.tensor_core_launches += tc.value
     return (ys, gates, cs) if save else ys
@@ -299,16 +277,17 @@ def masked_lstm_backward(dys: torch.Tensor, gates: torch.Tensor, cs: torch.Tenso
     dxp = gates.new_empty(T, B, 4 * H)
     f64 = int(dys.dtype == torch.float64)
     U, R = grid(True, B, H, dys.dtype)
+    lib = _lib()
     # the row groups' barrier counters and partial sums: this call's own
-    scratch = torch.empty(_lib().masked_lstm_backward_scratch(B, H, U, R, f64),
+    scratch = torch.empty(lib.masked_lstm_backward_scratch(B, H, U, R, f64),
                           dtype=torch.uint8, device=dys.device)
     mask32 = mask.contiguous().to(torch.int32)  # a word a row, copied by cp.async
     with launch_context(dys.device):
-        rc = _lib().masked_lstm_backward(
+        rc = lib.masked_lstm_backward(
             dys.data_ptr(), gates.data_ptr(), cs.data_ptr(), w_h.data_ptr(), mask32.data_ptr(),
             dxp.data_ptr(), scratch.data_ptr(), T, B, H, U, R, int(reverse), f64,
             raw_stream(dys.device))
-    _raise(rc, "masked_lstm_backward", (T, B, H))
+    _build.check(lib, rc, f"masked_lstm_backward at [T, B, H] = {[T, B, H]} {_REFUSED}")
     masked_lstm_backward.launches += 1
     return dxp
 
@@ -375,27 +354,6 @@ def _check_proj(x: torch.Tensor, w_x: List[torch.Tensor], b: torch.Tensor) -> No
             f"{tuple(x.shape)} {x.dtype}, {[tuple(w.shape) for w in w_x]}, {tuple(b.shape)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _proj_lib() -> ctypes.CDLL:
-    from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("lstm_input_proj")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_input_proj_error_string.argtypes = [i]
-    lib.lstm_input_proj_error_string.restype = ctypes.c_char_p
-    lib.lstm_input_proj_split.argtypes = [p] * 5 + [i] * 2 + [p]
-    lib.lstm_input_proj_forward.argtypes = [p] * 4 + [i] * 4 + [p]
-    lib.lstm_input_proj_f64.argtypes = [p] * 7 + [i] * 4 + [p]
-    for f in (lib.lstm_input_proj_split, lib.lstm_input_proj_forward, lib.lstm_input_proj_f64):
-        f.restype = i
-    return lib
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"lstm_input_proj failed {what}: error {rc} "
-                           f"({_proj_lib().lstm_input_proj_error_string(rc).decode()})")
-
-
 # the first gate kernel of each W_x kept split -> (what it was split from, the split)
 _SPLITS = WeakIdKeyDictionary()
 
@@ -424,7 +382,7 @@ def _lstm_input_proj_cuda(x: torch.Tensor, w_x: List[torch.Tensor],
     if B * T == 0:
         return xp
     x, b, w_x = x.contiguous(), b.contiguous(), [w.contiguous() for w in w_x]
-    lib = _proj_lib()
+    lib = _build.load("lstm_input_proj")
     with launch_context(x.device):
         stream = raw_stream(x.device)
         if x.dtype == torch.float64:
@@ -433,9 +391,9 @@ def _lstm_input_proj_cuda(x: torch.Tensor, w_x: List[torch.Tensor],
         else:
             def split():
                 w_split = torch.empty(2, 4 * H, C, dtype=torch.int32, device=x.device)
-                _raise_on(lib.lstm_input_proj_split(*(w.data_ptr() for w in w_x),
-                                                    w_split.data_ptr(), C, H, stream),
-                          f"splitting W_x [{C}, {4 * H}]")
+                _build.check(lib, lib.lstm_input_proj_split(*(w.data_ptr() for w in w_x),
+                                                            w_split.data_ptr(), C, H, stream),
+                             f"lstm_input_proj splitting W_x [{C}, {4 * H}]")
                 lstm_input_proj.split_launches += 1
                 return w_split
 
@@ -445,7 +403,7 @@ def _lstm_input_proj_cuda(x: torch.Tensor, w_x: List[torch.Tensor],
                 else _kept_split(w_x, stream, split)
             rc = lib.lstm_input_proj_forward(x.data_ptr(), w_split.data_ptr(), b.data_ptr(),
                                              xp.data_ptr(), B, T, C, 4 * H, stream)
-    _raise_on(rc, f"at [B, T, C, 4H] = {[B, T, C, 4 * H]}")
+    _build.check(lib, rc, f"lstm_input_proj at [B, T, C, 4H] = {[B, T, C, 4 * H]}")
     lstm_input_proj.launches += 1
     return xp
 

@@ -42,8 +42,8 @@ from deepxi_tpu_torch.models.attention import (MHANetV2, MHANetV3,
                                                layer_norm_two_pass,
                                                sequence_valid_mask)
 from deepxi_tpu_torch.models.tcn import output_activation
-from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
-                                          refuse_autograd)
+from deepxi_tpu_torch.ops.kernels import (_build, kernel_op, launch_context,
+                                          raw_stream, refuse_autograd)
 from deepxi_tpu_torch.ops.kernels import mha_fused
 from deepxi_tpu_torch.ops.kernels.mha_fused import (KERNEL_HEADS,
                                                     masked_softmax_attention)
@@ -146,20 +146,6 @@ def build_spec(n_heads: int, head_dim: int, d_ff: int):
                                "MHA_DFF": d_ff}
 
 
-@functools.lru_cache(maxsize=None)
-def _lib(n_heads: int, head_dim: int, d_ff: int) -> ctypes.CDLL:
-    from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load(*build_spec(n_heads, head_dim, d_ff))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mha_block_error_string.argtypes = [i]
-    lib.mha_block_error_string.restype = ctypes.c_char_p
-    lib.mha_block_forward.argtypes = [p] * 19 + [i, i, i, ctypes.c_float, p]
-    lib.mha_block_forward.restype = i
-    lib.mha_block_grid.argtypes = [i, i, ctypes.POINTER(i)]
-    lib.mha_block_grid.restype = i
-    return lib
-
-
 def block_grid(B: int, T: int, n_heads: int = KERNEL_HEADS,
                head_dim: int = KERNEL_D_MODEL // KERNEL_HEADS,
                d_ff: int = KERNEL_D_FF) -> Dict[str, int]:
@@ -167,7 +153,7 @@ def block_grid(B: int, T: int, n_heads: int = KERNEL_HEADS,
     current card: rows a CTA and CTAs of the projection kernel, rows a slab,
     cluster size and CTAs of the post kernel (output projection, LN1, FFN,
     LN2)."""
-    lib = _lib(n_heads, head_dim, d_ff)
+    lib = _build.load(*build_spec(n_heads, head_dim, d_ff))
     out = (ctypes.c_int * 5)()
     rc = lib.mha_block_grid(B, T, out)
     if rc != 0:
@@ -183,16 +169,14 @@ def _block_cuda(x: torch.Tensor, validf: torch.Tensor, weights: List[torch.Tenso
     B, T, _ = x.shape
     vf = validf.to(torch.float32).contiguous()
     q, k, v, o, out = (torch.empty_like(x) for _ in range(5))
-    lib = _lib(H, dk, F)
+    lib = _build.load(*build_spec(H, dk, F))
     with launch_context(x.device):
         rc = lib.mha_block_forward(
             x.data_ptr(), vf.data_ptr(), *(t.data_ptr() for t in bw),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             out.data_ptr(), B, T, int(causal), float(dk) ** -0.5,
             raw_stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"mha_block_forward failed: CUDA error {rc} "
-                           f"({lib.mha_block_error_string(rc).decode()})")
+    _build.check(lib, rc, "mha_block_forward")
     fused_transformer_block.launches += 1
     return out
 

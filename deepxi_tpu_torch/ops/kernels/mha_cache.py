@@ -44,14 +44,11 @@ input requires grad.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
-from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
-                                          refuse_autograd)
+from deepxi_tpu_torch.ops.kernels import (_build, kernel_op, launch_context,
+                                          raw_stream, refuse_autograd)
 from deepxi_tpu_torch.ops.kernels.mha_fused import head_defines, kernel_takes
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
@@ -113,18 +110,6 @@ def split_keys(S: int, L: int, t: int):
             for s in range(S)]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib(n_heads: int, head_dim: int) -> ctypes.CDLL:
-    from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("mha_cache", head_defines(n_heads, head_dim))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mha_cache_error_string.argtypes = [i]
-    lib.mha_cache_error_string.restype = ctypes.c_char_p
-    lib.mha_cache_forward.argtypes = [p] * 7 + [i] * 4 + [p]
-    lib.mha_cache_forward.restype = i
-    return lib
-
-
 _COUNTERS = {}
 
 
@@ -149,15 +134,13 @@ def _step_cuda(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     part, counters = ((torch.empty(B, S, H, d + 2, device=q.device),
                        _counters(q.device, B)) if S > 1 else (None, None))
     out = torch.empty_like(q)
-    lib = _lib(H, d)
+    lib = _build.load("mha_cache", head_defines(H, d))
     with launch_context(q.device):
         rc = lib.mha_cache_forward(
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(), t.data_ptr(), out.data_ptr(),
             *(x if x is None else x.data_ptr() for x in (part, counters)), B, L, S,
             int(kc.dtype == torch.bfloat16), raw_stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"mha_cache_forward failed: CUDA error {rc} "
-                           f"({lib.mha_cache_error_string(rc).decode()})")
+    _build.check(lib, rc, "mha_cache_forward")
     mha_cache_step.launches += 1
     return out
 

@@ -26,14 +26,11 @@ input requires grad.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from deepxi_tpu_torch.models.attention import NEG_INF_V2
-from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
-                                          refuse_autograd)
+from deepxi_tpu_torch.ops.kernels import (_build, kernel_op, launch_context,
+                                          raw_stream, refuse_autograd)
 
 # mhanet-1.1c's heads, the default of `mha_block_fused.random_block_weights`.
 KERNEL_HEADS = 8
@@ -89,18 +86,6 @@ def flash_attention_ref(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     return masked_softmax_attention(qp, kp2, vp2, valid, vk, causal)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib(n_heads: int, head_dim: int) -> ctypes.CDLL:
-    from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("mha_attention", head_defines(n_heads, head_dim))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mha_attention_error_string.argtypes = [i]
-    lib.mha_attention_error_string.restype = ctypes.c_char_p
-    lib.mha_attention_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.mha_attention_forward.restype = i
-    return lib
-
-
 def check_heads(*heads: torch.Tensor) -> None:
     """Raise on what the attention kernel does not take."""
     shape = heads[0].shape
@@ -127,15 +112,13 @@ def launch_attention(qp, kp, vp, valid, causal: bool, n_keys: int,
                          f"on {valid.device}")
     valid = valid.contiguous()
     out = torch.empty_like(qp)
-    lib = _lib(*qp.shape[2:])
+    lib = _build.load("mha_attention", head_defines(*qp.shape[2:]))
     with launch_context(qp.device):
         rc = lib.mha_attention_forward(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), valid.data_ptr(),
             out.data_ptr(), B, T, n_keys, int(causal), skip_bq, skip_bk,
             raw_stream(qp.device))
-    if rc != 0:
-        raise RuntimeError(f"mha_attention_forward failed: CUDA error {rc} "
-                           f"({lib.mha_attention_error_string(rc).decode()})")
+    _build.check(lib, rc, "mha_attention_forward")
     return out
 
 

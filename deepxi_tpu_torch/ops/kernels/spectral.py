@@ -31,14 +31,13 @@ launch, as the JAX package's `stft_mag` is always the product.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from deepxi_tpu_torch.ops.kernels import refuse_autograd
+from deepxi_tpu_torch.ops.kernels import _build, refuse_autograd
 from deepxi_tpu_torch.sig.stft import (_hamming_np, _synthesis_window_np,
                                        frame, overlap_and_add)
 
@@ -216,26 +215,6 @@ def _frames_per_cta(ctas, K: int, device: torch.device) -> int:
     return F
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from deepxi_tpu_torch.ops.kernels import _build
-    lib = _build.load("spectral")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.spectral_error_string.argtypes = [i]
-    lib.spectral_error_string.restype = ctypes.c_char_p
-    lib.stft_mag_forward.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    lib.stft_mag_forward.restype = i
-    lib.enhance_frames_forward.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.enhance_frames_forward.restype = i
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {rc} "
-                           f"({lib.spectral_error_string(rc).decode()})")
-
-
 def stft_mag_fused(x2d: torch.Tensor, N_d: int, K: int) -> torch.Tensor:
     """Magnitude spectrum [B, T, K/2+1] of hop rows x2d [B, T+1, N_s] with
     N_d = 2 N_s (`sig.stft.hop_rows` of a waveform): frame, window, real FFT
@@ -252,10 +231,10 @@ def stft_mag_fused(x2d: torch.Tensor, N_d: int, K: int) -> torch.Tensor:
     tw = _on_device("twiddles", (K,), x2d.device)
     _check_card([x2d, win, tw])
     out = torch.empty(B, T, K // 2 + 1, device=x2d.device)
-    lib = _lib()
+    lib = _build.load("spectral")
     F = _frames_per_cta(lambda F: B * -(-T // F), K, x2d.device)
     with torch.cuda.device(x2d.device):
-        _raise_on(lib, lib.stft_mag_forward(
+        _build.check(lib, lib.stft_mag_forward(
             x2d.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), B, T, N_s,
             K, F, torch.cuda.current_stream().cuda_stream), "stft_mag_forward")
     stft_mag_fused.launches += 1
@@ -284,10 +263,10 @@ def enhance_frames_fused(Y: torch.Tensor, G: torch.Tensor, N_d: int, N_s: int,
     tw = _on_device("twiddles", (K,), Y.device)
     _check_card([Y, G, wsyn, tw])
     out = torch.empty(B, T, N_d, device=Y.device)
-    lib = _lib()
+    lib = _build.load("spectral")
     F = _frames_per_cta(lambda F: -(-B * T // F), K, Y.device)
     with torch.cuda.device(Y.device):
-        _raise_on(lib, lib.enhance_frames_forward(
+        _build.check(lib, lib.enhance_frames_forward(
             Y.data_ptr(), G.data_ptr(), wsyn.data_ptr(), tw.data_ptr(), out.data_ptr(),
             B * T, N_d, K, F, torch.cuda.current_stream().cuda_stream),
             "enhance_frames_forward")

@@ -44,8 +44,8 @@ import torch
 
 from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
-from deepxi_tpu_torch.ops.kernels import (kernel_op, launch_context, raw_stream,
-                                          refuse_autograd)
+from deepxi_tpu_torch.ops.kernels import (_build, kernel_op, launch_context,
+                                          raw_stream, refuse_autograd)
 
 # resnet-1.1c's widths, the defaults of `random_block_weights`.
 KERNEL_D_MODEL, KERNEL_D_F, KERNEL_K = 256, 64, 3
@@ -230,32 +230,13 @@ def _check(x: torch.Tensor, weights: Sequence[BlockWeights],
 
 @functools.lru_cache(maxsize=None)
 def _lib(d_model: int, d_f: int, k: int) -> ctypes.CDLL:
-    """The kernels built for these widths, typed; checks that the C side
-    packs a block's weights as `_check` does."""
-    from deepxi_tpu_torch.ops.kernels import _build
+    """The kernels built for these widths; checks that the C side packs a
+    block's weights as `_check` does."""
     lib = _build.load(*build_spec("tcn_fused", d_model, d_f, k))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tcn_max_window_rows.argtypes, lib.tcn_max_window_rows.restype = [i], i
-    lib.tcn_block_floats.argtypes, lib.tcn_block_floats.restype = [], i
-    lib.tcn_error_string.argtypes = [i]
-    lib.tcn_error_string.restype = ctypes.c_char_p
-    lib.tcn_block_forward.argtypes = [p, p, p, i, i, i, i, p]
-    lib.tcn_block_forward.restype = i
-    lib.tcn_block_forward_pack2.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.tcn_block_forward_pack2.restype = i
-    lib.tcn_group_forward.argtypes = [p, p, p, ctypes.POINTER(i), i, i, i,
-                                      i, i, p]
-    lib.tcn_group_forward.restype = i
     C, F, K = d_model, d_f, k
     if lib.tcn_block_floats() != C * F + F + K * F * F + F + F * C + C:
         raise RuntimeError("csrc/tcn_fused.cu packs block weights differently")
     return lib
-
-
-def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {rc} "
-                           f"({lib.tcn_error_string(rc).decode()})")
 
 
 def _refuse_autograd(tensors, what: str) -> None:
@@ -305,7 +286,7 @@ def _whole_cuda(x: torch.Tensor, weights: List[torch.Tensor], dilations: List[in
         stream = raw_stream(x.device)
         for g, d in enumerate(dilations):
             dst = bufs[g % 2]
-            _raise_on(lib, lib.tcn_block_forward(
+            _build.check(lib, lib.tcn_block_forward(
                 src.data_ptr(), dst.data_ptr(), packed[g].data_ptr(), d, B, T,
                 tile, stream), "tcn_block_forward")
             fused_block_group_whole.launches += 1
@@ -359,7 +340,7 @@ def _pack2_cuda(x: torch.Tensor, weights: List[torch.Tensor], dilations: List[in
         stream = raw_stream(x.device)
         for g, d in enumerate(dilations):
             dst = bufs[g % 2]
-            _raise_on(lib, lib.tcn_block_forward_pack2(
+            _build.check(lib, lib.tcn_block_forward_pack2(
                 src.data_ptr(), dst.data_ptr(), packed[g].data_ptr(), d, B, T,
                 tile, int(ln_mode == "matmul"), stream), "tcn_block_forward_pack2")
             fused_block_group_whole_pack2.launches += 1
@@ -404,7 +385,7 @@ def _group_cuda(x: torch.Tensor, weights: List[torch.Tensor], dilations: List[in
             raise ValueError(f"window of tile_t {tile_t} + halo {halo} rows "
                              f"does not fit one CTA ({max_rows} rows); reduce "
                              "the group size or the tile")
-        _raise_on(lib, lib.tcn_group_forward(
+        _build.check(lib, lib.tcn_group_forward(
             x.data_ptr(), out.data_ptr(), packed.data_ptr(), dil, G, B, T,
             tile_t, halo, raw_stream(x.device)),
             "tcn_group_forward")

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from deepxi_tpu_torch.models.tcn import (cyclic_dilation, layer_norm,
                                          output_activation)
-from deepxi_tpu_torch.ops.kernels import launch_context, raw_stream, tcn_fused
+from deepxi_tpu_torch.ops.kernels import _build, launch_context, raw_stream, tcn_fused
 from deepxi_tpu_torch.ops.kernels.tcn_fused import BlockWeights, block_weights
 
 _EPS = 1e-6
@@ -182,24 +182,9 @@ def bwd_ref_up_to_ties(got, h0: torch.Tensor, dout: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _lib(d_model: int, d_f: int, k: int) -> ctypes.CDLL:
-    """The backward built for these widths, typed; checks that the C side
-    packs a block's weights (and their transposes) as the wrappers do."""
-    from deepxi_tpu_torch.ops.kernels import _build
+    """The backward built for these widths; checks that the C side packs a
+    block's weights (and their transposes) as the wrappers do."""
     lib = _build.load(*tcn_fused.build_spec("tcn_fused_train", d_model, d_f, k))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tcn_train_block_floats.argtypes, lib.tcn_train_block_floats.restype = [], i
-    lib.tcn_train_block_t_floats.argtypes = []
-    lib.tcn_train_block_t_floats.restype = i
-    lib.tcn_train_max_window_rows.argtypes = [i]
-    lib.tcn_train_max_window_rows.restype = i
-    lib.tcn_train_wgrad_tiles.argtypes, lib.tcn_train_wgrad_tiles.restype = [], i
-    lib.tcn_train_error_string.argtypes = [i]
-    lib.tcn_train_error_string.restype = ctypes.c_char_p
-    lib.tcn_group_backward.argtypes = [ctypes.POINTER(p), p, p, p, p, p,
-                                       ctypes.POINTER(i), i, i, i, i, i,
-                                       p, p, p, p, p, p, p, p, p, p,
-                                       ctypes.POINTER(i)]
-    lib.tcn_group_backward.restype = i
     C, F_, K = d_model, d_f, k
     if (lib.tcn_train_block_floats() != C * F_ + F_ + K * F_ * F_ + F_ + F_ * C + C
             or lib.tcn_train_block_t_floats() != 2 * C * F_ + K * F_ * F_):
@@ -223,7 +208,7 @@ def _saved_forward(x: torch.Tensor, packed: torch.Tensor,
         stream = raw_stream(x.device)
         for g, d in enumerate(dilations):
             dst = buf[g + 1] if g + 1 < G else out
-            tcn_fused._raise_on(lib, lib.tcn_block_forward(
+            _build.check(lib, lib.tcn_block_forward(
                 buf[g].data_ptr(), dst.data_ptr(), packed[g].data_ptr(), d, B,
                 T, tile, stream), "tcn_block_forward")
     return out, buf
@@ -325,9 +310,7 @@ def fused_block_group_bwd(h0: torch.Tensor, dout: torch.Tensor,
             du1s.data_ptr(), hst.data_ptr(), part.data_ptr(), counters.data_ptr(),
             dpacked.data_ptr(), raw_stream(h0.device), ctypes.byref(launched))
     fused_block_group_bwd.launches += launched.value
-    if rc != 0:
-        raise RuntimeError(f"tcn_group_backward failed: CUDA error {rc} "
-                           f"({lib.tcn_train_error_string(rc).decode()})")
+    _build.check(lib, rc, "tcn_group_backward")
     d = bufs[0]
     dws = []
     for g, bw in enumerate(weights):

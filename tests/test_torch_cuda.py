@@ -1299,7 +1299,7 @@ def test_masked_lstm_backward_tensor_core_route(cuda, monkeypatch, H, B):
     every batch row, both directions, with its A fragments in shared memory
     (the plan says so), and a second call bitwise."""
     from deepxi_tpu_torch.ops.kernels import _build, lstm
-    lib = lstm.bind(_build.load("lstm", {"LSTM_TC_ROWS": 1}))
+    lib = _build.load("lstm", {"LSTM_TC_ROWS": 1})
     monkeypatch.setattr(lstm, "_lib", lambda: lib)
     assert lstm.kernel_plan(True, B, H)["w_h_in_shared"]
     T = 257
@@ -1331,7 +1331,7 @@ def test_masked_lstm_forward_tensor_core_route(cuda, monkeypatch, H, B):
     the FMA route, within the same limits, and no launch is counted as a
     tensor-core launch."""
     from deepxi_tpu_torch.ops.kernels import _build, lstm
-    lib = lstm.bind(_build.load("lstm", {"LSTM_FWD_TC_ROWS": 1}))
+    lib = _build.load("lstm", {"LSTM_FWD_TC_ROWS": 1})
     monkeypatch.setattr(lstm, "_lib", lambda: lib)
     plan = lstm.kernel_plan(False, B, H)
     one_stage = -(-B // plan["R"]) <= 32

@@ -14,6 +14,7 @@ perfbench/tests/test_perfbench_spans.py."""
 import contextlib
 import os
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -187,7 +188,7 @@ def test_the_build_loader_spans_its_miss_path_only(monkeypatch):
     built = []
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "build", lambda specs: built.extend(specs))
-    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: object())
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: mock.Mock())
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         lib = _build.load("spectral")
         assert _build.load("spectral") is lib

@@ -67,13 +67,6 @@ def _ms(fn, iters=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _lib(defines):
-    lib = lstm.bind(_build.load("lstm", {"LSTM_PHASES": 1, **defines}))
-    lib.masked_lstm_phases.argtypes = [ctypes.c_void_p]
-    lib.masked_lstm_phases.restype = ctypes.c_int
-    return lib
-
-
 def _use(lib) -> None:
     lstm._lib = lambda: lib  # noqa: E731
 
@@ -86,8 +79,8 @@ def main() -> int:
                           timeout=60).stdout.strip()
     _build.build([("lstm", {"LSTM_PHASES": 1, **d}) for _, d in ROUTES]
                  + [("lstm", d) if d else "lstm" for _, d in ROUTES])
-    timed = {name: _lib(d) for name, d in ROUTES}
-    plain = {name: lstm.bind(_build.load("lstm", d or None)) for name, d in ROUTES}
+    timed = {name: _build.load("lstm", {"LSTM_PHASES": 1, **d}) for name, d in ROUTES}
+    plain = {name: _build.load("lstm", d) for name, d in ROUTES}
     ns = (ctypes.c_ulonglong * 16)()
     dev = torch.device("cuda")
     for B, T in SHAPES:
